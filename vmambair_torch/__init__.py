@@ -1,0 +1,7 @@
+"""VmambaIR in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+
+A port of `vmambair_tpu` (JAX/Flax/Pallas), which stays the reference. The
+layout mirrors it: `ops/` (scan and GDFN kernels with their plain
+versions), `models/`, `utils/`, and `inference.py`. The CUDA sources are in
+`csrc/` and are built by `_build.py` at first use.
+"""

@@ -1,0 +1,185 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Every `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into one
+shared library with a plain C interface. The library lands in a build
+directory keyed by a hash of the sources and the flags, so an unchanged
+checkout builds once. The default directory is `build/vmambair_torch/` at
+the repository root (listed in `.gitignore`); `VMAMBAIR_TORCH_BUILD_DIR`
+overrides it. A missing `nvcc` or a failed build raises.
+
+It also holds the rules the kernel wrappers share at the ctypes boundary:
+tensors all on the CPU go to the plain version, all on CUDA go to the
+kernel, any mix raises (`on_cpu`); activations are fp32 or bf16
+(`dtype_code`); small parameters pass as contiguous fp32 (`f32`); a launch
+runs with its tensors' device current, on that device's current stream,
+and raises on a CUDA error (`launch`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+DEFAULT_BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "vmambair_torch",
+)
+CUDA_HOME_DEFAULT = "/usr/local/cuda"
+LIB_NAME = "libvmambair_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+# argument types of each exported C function (pointers and the stream as
+# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int)
+SIGNATURES = {
+    "vmt_oss_scan_fused_fwd": [
+        _P, _I, _P, _P, _P, _P, _P, _P,          # u, dt, y, wxp..Ds
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G D L N R rev sp stream
+    ],
+    "vmt_selective_scan_fwd": [
+        _P, _I, _LL, _LL, _LL,                   # u (B, L, D)
+        _P, _I, _LL, _LL, _LL,                   # delta (B, L, D)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (B, L, G, N)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (B, L, G, N)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL,                   # y (B, D, L)
+        _I, _I, _I, _I, _I, _I, _I, _P,          # B L D G N rev sp stream
+    ],
+    "vmt_gdfn_residual_fwd": [
+        _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
+        _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
+    ],
+}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then /usr/local/cuda; raises."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append(os.path.join(CUDA_HOME_DEFAULT, "bin", "nvcc"))
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        f"{CUDA_HOME_DEFAULT}/bin): the CUDA kernels cannot be built"
+    )
+
+
+def nvcc_command(nvcc: str, out_path: str) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", out_path, *sources()]
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build(build_dir: str | None = None) -> str:
+    """Compiles the kernels unless this source hash is already built;
+    returns the library's path. The compiler's report (registers, shared
+    memory, spills from `-Xptxas -v`) is kept beside it as `build.log`."""
+    root = build_dir or os.environ.get(
+        "VMAMBAIR_TORCH_BUILD_DIR", DEFAULT_BUILD_DIR)
+    out_dir = os.path.join(root, source_hash())
+    lib = os.path.join(out_dir, LIB_NAME)
+    if os.path.isfile(lib):
+        return lib
+    nvcc = find_nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = nvcc_command(nvcc, tmp)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Builds (if needed) and loads the kernels, with typed signatures."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raises if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t: torch.Tensor, what: str) -> int:
+    """The C interface's code for an activation dtype; raises for others."""
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: dtype {t.dtype} not supported "
+                        "(float32 or bfloat16)")
+    return _DTYPE_CODE[t.dtype]
+
+
+def f32(t: torch.Tensor) -> torch.Tensor:
+    """Small parameter tensors go to the kernel as contiguous fp32."""
+    return t.detach().to(torch.float32).contiguous()
+
+
+def on_cpu(*ts) -> bool:
+    """True when every given tensor is on the CPU, False when every one is
+    on CUDA; raises for a mix (None entries are skipped)."""
+    devs = {t.device.type for t in ts if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on {sorted(devs)}: expected all on cpu or "
+                     "all on cuda")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Calls the exported C function `name` with `args` and the current
+    stream of `device`, with `device` made the current one (the runtime
+    launches on the current device), and raises on a CUDA error."""
+    fn = getattr(load_library(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)

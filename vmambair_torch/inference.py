@@ -1,0 +1,82 @@
+#!/usr/bin/env python
+"""Single-image / folder inference CLI of the PyTorch port.
+
+Counterpart of `vmambair_tpu/inference.py`, with the same flags plus
+`--device` (default `cuda`; there is no silent CPU fallback). It builds the
+net, loads a torch state dict (`scripts/convert_jax_to_torch.py` writes one
+from a JAX `.ckpt`) and runs `RestorationUpscaler`: tiled when `--tile` is
+given, else the whole image padded to the window.
+
+    python inference_torch.py --model_path net_g.pth --arch MambaSISR6 \
+        --input inputs/ --output results/ --scale 4 [--tile 128]
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+
+import torch
+
+from .models import build_network
+from .utils.convert import load_network
+from .utils.upscaler import RestorationUpscaler
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model_path", type=str, required=True)
+    parser.add_argument("--arch", type=str, default="MambaSISR6")
+    parser.add_argument("-i", "--input", type=str, default="inputs")
+    parser.add_argument("-o", "--output", type=str, default="results")
+    parser.add_argument("-s", "--scale", type=int, default=4)
+    parser.add_argument("--tile", type=int, default=0,
+                        help="fixed-tile chop inference (0 = whole image)")
+    parser.add_argument("--tile_pad", type=int, default=0)
+    parser.add_argument("--window", type=int, default=0,
+                        help="pad-to-multiple window; default 32/16/8 by "
+                        "scale")
+    parser.add_argument("--network_opt", type=str, default=None,
+                        help="JSON kwargs for the arch")
+    parser.add_argument("--sp", action="store_true",
+                        help="sequence-parallel scans (not ported yet)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device, e.g. cuda, cuda:1 or cpu")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.sp:
+        raise SystemExit("--sp: sequence-parallel scans are not ported to "
+                         "the PyTorch package yet")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device")
+    import cv2  # image I/O only
+
+    window = args.window or {1: 32, 2: 16, 4: 8}.get(args.scale, 8)
+    network_g = {"type": args.arch, "scale": args.scale}
+    if args.network_opt:
+        network_g.update(json.loads(args.network_opt))
+    net = build_network(network_g, device="cpu")
+    net.load_state_dict(load_network(args.model_path))
+    ups = RestorationUpscaler(
+        args.scale, net, device, tile=args.tile, tile_pad=args.tile_pad,
+        pre_pad=0, window=window, tile_batch=16)
+
+    os.makedirs(args.output, exist_ok=True)
+    paths = ([args.input] if os.path.isfile(args.input)
+             else sorted(glob.glob(os.path.join(args.input, "*"))))
+    for path in paths:
+        name = os.path.splitext(os.path.basename(path))[0]
+        print(f"Processing {name} ...")
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        out, _ = ups.enhance(img)
+        cv2.imwrite(os.path.join(args.output, f"{name}_out.png"), out)
+
+
+if __name__ == "__main__":
+    main()

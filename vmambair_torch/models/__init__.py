@@ -1,0 +1,82 @@
+"""Model architectures and the MambaSISR6 preset.
+
+Counterpart of `vmambair_tpu/models/__init__.py`. The reference names its
+arch in YAML `network_g.type`; the same names work here. This slice ports
+`OSSNet` and the `MambaSISR6` preset (x4 SISR); the other presets follow.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vmambair_tpu.utils.registry import Registry
+
+from .layers import Conv2d, FeedForward, LayerNorm2d
+from .oss import OSS
+from .unet import MamberBlock, OSSNet
+
+ARCH_REGISTRY = Registry("torch_arch")
+ARCH_REGISTRY.register(OSSNet)
+
+
+@ARCH_REGISTRY.register(name="MambaSISR6")
+def mamba_sisr6(**kw):
+    """x4 SISR generator at its shipped size (`MambaSISR15_x4.yml`): dim 48,
+    blocks [15, 1, 1, 1], 15 refinement blocks, conv4 channel scan."""
+    cfg = dict(
+        scale=4,
+        dim=48,
+        num_blocks=(15, 1, 1, 1),
+        num_refinement_blocks=15,
+        channel_version="conv4",
+        channel_attn="mul",
+        tail="pixelshuffle",
+    )
+    cfg.update(kw)
+    return OSSNet(**_normalize(cfg))
+
+
+def _normalize(cfg: dict) -> dict:
+    """Map reference YAML keys to OSSNet fields and drop vestigial ones."""
+    cfg = dict(cfg)
+    cfg.pop("heads", None)
+    cfg.pop("scan_impl", None)  # the JAX package's backend switch
+    if "LayerNorm_type" in cfg:
+        cfg["ln_bias"] = cfg.pop("LayerNorm_type") != "BiasFree"
+    if "bias" in cfg:
+        cfg["use_bias"] = cfg.pop("bias")
+    if "num_blocks" in cfg:
+        cfg["num_blocks"] = tuple(cfg["num_blocks"])
+    return cfg
+
+
+def init_weights(model: torch.nn.Module, gen: torch.Generator):
+    """Draws every convolution and scan parameter from `gen`, in module
+    order (torch's default conv init, the reference's SSM init)."""
+    for m in model.modules():
+        if isinstance(m, (Conv2d, OSS)):
+            m.reset_parameters(gen)
+    return model
+
+
+def build_network(opt: dict, device="cpu", seed: int = 0):
+    """Builds an arch from a YAML `network_g` block, with weights drawn from
+    `torch.Generator().manual_seed(seed)`, on `device`."""
+    opt = dict(opt)
+    factory = ARCH_REGISTRY.get(opt.pop("type"))
+    net = factory(**opt)
+    init_weights(net, torch.Generator().manual_seed(seed))
+    return net.to(device)
+
+
+__all__ = [
+    "ARCH_REGISTRY",
+    "Conv2d",
+    "FeedForward",
+    "LayerNorm2d",
+    "MamberBlock",
+    "OSS",
+    "OSSNet",
+    "build_network",
+    "init_weights",
+]
