@@ -8,23 +8,41 @@ non-zero, and without a CUDA device the script stops before any result:
 
 1. probe  - torch/CUDA versions, the card, its capability and power limit;
 2. build  - compiles `vmambair_torch/csrc/*.cu` with nvcc for sm_90a;
-3. kernels vs plain - each kernel at the main path's shapes against its
-   plain PyTorch version on the same inputs on the card: fp32 within the
-   reference CUDA envelope (rtol 6e-4, atol 2e-3), bf16 within 3e-2 /
-   5e-2; times from CUDA events (median of repeats);
+3. kernels vs plain - each kernel at the main paths' shapes against its
+   plain PyTorch version on the same inputs on the card. The forwards (K1,
+   K4, K2): fp32 within the reference CUDA envelope (rtol 6e-4, atol
+   2e-3), bf16 within 3e-2 / 5e-2. The carry-saving forwards (K1c, K4c):
+   y equal to K1's / K4's, carries within the fp32 envelope. The scan
+   backward (K3): all seven outputs within 5x the fp32 envelope (rtol
+   3e-3, atol 1e-2), on fp32 and on bf16 inputs. Times from CUDA events
+   (median of repeats) for the kernel and the plain version, beside the
+   least time the card could take (bound) at the case's shapes;
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
+4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
+   parameter's gradient through the kernels against the plain path on the
+   card within 2e-3 of its largest entry, and every scan and GDFN
+   parameter's gradient non-zero and finite;
 5. serve  - full-size MambaSISR6 (bf16 activations, fp32 weights, seeded
    weights) answers 3 requests of a 512x256 image through
    `RestorationUpscaler.tile_process` (tile 128, tile_pad 0, tile_batch 8:
    one batch of 8 tiles each); checks the output shape, finiteness and
    that each kernel launched exactly as often as the dispatch predicts;
-   then a torch.profiler table of one more request, by kernel and op, is
-   printed (top rows) and written to `chiprun_out/serve_profile.txt`.
+   then a torch.profiler table of one more request is printed (top rows)
+   and written to `chiprun_out/serve_profile.txt`;
+6. train  - full-size MambaSISR6 through `build_model` with the recipe of
+   `options/MambaSISR15_x4.yml` (L1, Adam 2e-4 (0.9, 0.99), EMA 0.999,
+   MultiStepLR), fp32, on one fixed seeded batch of 8 64x64 LQ / 256x256
+   GT: 1 warm-up step and 5 timed steps (ms per step, GT MP/s, peak
+   memory), the launches of every step against the dispatch's
+   prediction, finite losses falling from step 1 to step 6; save, resume
+   into a new model, one more step on each: the same step; a
+   torch.profiler table of one step in `chiprun_out/train_profile.txt`.
 
-The second-to-last lines are a JSON object of the kernels (launches in the
-serve phase, max error and times from phase 3) and the card's name and
-power limit from nvidia-smi; the last line is
+fp32 matrix products and convolutions run in full fp32 (TF32 off). The
+second-to-last lines are a JSON object of the kernels (launches in the
+serve and train phases, max error, times and bound from phase 3) and the
+card's name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -33,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,41 +62,91 @@ import torch
 
 from vmambair_torch import _build
 from vmambair_torch.models import MamberBlock, build_network
-from vmambair_torch.models import layers as _layers
-from vmambair_torch.models import oss as _oss
 from vmambair_torch.ops import cuda_effn, cuda_scan
+from vmambair_torch.train import build_model
 from vmambair_torch.utils.upscaler import RestorationUpscaler
 
+PALLAS = "vmambair_tpu/ops/pallas_scan.py"
 KERNELS = {
     "oss_scan_fused": dict(
-        fn=cuda_scan.oss_scan_fused,
+        fn=cuda_scan.oss_scan_fused_fwd,
         source="vmambair_torch/csrc/oss_scan_fused.cu",
-        replaces="vmambair_tpu/ops/pallas_scan.py:1112"),
+        replaces=f"{PALLAS}:1112"),
+    "oss_scan_fused_carries": dict(
+        fn=cuda_scan.oss_scan_fused_fwd_carries,
+        source="vmambair_torch/csrc/oss_scan_fused.cu",
+        replaces=f"{PALLAS}:1161"),
     "selective_scan": dict(
-        fn=cuda_scan.selective_scan,
+        fn=cuda_scan.selective_scan_fwd,
         source="vmambair_torch/csrc/selective_scan.cu",
-        replaces="vmambair_tpu/ops/pallas_scan.py:74"),
+        replaces=f"{PALLAS}:74"),
+    "selective_scan_carries": dict(
+        fn=cuda_scan.selective_scan_fwd_carries,
+        source="vmambair_torch/csrc/selective_scan.cu",
+        replaces=f"{PALLAS}:401"),
+    "selective_scan_bwd": dict(
+        fn=cuda_scan.selective_scan_bwd,
+        source="vmambair_torch/csrc/selective_scan_bwd.cu",
+        replaces=f"{PALLAS}:694"),
     "gdfn_residual_fused": dict(
-        fn=cuda_effn.gdfn_residual_fused,
+        fn=cuda_effn.gdfn_residual_fwd,
         source="vmambair_torch/csrc/gdfn.cu",
         replaces="vmambair_tpu/ops/pallas_effn.py:119"),
 }
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
+BWD_TOL = (3e-3, 1e-2)
+GRAD_BAR = 2e-3
 OUT_DIR = "chiprun_out"
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; fp32 outside the
+# tensor cores and bf16 dense tensor-core FLOP/s
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+# the S1 recipe of options/MambaSISR15_x4.yml (the script reads no YAML:
+# the card's machine need not have a YAML parser)
+RECIPE = {
+    "name": "MambaSISR15_x4", "model_type": "MambaSISRModel", "scale": 4,
+    "manual_seed": 0, "is_train": True,
+    "network_g": {"type": "MambaSISR6", "inp_channels": 3,
+                  "out_channels": 3, "dim": 48,
+                  "num_blocks": [15, 1, 1, 1], "num_refinement_blocks": 15,
+                  "ffn_expansion_factor": 2.66, "bias": False,
+                  "LayerNorm_type": "WithBias"},
+    "train": {"ema_decay": 0.999,
+              "optim_g": {"type": "Adam", "lr": 2e-4, "weight_decay": 0,
+                          "betas": [0.9, 0.99]},
+              "scheduler": {"type": "MultiStepLR",
+                            "milestones": [50000, 70000], "gamma": 0.5},
+              "total_iter": 100000, "warmup_iter": -1,
+              "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0,
+                            "reduction": "mean"}},
+    "val": {"window_size": 8},
+}
+SCAN_PARAMS = ("x_proj_weight", "dt_projs_weight", "dt_projs_bias",
+               "A_logs", "Ds", "xc_proj_weight", "dtc_projs_weight",
+               "dtc_projs_bias", "Ac_logs", "Dsc")
+GDFN_PARAMS = ("ffn.project_in.weight", "ffn.dwconv.weight",
+               "ffn.project_out.weight", "norm2.body.weight",
+               "norm2.body.bias")
 
 
-def expected_launches(net) -> dict:
-    """Kernel launches of one forward, as the port's dispatch routes it:
-    per MamberBlock two spatial pair scans (K1 when the width is at most
-    256, else K4), one channel scan (K4) and one GDFN (K2)."""
+def expected_launches(net, train: bool = False) -> dict:
+    """Kernel launches of one forward (train: one training step), as the
+    port's dispatch routes it: per MamberBlock two spatial pair scans (K1
+    when the width is at most 256, else K4), one channel scan (K4) and one
+    GDFN (K2). A training step takes the carry-saving forwards (K1c, K4c)
+    instead of K1 and K4, and one scan backward (K3) per scan."""
     out = dict.fromkeys(KERNELS, 0)
+    sfx = "_carries" if train else ""
     for m in net.modules():
         if not isinstance(m, MamberBlock):
             continue
         wide = not cuda_scan.fused_scan_supported(m.attn.d_inner,
                                                   m.attn.d_state)
-        out["selective_scan" if wide else "oss_scan_fused"] += 2
-        out["selective_scan"] += 1
+        out[("selective_scan" if wide else "oss_scan_fused") + sfx] += 2
+        out["selective_scan" + sfx] += 1
+        if train:
+            out["selective_scan_bwd"] += 3
         if not m.use_bias and m.ln_bias:
             out["gdfn_residual_fused"] += 1
     return out
@@ -110,6 +179,9 @@ def time_ms(fn, reps=5) -> float:
 
 def check_close(name, got, ref, rtol, atol) -> float:
     got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        raise SystemExit(f"FAIL {name}: shape {tuple(got.shape)} vs "
+                         f"{tuple(ref.shape)}")
     if not torch.isfinite(got).all():
         raise SystemExit(f"FAIL {name}: non-finite kernel output")
     err = (got - ref).abs()
@@ -129,6 +201,19 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(bytes_moved, fp32_ops, bf16_mma=0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over their peak rate."""
+    t_b = bytes_moved / HBM_BPS * 1e3
+    t_o = (fp32_ops / FP32_FLOPS + bf16_mma / BF16_TC_FLOPS) * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
 # -- phase 1 + 2 ---------------------------------------------------------------
 
 def probe():
@@ -144,6 +229,8 @@ def probe():
     if cap != (9, 0):
         raise SystemExit(f"FAIL probe: capability {cap}; the kernels are "
                          "built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def build():
@@ -192,12 +279,9 @@ def _scan_case(b, L, d, dtype, gen, n_groups=2, N=16, lifted=True):
                / dg ** 0.5).to(dev)
         dtw = ((torch.rand(n_groups, dg, R, generator=gen) * 2 - 1)
                / R ** 0.5).to(dev)
-        x_dbl = torch.einsum("bgdl,gcd->bgcl", u2.float(), xpw)
-        dts = torch.einsum("bgrl,gdr->bgdl", x_dbl[:, :, :R], dtw)
-        u = u2.reshape(b, d, L).transpose(1, 2)
-        delta = dts.reshape(b, d, L).transpose(1, 2)
-        Bm = x_dbl[:, :, R:R + N].permute(0, 3, 1, 2)
-        Cm = x_dbl[:, :, R + N:].permute(0, 3, 1, 2)
+        (u, delta, _, Bm, Cm, _, _), _ = cuda_scan.fused_scan_inputs(
+            u2, xpw, dtw, bias.view(n_groups, dg), A.view(n_groups, dg, N),
+            Dsk.view(n_groups, dg))
     else:
         u = torch.randn(b, L, d, generator=gen).to(dev, dtype)
         delta = torch.randn(b, L, d, generator=gen).to(dev)
@@ -219,82 +303,234 @@ def _gdfn_case(b, c, hw, dtype, gen):
     )
 
 
+def _fused_bound(args, carries=False):
+    u2 = args[0]
+    b, g, d, L = u2.shape
+    N, R = args[4].shape[2], args[2].shape[2]
+    el = b * g * d * L
+    by = 2 * nbytes(u2) + nbytes(*args[1:])
+    if carries:
+        by += b * g * d * cuda_scan.n_chunks(L) * N * 4
+    ops = 10 * el * N + 2 * el * (2 * R + 2 * N)
+    return bound(by, ops)
+
+
+def _scan_bound(args, out_dtype, carries=False):
+    u, delta, A, Bm, Cm, _, _ = args
+    b, L, d = u.shape
+    N = A.shape[1]
+    by = (nbytes(*args) + b * L * d * torch.finfo(out_dtype).bits // 8)
+    if carries:
+        by += b * d * cuda_scan.n_chunks(L) * N * 4
+    return bound(by, 10 * b * L * d * N)
+
+
+def _bwd_bound(args, dy):
+    u, delta, A, Bm, Cm, _, _ = args
+    b, L, d = u.shape
+    N = A.shape[1]
+    # inputs and carries read once; du, ddelta, dA, dB, dC, dD, dbias
+    # written once (fp32)
+    by = (nbytes(*args, dy) + b * d * cuda_scan.n_chunks(L) * N * 4
+          + 4 * (2 * b * L * d + 2 * b * L * Bm.shape[2] * N + d * N + 2 * d))
+    return bound(by, 24 * b * L * d * N)
+
+
+def _gdfn_bound(args):
+    x, _, _, w_in, _, w_out = args
+    b, c, h, w = x.shape
+    hid = w_out.shape[1]
+    px = b * h * w
+    mma = 2 * px * (2 * hid * c + hid * c)
+    other = px * (2 * hid * 18 + hid * 20 + 10 * c)
+    by = 2 * nbytes(x) + nbytes(*args[1:])
+    if x.dtype == torch.bfloat16:
+        return bound(by, other, mma)
+    return bound(by, other + mma)
+
+
 def kernels_vs_plain() -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Each case: (kernel name, label, dtype, kernel call, plain call,
+    compare(got, ref) -> max error, bound). The first case of each kernel
+    is its main-path shape: its times go into the kernels line."""
     gen = torch.Generator().manual_seed(0)
-    stats = {name: dict(max_abs_err=0.0, ms=None, plain_ms=None)
+    stats = {name: dict(max_abs_err=0.0, ms=None, plain_ms=None,
+                        bound_ms=None, bound_by=None, library_ms=None)
              for name in KERNELS}
     cases = []
+
+    def fwd_cmp(label, dtype):
+        return lambda got, ref: check_close(label, got, ref, *TOL[dtype])
+
+    def carries_cmp(label, kernel_y):
+        def cmp(got, ref):
+            y, car = got
+            if not torch.equal(y, kernel_y()):
+                raise SystemExit(f"FAIL {label}: y differs from the "
+                                 "no-carry kernel's")
+            return check_close(label + " carries", car, ref[1],
+                               *TOL[torch.float32])
+        return cmp
+
+    def bwd_cmp(label):
+        def cmp(got, ref):
+            names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+            return max(check_close(f"{label} {n}", g, r, *BWD_TOL)
+                       for n, g, r in zip(names, got, ref))
+        return cmp
+
+    def add(name, label, dtype, kern, plain, cmp, bnd):
+        cases.append((name, label, dtype, kern, plain, cmp, bnd))
+
+    # serve: K1, K4, K2 (bf16 first: the serve dtype)
     for dtype in (torch.bfloat16, torch.float32):
         for (b, d, L) in ((8, 48, 16384), (8, 192, 1024)):
             for rev in (False, True):
-                args = _fused_case(b, d, L, dtype, gen)
-                cases.append((
-                    "oss_scan_fused", f"({b},2,{d},{L}) rev={rev}", dtype,
-                    lambda a=args, r=rev: cuda_scan.oss_scan_fused(
+                a = _fused_case(b, d, L, dtype, gen)
+                lab = f"({b},2,{d},{L}) rev={rev}"
+                add("oss_scan_fused", lab, dtype,
+                    lambda a=a, r=rev: cuda_scan.oss_scan_fused_fwd(
                         *a, reverse=r),
-                    lambda a=args, r=rev: cuda_scan.oss_scan_fused_ref(
-                        *a, reverse=r)))
+                    lambda a=a, r=rev: cuda_scan.oss_scan_fused_ref(
+                        *a, reverse=r),
+                    fwd_cmp(f"K1 {lab} {dtype}", dtype), _fused_bound(a))
         for rev in (False, True):
-            args = _scan_case(8, 256, 768, dtype, gen)
-            cases.append((
-                "selective_scan", f"latent (8,256,768) G=2 rev={rev}", dtype,
-                lambda a=args, r=rev: cuda_scan.selective_scan(
+            a = _scan_case(8, 256, 768, dtype, gen)
+            lab = f"latent (8,256,768) G=2 rev={rev}"
+            add("selective_scan", lab, dtype,
+                lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
                     *a, delta_softplus=True, reverse=r),
-                lambda a=args, r=rev: cuda_scan.selective_scan_ref(
-                    *a, delta_softplus=True, reverse=r)))
-        for (b, c, hw) in ((8, 48, 128), (8, 384, 16)):
-            args = _gdfn_case(b, c, hw, dtype, gen)
-            cases.append((
-                "gdfn_residual_fused", f"({b},{c},{hw},{hw})", dtype,
-                lambda a=args: cuda_effn.gdfn_residual_fused(*a),
-                lambda a=args: cuda_effn.gdfn_residual_ref(*a)))
-    args = _scan_case(8, 96, 8, torch.float32, gen, lifted=False)
-    cases.append((
-        "selective_scan", "channel scan (8,96,8) G=2", torch.float32,
-        lambda a=args: cuda_scan.selective_scan(*a, delta_softplus=True),
-        lambda a=args: cuda_scan.selective_scan_ref(*a,
-                                                     delta_softplus=True)))
+                lambda a=a, r=rev: cuda_scan.selective_scan_ref(
+                    *a, delta_softplus=True, reverse=r),
+                fwd_cmp(f"K4 {lab} {dtype}", dtype), _scan_bound(a, dtype))
+        for (b, c, hw) in ((8, 48, 128), (8, 384, 16), (8, 96, 64)):
+            a = _gdfn_case(b, c, hw, dtype, gen)
+            lab = f"({b},{c},{hw},{hw})"
+            add("gdfn_residual_fused", lab, dtype,
+                lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
+                lambda a=a: cuda_effn.gdfn_residual_ref(*a),
+                fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
+    a = _scan_case(8, 96, 8, torch.float32, gen, lifted=False)
+    add("selective_scan", "channel scan (8,96,8) G=2", torch.float32,
+        lambda a=a: cuda_scan.selective_scan_fwd(*a, delta_softplus=True),
+        lambda a=a: cuda_scan.selective_scan_ref(*a, delta_softplus=True),
+        fwd_cmp("K4 channel", torch.float32), _scan_bound(a, torch.float32))
 
-    for name, shape, dtype, kern, plain in cases:
+    # train: K1c, K4c, K3 at the S1 step's shapes (fp32 first: the
+    # training dtype), K3 fed by the carries of the forward it follows
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, d, L) in ((8, 96, 4096), (8, 48, 4096), (8, 96, 1024),
+                          (8, 192, 256)):
+            for rev in (False, True):
+                a = _fused_case(b, d, L, dtype, gen)
+                lab = f"({b},2,{d},{L}) rev={rev}"
+                add("oss_scan_fused_carries", lab, dtype,
+                    lambda a=a, r=rev: cuda_scan.oss_scan_fused_fwd_carries(
+                        *a, reverse=r),
+                    lambda a=a, r=rev: cuda_scan.oss_scan_fused_carries_ref(
+                        *a, reverse=r),
+                    carries_cmp(f"K1c {lab} {dtype}",
+                                lambda a=a, r=rev: cuda_scan
+                                .oss_scan_fused_fwd(*a, reverse=r)),
+                    _fused_bound(a, carries=True))
+                _, car = cuda_scan.oss_scan_fused_fwd_carries(*a, reverse=rev)
+                s, _ = cuda_scan.fused_scan_inputs(*a)
+                dy = torch.randn(b, 2 * d, L, generator=gen).to(
+                    "cuda", dtype).transpose(1, 2)
+                add("selective_scan_bwd", f"fused {lab}", dtype,
+                    lambda s=s, dy=dy, c=car, r=rev: cuda_scan
+                    .selective_scan_bwd(*s, dy, c, delta_softplus=True,
+                                        reverse=r),
+                    lambda s=s, dy=dy, r=rev: cuda_scan
+                    .selective_scan_bwd_ref(*s, dy, delta_softplus=True,
+                                            reverse=r),
+                    bwd_cmp(f"K3 fused {lab} {dtype}"), _bwd_bound(s, dy))
+        scans = [(f"latent (8,64,768) G=2 rev={rev}", rev,
+                  _scan_case(8, 64, 768, dtype, gen)) for rev in (False, True)]
+        scans += [(f"channel scan (8,{c},8) G=2", False,
+                   _scan_case(8, c, 8, dtype, gen, lifted=False))
+                  for c in (48, 96, 192, 384)]
+        for lab, rev, a in scans:
+            add("selective_scan_carries", lab, dtype,
+                lambda a=a, r=rev: cuda_scan.selective_scan_fwd_carries(
+                    *a, delta_softplus=True, reverse=r),
+                lambda a=a, r=rev: cuda_scan.selective_scan_carries_ref(
+                    *a, delta_softplus=True, reverse=r),
+                carries_cmp(f"K4c {lab} {dtype}",
+                            lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
+                                *a, delta_softplus=True, reverse=r)),
+                _scan_bound(a, dtype, carries=True))
+            _, car = cuda_scan.selective_scan_fwd_carries(
+                *a, delta_softplus=True, reverse=rev)
+            dy = torch.randn(a[0].shape, generator=gen).to("cuda", dtype)
+            add("selective_scan_bwd", lab, dtype,
+                lambda a=a, dy=dy, c=car, r=rev: cuda_scan.selective_scan_bwd(
+                    *a, dy, c, delta_softplus=True, reverse=r),
+                lambda a=a, dy=dy, r=rev: cuda_scan.selective_scan_bwd_ref(
+                    *a, dy, delta_softplus=True, reverse=r),
+                bwd_cmp(f"K3 {lab} {dtype}"), _bwd_bound(a, dy))
+
+    for name, label, dtype, kern, plain, cmp, bnd in cases:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
-        rtol, atol = TOL[dtype]
-        err = check_close(f"{name} {shape} {dtype}", got, ref, rtol, atol)
-        ms, pms = time_ms(kern), time_ms(plain, reps=3)
-        print(f"[kernels] {name} {shape} {str(dtype)[6:]}: max abs err "
-              f"{err:.3e} (rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, "
-              f"plain {pms:.3f} ms")
+        err = cmp(got, ref)
+        del got, ref
         st = stats[name]
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        if st["ms"] is None:  # the first case: the bench shape in bf16
-            st["ms"], st["plain_ms"] = ms, pms
+        line = (f"[kernels] {name} {label} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e}")
+        if st["ms"] is None:  # the first case: the main path's shape
+            st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=3)
+            st.update(bnd)
+            line += (f"; kernel {st['ms']:.3f} ms, plain "
+                     f"{st['plain_ms']:.3f} ms, bound {bnd['bound_ms']:.4f}"
+                     f" ms ({bnd['bound_by']})")
+        print(line)
+    torch.cuda.empty_cache()
     return stats
 
 
 # -- phase 4: the model, kernels vs plain --------------------------------------
 
+def _bwd_ref_from_carries(*args, **kw):
+    """The plain scan backward in the place of K3 (it needs no carries)."""
+    *scan_args, dy, _carries = args
+    return cuda_scan.selective_scan_bwd_ref(*scan_args, dy, **kw)
+
+
 @contextlib.contextmanager
 def plain_ops():
-    """Routes the model's kernel calls to the plain versions, on CUDA
-    tensors too, for the comparison only."""
-    saved = (_oss.oss_scan_fused, _oss.selective_scan,
-             _layers.gdfn_residual_fused)
-    _oss.oss_scan_fused = cuda_scan.oss_scan_fused_ref
-    _oss.selective_scan = cuda_scan.selective_scan_ref
-    _layers.gdfn_residual_fused = cuda_effn.gdfn_residual_ref
+    """Routes every kernel wrapper to its plain version, on CUDA tensors
+    too, for the comparison only: the forward entry points and the
+    autograd Functions then run the plain path."""
+    swaps = [
+        (cuda_scan, "oss_scan_fused_fwd", cuda_scan.oss_scan_fused_ref),
+        (cuda_scan, "oss_scan_fused_fwd_carries",
+         cuda_scan.oss_scan_fused_carries_ref),
+        (cuda_scan, "selective_scan_fwd", cuda_scan.selective_scan_ref),
+        (cuda_scan, "selective_scan_fwd_carries",
+         cuda_scan.selective_scan_carries_ref),
+        (cuda_scan, "selective_scan_bwd", _bwd_ref_from_carries),
+        (cuda_effn, "gdfn_residual_fwd", cuda_effn.gdfn_residual_ref),
+    ]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (_oss.oss_scan_fused, _oss.selective_scan,
-         _layers.gdfn_residual_fused) = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def _reduced_net(seed):
+    return build_network(dict(type="MambaSISR6", num_blocks=[1, 1, 1, 1],
+                              num_refinement_blocks=1), seed=seed)
 
 
 def model_vs_plain():
-    net = build_network(dict(type="MambaSISR6", num_blocks=[1, 1, 1, 1],
-                             num_refinement_blocks=1), device="cuda", seed=1)
+    net = _reduced_net(1)
     x = torch.rand(8, 3, 128, 128, generator=torch.Generator().manual_seed(2)
                    ).cuda()
     with torch.inference_mode():
@@ -314,11 +550,72 @@ def model_vs_plain():
           "(first calls)")
 
 
+def _grads(net, lq, gt):
+    net.zero_grad(set_to_none=True)
+    (net(lq) - gt).abs().mean().backward()
+    torch.cuda.synchronize()
+    return {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+
+
+def model_grads_vs_plain():
+    net = _reduced_net(3)
+    g = torch.Generator().manual_seed(4)
+    gt = torch.rand(8, 3, 256, 256, generator=g)
+    lq = torch.nn.functional.avg_pool2d(gt, 4).cuda()
+    gt = gt.cuda()
+    want = expected_launches(net, train=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = _grads(net, lq, gt)
+    t1 = time.perf_counter()
+    counts = launches()
+    if counts != want:
+        raise SystemExit(f"FAIL model grads: launches {counts}, predicted "
+                         f"{want}")
+    with plain_ops():
+        ref = _grads(net, lq, gt)
+    t2 = time.perf_counter()
+    top = max(r.abs().max().item() for r in ref.values())
+    worst, checked = (0.0, ""), 0
+    for k, gk in got.items():
+        r = ref[k]
+        if not torch.isfinite(gk).all():
+            raise SystemExit(f"FAIL model grads: {k} not finite")
+        if k.endswith("conv_cout.bias"):
+            # a shift of every channel before a mean-subtracting LayerNorm:
+            # its exact gradient is 0, both sides must show only rounding
+            if max(gk.abs().max().item(), r.abs().max().item()) > 1e-5 * top:
+                raise SystemExit(f"FAIL model grads: {k} not ~0")
+            continue
+        rel = (gk - r).abs().max().item() / r.abs().max().item()
+        worst = max(worst, (rel, k))
+        checked += 1
+        if rel > GRAD_BAR:
+            raise SystemExit(f"FAIL model grads: {k} rel err {rel:.3e} > "
+                             f"{GRAD_BAR}")
+    kernel_params = [k for k in got if k.rsplit(".", 1)[-1] in SCAN_PARAMS
+                     or k.endswith(GDFN_PARAMS)]
+    zero = [k for k in kernel_params if not got[k].abs().max() > 0]
+    n_blocks = sum(isinstance(m, MamberBlock) for m in net.modules())
+    if zero or len(kernel_params) != n_blocks * (len(SCAN_PARAMS)
+                                                 + len(GDFN_PARAMS)):
+        raise SystemExit(f"FAIL model grads: zero gradients at {zero} "
+                         f"({len(kernel_params)} scan/GDFN tensors)")
+    print(f"[grads] MambaSISR6 widths, depth [1,1,1,1]+1, 8x64x64 LQ, L1, "
+          f"fp32: {checked} parameter tensors within {GRAD_BAR} of their "
+          f"largest entry (worst {worst[0]:.3e} at {worst[1]}); "
+          f"{len(kernel_params)} scan/GDFN tensors with non-zero finite "
+          f"gradients; launches {counts}; kernels {1e3 * (t1 - t0):.1f} ms,"
+          f" plain {1e3 * (t2 - t1):.1f} ms (first calls)")
+    del net, got, ref
+    torch.cuda.empty_cache()
+
+
 # -- phase 5: serve ------------------------------------------------------------
 
 def serve() -> dict:
     net = build_network(dict(type="MambaSISR6", dtype=torch.bfloat16),
-                        device="cuda", seed=0)
+                        seed=0)
     ups = RestorationUpscaler(4, net, "cuda", tile=128, tile_pad=0,
                               pre_pad=0, tile_batch=8)
     predicted = expected_launches(net)
@@ -352,24 +649,153 @@ def serve() -> dict:
           f"{1e3 * times[0]:.1f} ms; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
           f"{nvidia_smi_line()}")
-    profile_serve(ups)
+    profile("serve", lambda: ups.tile_process(
+        np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
     return counts
 
 
-def profile_serve(ups):
+# device kernels by class, for the "where the time goes" tables: the
+# first class whose key is in the kernel's name takes it
+KERNEL_CLASSES = (
+    ("K3 scan backward", ("selective_scan_bwd_kernel",)),
+    ("K1/K1c fused scan", ("oss_scan_fused_kernel",)),
+    ("K4/K4c scan", ("selective_scan_kernel",)),
+    ("K2 GDFN", ("gdfn_kernel",)),
+    ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "implicit",
+                      "cudnn", "winograd")),
+    ("matrix products (einsums)", ("gemm", "xmma", "cutlass", "splitK")),
+    ("optimizer (Adam, EMA)", ("multi_tensor", "adam", "lerp")),
+    ("copies", ("Memcpy", "Memset", "copy")),
+)
+
+
+def device_breakdown(prof) -> dict:
+    """Device time (ms) of the profiled kernels, by class."""
+    out = {}
+    for row in prof.key_averages():
+        # kernels only, as the table's own total counts them: no CPU rows,
+        # no ranges annotated on the device (such as Optimizer.step)
+        if row.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                row, "is_user_annotation", False):
+            continue
+        ms = getattr(row, "self_device_time_total",
+                     getattr(row, "self_cuda_time_total", 0)) / 1e3
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in row.key for k in keys)),
+                   "elementwise and reductions")
+        out[cls] = out.get(cls, 0.0) + ms
+    return out
+
+
+def profile(name, fn):
+    """A torch.profiler table of one call of fn (top rows printed, all in
+    chiprun_out/<name>_profile.txt) and its device time by class against
+    the host clock around the call."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    img = np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        ups.tile_process(img)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
     table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
+                                      row_limit=60)
+    by_class = device_breakdown(prof)
+    busy = sum(by_class.values())
+    summary = (f"[{name}] device time by class (ms): " + ", ".join(
+        f"{c} {v:.1f}" for c, v in sorted(by_class.items(),
+                                          key=lambda kv: -kv[1]))
+        + f"; device sum {busy:.1f} ms of {wall:.1f} ms on the host clock "
+        f"under the profiler (idle {100 * (1 - busy / wall):.1f}%)")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "serve_profile.txt"), "w") as f:
-        f.write(table)
+    with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
+        f.write(table + "\n" + summary + "\n")
     print("\n".join(table.splitlines()[:25]))
+    print(summary)
+
+
+# -- phase 6: train ------------------------------------------------------------
+
+def _train_batch():
+    """One seeded S1 pair: 8 256x256 GT crops and their 4x box-downsampled
+    64x64 LQ, NHWC float32 as the data layer hands them over."""
+    gt = np.random.RandomState(0).rand(8, 256, 256, 3).astype(np.float32)
+    lq = gt.reshape(8, 64, 4, 64, 4, 3).mean((2, 4))
+    return {"lq": lq, "gt": gt}
+
+
+def train() -> dict:
+    # checkpoints go to the git-ignored build/, not to the output directory
+    root = os.path.join("build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    opt = dict(RECIPE, path={"models": os.path.join(root, "models"),
+                             "training_states": os.path.join(root, "state")})
+    model = build_model(opt)
+    predicted = expected_launches(model.net_g, train=True)
+    print(f"[train] predicted launches per step: {predicted}")
+    batch = _train_batch()
+    model.feed_data(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times, before = [], [], launches()
+    for it in range(1, 7):  # step 1 warms up, steps 2-6 are timed
+        t0 = time.perf_counter()
+        model.optimize_parameters(it)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(model.get_current_log()["l_pix"])
+        now = launches()
+        step = {k: now[k] - before[k] for k in now}
+        before = now
+        if step != predicted:
+            raise SystemExit(f"FAIL train: step {it} launches {step}, "
+                             f"predicted {predicted}")
+        if not np.isfinite(losses[-1]):
+            raise SystemExit(f"FAIL train: step {it} loss {losses[-1]}")
+        print(f"[train] step {it}: {1e3 * times[-1]:.1f} ms, l_pix "
+              f"{losses[-1]:.6f}, lr {model.log_dict['lr']:g}")
+    counts = launches()
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL train: loss did not fall: {losses}")
+    step_ms = 1e3 * statistics.median(times[1:])
+    print(f"[train] ms per step (median of steps 2-6): {step_ms:.1f}; GT "
+          f"MP/s {8 * 256 * 256 / step_ms / 1e3:.3f}; first step "
+          f"{1e3 * times[0]:.1f} ms; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+          f"{nvidia_smi_line()}")
+
+    # save, resume into a new model, one more step on each: the same step
+    model.save(epoch=0, current_iter=6)
+    other = build_model(dict(opt, manual_seed=1))
+    other.load_net_g(os.path.join(root, "models", "net_g_6.pth"))
+    st = other.resume_training(os.path.join(root, "state", "6.state"))
+    if st != {"iter": 6, "epoch": 0}:
+        raise SystemExit(f"FAIL train: resumed state {st}")
+    torch.backends.cudnn.deterministic = True
+    step7 = []
+    for m in (model, other):
+        m.feed_data(batch)
+        m.optimize_parameters(7)
+        step7.append(m.get_current_log()["l_pix"])
+    torch.backends.cudnn.deterministic = False
+    worst = 0.0
+    for a, b in ((model.net_g, other.net_g),
+                 (model.net_g_ema, other.net_g_ema)):
+        for (k, v), w in zip(a.state_dict().items(),
+                             b.state_dict().values()):
+            worst = max(worst, (v - w).abs().max().item())
+    if step7[0] != step7[1] or worst > 1e-6:
+        raise SystemExit(f"FAIL train: resumed step differs: losses "
+                         f"{step7}, max weight difference {worst:.3e}")
+    print(f"[train] save + resume: step 7 loss {step7[0]:.6f} on both, "
+          f"max weight/EMA difference {worst:.3e}")
+    del other
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    profile("train", lambda: model.optimize_parameters(8))
+    return counts
 
 
 def main():
@@ -378,11 +804,19 @@ def main():
     build()
     stats = kernels_vs_plain()
     model_vs_plain()
-    counts = serve()
-    kernels = [dict(name=name, route="cuda", source=k["source"],
-                    replaces=k["replaces"], launches=counts[name],
-                    **stats[name])
-               for name, k in KERNELS.items()]
+    model_grads_vs_plain()
+    serve_counts = serve()
+    train_counts = train()
+    kernels = []
+    for name, k in KERNELS.items():
+        n = serve_counts[name] + train_counts[name]
+        if n == 0:
+            raise SystemExit(f"FAIL: {name} never launched on a main path")
+        kernels.append(dict(
+            name=name, route="cuda", source=k["source"],
+            replaces=k["replaces"], launches=n,
+            launches_serve=serve_counts[name],
+            launches_train=train_counts[name], **stats[name]))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

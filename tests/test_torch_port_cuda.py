@@ -8,7 +8,8 @@ CUDA device is present (as on a CPU-only machine). On a card, run
 Shapes are small and ragged (L not a multiple of the kernels' chunk, odd
 image sizes, N above one register batch) to reach the kernels' edges.
 Tolerances: fp32 within the reference CUDA envelope (rtol 6e-4, atol
-2e-3), bf16 within 3e-2 / 5e-2. No JAX here.
+2e-3), bf16 within 3e-2 / 5e-2; gradients and the scan backward within 5x
+the fp32 envelope (rtol 3e-3, atol 1e-2). No JAX here.
 """
 
 import pytest
@@ -21,6 +22,7 @@ from vmambair_torch.ops import cuda_effn, cuda_scan
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=6e-4, atol=2e-3),
        torch.bfloat16: dict(rtol=3e-2, atol=5e-2)}
+GRAD_TOL = dict(rtol=3e-3, atol=1e-2)
 
 
 @pytest.fixture
@@ -49,9 +51,9 @@ def test_oss_scan_fused_kernel_matches_plain(cuda, d, L, reverse, dtype):
             -torch.exp(torch.rand(2, d, N, generator=g) * 2),
             torch.randn(2, d, generator=g)]
     args[1:] = [a.to(cuda) for a in args[1:]]
-    n0 = cuda_scan.oss_scan_fused.launches
+    n0 = cuda_scan.oss_scan_fused_fwd.launches
     got = cuda_scan.oss_scan_fused(*args, reverse=reverse)
-    assert cuda_scan.oss_scan_fused.launches == n0 + 1
+    assert cuda_scan.oss_scan_fused_fwd.launches == n0 + 1
     _close(got, cuda_scan.oss_scan_fused_ref(*args, reverse=reverse), dtype)
 
 
@@ -111,10 +113,10 @@ def test_wide_block_raises_on_cuda(cuda):
     blk = MamberBlock(392)
     init_weights(blk, torch.Generator().manual_seed(0))
     blk = blk.to(cuda)
-    n0 = cuda_effn.gdfn_residual_fused.launches
+    n0 = cuda_effn.gdfn_residual_fwd.launches
     with torch.inference_mode(), pytest.raises(ValueError, match="C=392"):
         blk(torch.rand(1, 392, 8, 8, device=cuda))
-    assert cuda_effn.gdfn_residual_fused.launches == n0
+    assert cuda_effn.gdfn_residual_fwd.launches == n0
 
 
 def test_kernels_launch_on_a_device_that_is_not_current(cuda):
@@ -125,7 +127,8 @@ def test_kernels_launch_on_a_device_that_is_not_current(cuda):
     dev = torch.device("cuda:1")
     g = torch.Generator().manual_seed(5)
     net = build_network(dict(type="OSSNet", dim=40, num_blocks=[1, 1, 1, 1],
-                             num_refinement_blocks=1, scale=4), seed=1)
+                             num_refinement_blocks=1, scale=4), device=cuda,
+                        seed=1)
     x = torch.rand(1, 3, 16, 24, generator=g)
     with torch.inference_mode():
         ref = net.to(cuda)(x.to(cuda))
@@ -133,3 +136,169 @@ def test_kernels_launch_on_a_device_that_is_not_current(cuda):
             got = net.to(dev)(x.to(dev))
     assert got.device == dev
     torch.testing.assert_close(got.cpu(), ref.cpu(), **TOL[torch.float32])
+
+
+def _fused_args(cuda, d, L, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    N, R = 16, -(-d // 16)
+    args = [torch.randn(2, 2, d, L, generator=g).to(cuda, dtype),
+            torch.randn(2, R + 2 * N, d, generator=g) / d ** 0.5,
+            torch.randn(2, d, R, generator=g) / R ** 0.5,
+            torch.rand(2, d, generator=g) * 3 - 5,
+            -torch.exp(torch.rand(2, d, N, generator=g) * 2),
+            torch.randn(2, d, generator=g)]
+    return [args[0]] + [a.to(cuda) for a in args[1:]]
+
+
+def _scan_args(cuda, N, G, D, L, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(2, D, L, generator=g).to(cuda, dtype).transpose(1, 2)
+    args = [torch.randn(2, L, D, generator=g),
+            -torch.exp(torch.rand(D, N, generator=g)),
+            torch.randn(2, L, G, N, generator=g),
+            torch.randn(2, L, G, N, generator=g),
+            torch.randn(D, generator=g), torch.rand(D, generator=g) - 2]
+    return [u] + [a.to(cuda) for a in args]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("d,L", [(48, 300), (202, 64)])
+def test_oss_scan_fused_carries_kernel_matches_plain(cuda, d, L, reverse,
+                                                     dtype):
+    """K1c: y equal to K1's, carries within the fp32 envelope."""
+    args = _fused_args(cuda, d, L, dtype, d + L)
+    n0 = cuda_scan.oss_scan_fused_fwd_carries.launches
+    y, car = cuda_scan.oss_scan_fused_fwd_carries(*args, reverse=reverse)
+    assert cuda_scan.oss_scan_fused_fwd_carries.launches == n0 + 1
+    assert torch.equal(y, cuda_scan.oss_scan_fused_fwd(*args,
+                                                       reverse=reverse))
+    _, ref = cuda_scan.oss_scan_fused_carries_ref(*args, reverse=reverse)
+    assert car.shape == (2, 2 * d, cuda_scan.n_chunks(L), 16)
+    _close(car, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,G,D", [(16, 2, 8), (200, 4, 96), (16, 2, 6)])
+def test_scan_carries_and_backward_kernels_match_plain(cuda, N, G, D,
+                                                       reverse, dtype):
+    """K4c: y equal to K4's, carries within the fp32 envelope; K3 from those
+    carries: all seven outputs within 5x the fp32 envelope. D=6, G=2 has 3
+    channels to a group (not a multiple of 8); N=200 takes 13 state passes
+    of K3, the last one ragged."""
+    args = _scan_args(cuda, N, G, D, 77, dtype, N + D)
+    kw = dict(delta_softplus=True, reverse=reverse)
+    y, car = cuda_scan.selective_scan_fwd_carries(*args, **kw)
+    assert torch.equal(y, cuda_scan.selective_scan_fwd(*args, **kw))
+    _close(car, cuda_scan.selective_scan_carries_ref(*args, **kw)[1],
+           torch.float32)
+    dy = torch.randn(2, D, 77, device=cuda).to(dtype).transpose(1, 2)
+    n0 = cuda_scan.selective_scan_bwd.launches
+    got = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+    assert cuda_scan.selective_scan_bwd.launches == n0 + 1
+    ref = cuda_scan.selective_scan_bwd_ref(*args, dy, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_scan_backward_without_skip_and_bias(cuda):
+    args = _scan_args(cuda, 16, 2, 16, 40, torch.float32, 1)
+    args[5] = args[6] = None
+    y, car = cuda_scan.selective_scan_fwd_carries(*args)
+    dy = torch.randn_like(y)
+    got = cuda_scan.selective_scan_bwd(*args, dy, car)
+    ref = cuda_scan.selective_scan_bwd_ref(*args, dy)
+    assert got[5] is None and got[6] is None
+    for a, b in zip(got[:5], ref[:5]):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_autograd_scans_match_plain_path(cuda, reverse):
+    """The autograd Functions (K1c/K4c forward, K3 backward) against
+    autograd through the plain versions, on the card."""
+    fa = [a.requires_grad_() for a in _fused_args(cuda, 48, 100,
+                                                  torch.float32, 3)]
+    sa = [a.requires_grad_() for a in _scan_args(cuda, 16, 2, 16, 70,
+                                                 torch.float32, 4)]
+    cases = [(lambda *a: cuda_scan.oss_scan_fused(*a, reverse=reverse),
+              lambda *a: cuda_scan.oss_scan_fused_ref(*a, reverse=reverse),
+              fa),
+             (lambda *a: cuda_scan.selective_scan(
+                 *a, delta_softplus=True, reverse=reverse),
+              lambda *a: cuda_scan.selective_scan_ref(
+                  *a, delta_softplus=True, reverse=reverse), sa)]
+    for fn, ref_fn, ins in cases:
+        n0 = cuda_scan.selective_scan_bwd.launches
+        y = fn(*ins)
+        w = torch.randn_like(y)
+        got = torch.autograd.grad(y, ins, w)
+        assert cuda_scan.selective_scan_bwd.launches == n0 + 1
+        ref = torch.autograd.grad(ref_fn(*ins), ins, w)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_autograd_gdfn_matches_plain_path(cuda):
+    g = torch.Generator().manual_seed(9)
+    c, hid = 48, 127
+    ins = [0.5 * torch.randn(2, c, 9, 13, generator=g),
+           1 + 0.1 * torch.randn(c, generator=g),
+           0.1 * torch.randn(c, generator=g),
+           torch.randn(2 * hid, c, generator=g) / c ** 0.5,
+           torch.randn(2 * hid, 3, 3, generator=g) / 3,
+           torch.randn(c, hid, generator=g) / hid ** 0.5]
+    ins = [a.to(cuda).requires_grad_() for a in ins]
+    n0 = cuda_effn.gdfn_residual_fwd.launches
+    y = cuda_effn.gdfn_residual_fused(*ins)
+    assert cuda_effn.gdfn_residual_fwd.launches == n0 + 1
+    w = torch.randn_like(y)
+    got = torch.autograd.grad(y, ins, w)
+    ref = torch.autograd.grad(cuda_effn.gdfn_residual_ref(*ins), ins, w)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_kernel_wrappers_raise_where_a_gradient_is_needed(cuda):
+    """A kernel wrapper called on tensors that need a gradient raises
+    instead of returning a detached result."""
+    fa = _fused_args(cuda, 48, 40, torch.float32, 5)
+    fa[1].requires_grad_()
+    sa = _scan_args(cuda, 16, 2, 16, 40, torch.float32, 6)
+    sa[0].requires_grad_()
+    ga = [torch.rand(1, 8, 4, 4, device=cuda, requires_grad=True),
+          torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
+          torch.rand(42, 8, device=cuda), torch.rand(42, 3, 3, device=cuda),
+          torch.rand(8, 21, device=cuda)]
+    calls = [lambda: cuda_scan.oss_scan_fused_fwd(*fa),
+             lambda: cuda_scan.oss_scan_fused_fwd_carries(*fa),
+             lambda: cuda_scan.selective_scan_fwd(*sa),
+             lambda: cuda_scan.selective_scan_fwd_carries(*sa),
+             lambda: cuda_effn.gdfn_residual_fwd(*ga)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+    with torch.no_grad():
+        for call in calls:
+            call()
+
+
+def test_tiny_ossnet_training_step_launches_kernels(cuda):
+    """One L1 training step of a tiny OSSNet on the card: every launch the
+    dispatch predicts for a step, and a finite, non-zero gradient at every
+    parameter but the channel scans' conv_cout.bias (exactly 0: it shifts
+    every channel before a mean-subtracting LayerNorm)."""
+    import chip_smoke
+
+    net = build_network(dict(type="OSSNet", dim=40, num_blocks=[1, 1, 1, 1],
+                             num_refinement_blocks=1, scale=4), device=cuda)
+    chip_smoke.reset_launches()
+    out = net(torch.rand(2, 3, 32, 24, device=cuda))
+    (out - torch.rand_like(out)).abs().mean().backward()
+    assert chip_smoke.launches() == chip_smoke.expected_launches(
+        net, train=True)
+    for k, p in net.named_parameters():
+        assert torch.isfinite(p.grad).all(), k
+        if not k.endswith("conv_cout.bias"):
+            assert p.grad.abs().max() > 0, k

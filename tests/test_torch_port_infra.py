@@ -25,16 +25,20 @@ torch.set_num_threads(1)
 
 
 def test_imports_with_jax_and_cv2_blocked():
+    """The port and chip_smoke import nothing of JAX, flax or the JAX
+    package (vmambair_tpu), and neither cv2 nor yaml."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'vmambair_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import vmambair_torch, vmambair_torch.models, vmambair_torch.ops\n"
         "import vmambair_torch.ops.cuda_scan, vmambair_torch.ops.cuda_effn\n"
         "import vmambair_torch.utils.upscaler, vmambair_torch.utils.convert\n"
+        "import vmambair_torch.utils.registry, vmambair_torch.losses\n"
+        "import vmambair_torch.train, vmambair_torch.train.sr_model\n"
         "import vmambair_torch.inference, chip_smoke\n"
-        "assert not any(k.startswith(('jax', 'flax')) and sys.modules[k]\n"
-        "               for k in sys.modules)\n"
+        "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"
+        "               and sys.modules[k] for k in sys.modules)\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 
@@ -47,7 +51,8 @@ def test_nvcc_command_targets_sm90a():
         assert flag in cmd
     srcs = [s for s in cmd if s.endswith(".cu")]
     assert {os.path.basename(s) for s in srcs} == {
-        "gdfn.cu", "oss_scan_fused.cu", "selective_scan.cu"}
+        "gdfn.cu", "oss_scan_fused.cu", "selective_scan.cu",
+        "selective_scan_bwd.cu"}
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -69,7 +74,8 @@ def test_source_hash_follows_sources(monkeypatch, tmp_path):
 @pytest.mark.parametrize("path", ["vmambair_torch/ops/cuda_scan.py",
                                   "vmambair_torch/ops/cuda_effn.py",
                                   "vmambair_torch/_build.py",
-                                  "vmambair_torch/models/unet.py"])
+                                  "vmambair_torch/models/unet.py",
+                                  "vmambair_torch/train/sr_model.py"])
 def test_cuda_wrappers_have_no_fallback_try(path):
     """A CUDA tensor goes to the kernel or raises: no try/except in the
     wrappers, their launch helper or the block that calls the GDFN can
@@ -112,15 +118,16 @@ def test_wide_block_takes_the_fused_gdfn_route(monkeypatch):
 
 
 def test_cpu_calls_do_not_count_as_launches():
-    before = (cuda_scan.oss_scan_fused.launches,
-              cuda_scan.selective_scan.launches,
-              cuda_effn.gdfn_residual_fused.launches)
-    net = build_network(TINY)
+    """Neither a CPU forward nor a CPU training step (the plain versions
+    inside the autograd Functions) counts a launch."""
+    import chip_smoke
+
+    before = chip_smoke.launches()
+    net = build_network(TINY, device="cpu")
     with torch.inference_mode():
         net(torch.rand(1, 3, 8, 8))
-    assert before == (cuda_scan.oss_scan_fused.launches,
-                      cuda_scan.selective_scan.launches,
-                      cuda_effn.gdfn_residual_fused.launches)
+    net(torch.rand(1, 3, 8, 8)).mean().backward()
+    assert before == chip_smoke.launches()
 
 
 @pytest.mark.parametrize("dim,blocks", [(8, [1, 1, 1, 1]), (40, [1, 1, 1, 1])])
@@ -147,10 +154,12 @@ def test_dispatch_matches_predicted_launches(monkeypatch, dim, blocks):
     from vmambair_torch.models import layers
     spy(layers, "gdfn_residual_fused")
     cfg = dict(TINY, dim=dim, num_blocks=blocks)
-    net = build_network(cfg)
+    net = build_network(cfg, device="cpu")
     with torch.inference_mode():
         net(torch.rand(1, 3, 16, 16))
-    assert calls == chip_smoke.expected_launches(net)
+    want = chip_smoke.expected_launches(net)
+    assert calls == {k: want[k] for k in calls}
+    assert not any(v for k, v in want.items() if k not in calls)
     n_blocks = sum(isinstance(m, unet.MamberBlock) for m in net.modules())
     assert calls["gdfn_residual_fused"] == n_blocks == 8
 
@@ -159,7 +168,7 @@ def test_inference_cli_on_cpu(tmp_path):
     cv2 = pytest.importorskip("cv2")
     from vmambair_torch import inference
 
-    net = build_network(TINY, seed=3)
+    net = build_network(TINY, device="cpu", seed=3)
     torch.save({"params_ema": net.state_dict()}, tmp_path / "net.pth")
     rng = np.random.RandomState(0)
     os.makedirs(tmp_path / "in")
@@ -180,8 +189,8 @@ def test_inference_cli_on_cpu(tmp_path):
 def test_enhance_modes():
     from vmambair_torch.utils.upscaler import RestorationUpscaler
 
-    ups = RestorationUpscaler(4, build_network(TINY), "cpu", tile=0,
-                              pre_pad=2)
+    ups = RestorationUpscaler(4, build_network(TINY, device="cpu"), "cpu",
+                              tile=0, pre_pad=2)
     rng = np.random.RandomState(1)
     gray = (rng.rand(8, 8) * 255).astype(np.uint8)
     rgba = (rng.rand(8, 8, 4) * 65535).astype(np.uint16)

@@ -186,7 +186,7 @@ def test_weight_roundtrip_mambasisr6_full_size():
         lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
     sd = jax_to_torch(params)
     _assert_trees_equal(convert(sd), params)
-    net = build_network(dict(type="MambaSISR6"))
+    net = build_network(dict(type="MambaSISR6"), device="cpu")
     net.load_state_dict(sd, strict=True)
 
 

@@ -9,10 +9,12 @@ overrides it. A missing `nvcc` or a failed build raises.
 
 It also holds the rules the kernel wrappers share at the ctypes boundary:
 tensors all on the CPU go to the plain version, all on CUDA go to the
-kernel, any mix raises (`on_cpu`); activations are fp32 or bf16
-(`dtype_code`); small parameters pass as contiguous fp32 (`f32`); a launch
-runs with its tensors' device current, on that device's current stream,
-and raises on a CUDA error (`launch`).
+kernel, any mix raises (`on_cpu`); a kernel wrapper has no backward, so on
+CUDA it raises where autograd would need one (`no_grad_needed`; the
+autograd Functions call the wrappers with grad mode off); activations are
+fp32 or bf16 (`dtype_code`); small parameters pass as contiguous fp32
+(`f32`); a launch runs with its tensors' device current, on that device's
+current stream, and raises on a CUDA error (`launch`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vmt_oss_scan_fused_fwd": [
         _P, _I, _P, _P, _P, _P, _P, _P,          # u, dt, y, wxp..Ds
+        _P,                                      # carries (K1c) or None
         _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G D L N R rev sp stream
     ],
     "vmt_selective_scan_fwd": [
@@ -60,7 +63,19 @@ SIGNATURES = {
         _P, _I, _LL, _LL, _LL, _LL,              # C (B, L, G, N)
         _P, _P,                                  # Dskip, bias
         _P, _I, _LL, _LL, _LL,                   # y (B, D, L)
+        _P,                                      # carries (K4c) or None
         _I, _I, _I, _I, _I, _I, _I, _P,          # B L D G N rev sp stream
+    ],
+    "vmt_selective_scan_bwd": [
+        _P, _I, _LL, _LL, _LL,                   # u (B, L, D)
+        _P, _I, _LL, _LL, _LL,                   # delta (B, L, D)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (B, L, G, N)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (B, L, G, N)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL,                   # dy (B, L, D)
+        _P, _P, _P, _P, _P, _P, _P, _P,          # carries, du .. dbias
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B L D G N T rev sp stream
     ],
     "vmt_gdfn_residual_fwd": [
         _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
@@ -173,6 +188,22 @@ def on_cpu(*ts) -> bool:
         return False
     raise ValueError(f"tensors on {sorted(devs)}: expected all on cpu or "
                      "all on cuda")
+
+
+def grad_needed(*ts) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def no_grad_needed(name: str, *ts) -> None:
+    """Raises when a kernel wrapper, which has no backward, is asked for a
+    result that autograd would need to differentiate: the kernel's output
+    would otherwise come back detached and the gradient be lost."""
+    if grad_needed(*ts):
+        raise RuntimeError(
+            f"{name}: a kernel wrapper has no backward; call the "
+            "differentiable entry point (or run under torch.no_grad())")
 
 
 def launch(name: str, device: torch.device, *args) -> None:

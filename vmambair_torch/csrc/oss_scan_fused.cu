@@ -33,6 +33,13 @@
 // Only D <= 256 is taken (the prefetch holds a chunk of u in registers). The TPU's
 // matmul dual (_scan_block_dual) is not ported: this is the exact
 // recurrence.
+//
+// K1c, the carry-saving forward of training (replaces _build_fused_fwd
+// with save_carries=True, pallas_scan.py:1161-1175), is this kernel with a
+// non-null `carries`: at the start of every chunk the block also writes
+// the fp32 state entering it to carries (B, G*D, n_chunks, N), indexed by
+// the chunk's position in L: the layout of K4c, so the one backward kernel
+// (K3, selective_scan_bwd.cu) serves both.
 #include "common.cuh"
 
 namespace vmt {
@@ -46,8 +53,8 @@ __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
     const void* __restrict__ u, int dt, void* __restrict__ y,
     const float* __restrict__ wxp, const float* __restrict__ wdt,
     const float* __restrict__ bias, const float* __restrict__ A,
-    const float* __restrict__ Ds, int G, int D, int L, int N, int R, int T,
-    int S, int reverse, int softplus) {
+    const float* __restrict__ Ds, float* __restrict__ carries, int G, int D,
+    int L, int N, int R, int T, int S, int reverse, int softplus) {
   extern __shared__ float sm[];
   const int M = R + 2 * N;
   const int ntile = D / T;
@@ -130,6 +137,12 @@ __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
     const int t0 = ck * CH;
     const int len = min(CH, L - t0);
     __syncthreads();  // the previous chunk's readers are done
+    if (carries) {  // K1c: the state entering this chunk
+      for (int i = tid; i < T * N; i += nth) {
+        carries[(((long long)bg * D + c0 + i / N) * nchunks + ck) * N +
+                i % N] = h[i];
+      }
+    }
 #pragma unroll
     for (int j = 0; j < K1_PF; ++j) {
       const int i = tid + j * nth;
@@ -195,14 +208,14 @@ __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
 template <int NS>
 static int launch(const void* u, int dt, void* y, const float* wxp,
                   const float* wdt, const float* bias, const float* A,
-                  const float* Ds, int B, int G, int D, int L, int N, int R,
-                  int T, int S, int reverse, int softplus, size_t smem,
-                  cudaStream_t stream) {
+                  const float* Ds, float* carries, int B, int G, int D, int L,
+                  int N, int R, int T, int S, int reverse, int softplus,
+                  size_t smem, cudaStream_t stream) {
   int err = set_smem((const void*)oss_scan_fused_kernel<NS>, smem);
   if (err) return err;
   oss_scan_fused_kernel<NS><<<B * G * (D / T), K1_THREADS, smem, stream>>>(
-      u, dt, y, wxp, wdt, bias, A, Ds, G, D, L, N, R, T, S, reverse,
-      softplus);
+      u, dt, y, wxp, wdt, bias, A, Ds, carries, G, D, L, N, R, T, S,
+      reverse, softplus);
   return (int)cudaGetLastError();
 }
 
@@ -210,8 +223,9 @@ static int launch(const void* u, int dt, void* y, const float* wxp,
 
 extern "C" int vmt_oss_scan_fused_fwd(
     const void* u, int dt, void* y, const float* wxp, const float* wdt,
-    const float* bias, const float* A, const float* Ds, int B, int G, int D,
-    int L, int N, int R, int reverse, int softplus, void* stream) {
+    const float* bias, const float* A, const float* Ds, float* carries, int B,
+    int G, int D, int L, int N, int R, int reverse, int softplus,
+    void* stream) {
   using namespace vmt;
   // channel tiles of at most 12, 16 threads to a channel: the fastest of
   // the tile sizes 8-48 and 4-16 threads per channel tried at the model's
@@ -224,16 +238,15 @@ extern "C" int vmt_oss_scan_fused_fwd(
       ((size_t)(D + M + T + S * T) * LDS + 2 * (size_t)T * N +
        (size_t)M * D + (size_t)T * R + 2 * (size_t)T);
   cudaStream_t st = (cudaStream_t)stream;
+#define VMT_K1_LAUNCH(NS_)                                                  \
+  launch<NS_>(u, dt, y, wxp, wdt, bias, A, Ds, carries, B, G, D, L, N, R, T, \
+              S, reverse, softplus, smem, st)
   switch (states_per_thread(N, S)) {
-    case 1: return launch<1>(u, dt, y, wxp, wdt, bias, A, Ds, B, G, D, L, N,
-                             R, T, S, reverse, softplus, smem, st);
-    case 2: return launch<2>(u, dt, y, wxp, wdt, bias, A, Ds, B, G, D, L, N,
-                             R, T, S, reverse, softplus, smem, st);
-    case 4: return launch<4>(u, dt, y, wxp, wdt, bias, A, Ds, B, G, D, L, N,
-                             R, T, S, reverse, softplus, smem, st);
-    case 8: return launch<8>(u, dt, y, wxp, wdt, bias, A, Ds, B, G, D, L, N,
-                             R, T, S, reverse, softplus, smem, st);
-    default: return launch<16>(u, dt, y, wxp, wdt, bias, A, Ds, B, G, D, L,
-                               N, R, T, S, reverse, softplus, smem, st);
+    case 1: return VMT_K1_LAUNCH(1);
+    case 2: return VMT_K1_LAUNCH(2);
+    case 4: return VMT_K1_LAUNCH(4);
+    case 8: return VMT_K1_LAUNCH(8);
+    default: return VMT_K1_LAUNCH(16);
   }
+#undef VMT_K1_LAUNCH
 }

@@ -22,6 +22,14 @@
 // fp32 state in shared memory. Per chunk the block stages u, delta and the
 // group's B/C rows and runs the same scan_chunk as K1, S threads to a
 // channel; states go through registers NS at a time, so any N <= 256 works.
+//
+// K4c, the carry-saving forward of training (replaces _build_pallas_fwd
+// with save_carries=True, pallas_scan.py:401-418), is this kernel with a
+// non-null `carries`: at the start of every chunk the block also writes the
+// fp32 state entering it to carries (B, D, n_chunks, N), indexed by the
+// chunk's position in L, for the backward (K3, selective_scan_bwd.cu) to
+// recompute the chunk from. It adds B * D * n_chunks * N * 4 bytes of
+// writes (1/CH of the state traffic the scan does in registers).
 #include "common.cuh"
 
 namespace vmt {
@@ -36,8 +44,8 @@ __global__ void selective_scan_kernel(
     long long sc_b, long long sc_g, long long sc_n, long long sc_l,
     const float* __restrict__ Dskip, const float* __restrict__ bias,
     void* __restrict__ y, int y_dt, long long sy_b, long long sy_d,
-    long long sy_l, int D, int L, int N, int G, int T, int S, int reverse,
-    int softplus) {
+    long long sy_l, float* __restrict__ carries, int D, int L, int N, int G,
+    int T, int S, int reverse, int softplus) {
   extern __shared__ float sm[];
   const int ntile = D / T;
   const int b = blockIdx.x / ntile;
@@ -75,6 +83,12 @@ __global__ void selective_scan_kernel(
     const int t0 = ck * CH;
     const int len = min(CH, L - t0);
     __syncthreads();
+    if (carries) {  // K4c: the state entering this chunk
+      for (int i = tid; i < T * N; i += nth) {
+        carries[(((long long)b * D + c0 + i / N) * nchunks + ck) * N +
+                i % N] = h[i];
+      }
+    }
     for (int i = tid; i < T * CH; i += nth) {
       int c, t;
       if (u_tfast) { c = i / CH; t = i % CH; } else { c = i % T; t = i / T; }
@@ -129,8 +143,8 @@ extern "C" int vmt_selective_scan_fwd(
     long long sb_g, long long sb_n, const void* Cm, int c_dt, long long sc_b,
     long long sc_l, long long sc_g, long long sc_n, const float* Dskip,
     const float* bias, void* y, int y_dt, long long sy_b, long long sy_d,
-    long long sy_l, int B, int L, int D, int G, int N, int reverse,
-    int softplus, void* stream) {
+    long long sy_l, float* carries, int B, int L, int D, int G, int N,
+    int reverse, int softplus, void* stream) {
   using namespace vmt;
   const int T = largest_divisor_le(D / G, 32);
   const int S = N < 8 ? N : 8;
@@ -142,7 +156,7 @@ extern "C" int vmt_selective_scan_fwd(
   launch<NS_>(smem, blocks, T * S, st, u, u_dt, su_b, su_d, su_l, dl, d_dt, \
               sd_b, sd_d, sd_l, A, Bm, b_dt, sb_b, sb_g, sb_n, sb_l, Cm,    \
               c_dt, sc_b, sc_g, sc_n, sc_l, Dskip, bias, y, y_dt, sy_b,    \
-              sy_d, sy_l, D, L, N, G, T, S, reverse, softplus)
+              sy_d, sy_l, carries, D, L, N, G, T, S, reverse, softplus)
   switch (states_per_thread(N, S)) {
     case 1: return VMT_K4_LAUNCH(1);
     case 2: return VMT_K4_LAUNCH(2);

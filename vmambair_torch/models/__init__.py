@@ -9,13 +9,12 @@ from __future__ import annotations
 
 import torch
 
-from vmambair_tpu.utils.registry import Registry
+from ..utils.registry import ARCH_REGISTRY
 
 from .layers import Conv2d, FeedForward, LayerNorm2d
 from .oss import OSS
 from .unet import MamberBlock, OSSNet
 
-ARCH_REGISTRY = Registry("torch_arch")
 ARCH_REGISTRY.register(OSSNet)
 
 
@@ -59,12 +58,14 @@ def init_weights(model: torch.nn.Module, gen: torch.Generator):
     return model
 
 
-def build_network(opt: dict, device="cpu", seed: int = 0):
-    """Builds an arch from a YAML `network_g` block, with weights drawn from
-    `torch.Generator().manual_seed(seed)`, on `device`."""
+def build_network(opt: dict, device="cuda", seed: int = 0):
+    """Builds an arch from a YAML `network_g` block (reference YAML keys
+    and the JAX package's `scan_impl` are taken), with weights drawn from
+    `torch.Generator().manual_seed(seed)` on the host, on `device` (the
+    card unless the caller asks for the CPU)."""
     opt = dict(opt)
     factory = ARCH_REGISTRY.get(opt.pop("type"))
-    net = factory(**opt)
+    net = factory(**_normalize(opt))
     init_weights(net, torch.Generator().manual_seed(seed))
     return net.to(device)
 

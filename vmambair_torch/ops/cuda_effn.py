@@ -1,14 +1,19 @@
 """Fused GDFN residual branch: CUDA kernel K2 and its plain version.
 
 Counterpart of `vmambair_tpu/ops/pallas_effn.py` (`gdfn_residual_fused`
-:258, `effn_fused_supported` :561), forward only, in the port's NCHW
-layout. Computes `x + project_out(gelu_erf(x1) * x2)` where
+:258 with its custom VJP :240-256, `effn_fused_supported` :561), in the
+port's NCHW layout. Computes `x + project_out(gelu_erf(x1) * x2)` where
 `[x1 | x2] = dwconv3x3(project_in(LayerNorm(x)))`, the whole
 `x = x + FFN(norm2(x))` branch of a MamberBlock with a bias-free FFN.
 
-A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
-kernel (`csrc/gdfn.cu`), or the call raises. `gdfn_residual_fused.launches`
-counts the kernel's launches.
+`gdfn_residual_fwd` is the kernel wrapper: a tensor on the CPU goes to the
+plain version; a CUDA tensor goes to the kernel (`csrc/gdfn.cu`), or the
+call raises; `gdfn_residual_fwd.launches` counts the kernel's launches. It
+has no backward. `gdfn_residual_fused` is the differentiable entry point:
+without a gradient to record it is one forward launch; otherwise an
+autograd Function whose forward is the same launch and whose backward
+recomputes through the plain version, as JAX recomputes through
+`_gdfn_xla` (JAX has no GDFN backward kernel, so neither has the port).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .._build import dtype_code, f32, on_cpu
+from .._build import dtype_code, f32, grad_needed, no_grad_needed, on_cpu
 
 MAX_C = 384
 
@@ -43,12 +48,14 @@ def gdfn_residual_ref(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
     return x + F.conv2d(g, w_out.to(cdt)[:, :, None, None])
 
 
-def gdfn_residual_fused(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
-    """`x + GDFN(LayerNorm(x))` in one kernel. x (B, C, H, W); ln_w, ln_b
-    (C,); w_in (2*hid, C); w_dw (2*hid, 3, 3); w_out (C, hid): the
+def gdfn_residual_fwd(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
+    """K2: `x + GDFN(LayerNorm(x))` in one kernel. x (B, C, H, W); ln_w,
+    ln_b (C,); w_in (2*hid, C); w_dw (2*hid, 3, 3); w_out (C, hid): the
     convolution weights of `FeedForward` without their unit dims."""
-    if on_cpu(x, ln_w, ln_b, w_in, w_dw, w_out):
-        return gdfn_residual_ref(x, ln_w, ln_b, w_in, w_dw, w_out, eps=eps)
+    args = (x, ln_w, ln_b, w_in, w_dw, w_out)
+    if on_cpu(*args):
+        return gdfn_residual_ref(*args, eps=eps)
+    no_grad_needed("gdfn_residual_fwd", *args)
     b, c, h, w = x.shape
     hid = w_out.shape[1]
     if w_in.shape != (2 * hid, c) or w_dw.shape != (2 * hid, 3, 3) \
@@ -72,8 +79,36 @@ def gdfn_residual_fused(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
         lnb.data_ptr(), win_t.data_ptr(), wdw.data_ptr(), wout_t.data_ptr(),
         b, c, h, w, hid, float(eps),
     )
-    gdfn_residual_fused.launches += 1
+    gdfn_residual_fwd.launches += 1
     return y
 
 
-gdfn_residual_fused.launches = 0
+gdfn_residual_fwd.launches = 0
+
+
+class _GdfnResidual(torch.autograd.Function):
+    """K2 forward; the backward recomputes the plain version under autograd
+    from the saved inputs (JAX's custom VJP through `_gdfn_xla`)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_in, w_dw, w_out, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w_in, w_dw, w_out)
+        ctx.eps = eps
+        return gdfn_residual_fwd(x, ln_w, ln_b, w_in, w_dw, w_out, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = gdfn_residual_ref(*ins, eps=ctx.eps)
+            grads = torch.autograd.grad(y, ins, dy)
+        return (*grads, None)
+
+
+def gdfn_residual_fused(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
+    """`x + GDFN(LayerNorm(x))`, differentiable; arguments as
+    `gdfn_residual_fwd`."""
+    args = (x, ln_w, ln_b, w_in, w_dw, w_out)
+    if grad_needed(*args):
+        return _GdfnResidual.apply(*args, eps)
+    return gdfn_residual_fwd(*args, eps=eps)

@@ -1,12 +1,28 @@
-"""Selective-scan entry points: CUDA kernels K1 and K4 and their plain
-versions.
+"""Selective-scan entry points: the CUDA kernels K1/K1c, K4/K4c and K3,
+their plain versions, and the autograd Functions that join them.
 
 Counterpart of the dispatch surface of `vmambair_tpu/ops/pallas_scan.py`
 (`oss_scan_fused` :1405, `selective_scan` :1428, `fused_scan_supported`
-:1237), forward only. A tensor on the CPU goes to the plain version in this
-module; a CUDA tensor goes to the kernel (`csrc/oss_scan_fused.cu`,
-`csrc/selective_scan.cu`), or the call raises. Each wrapper counts its
-launches in its `launches` attribute.
+:1237, the custom VJPs `_make_vjp_op` :984 and `_make_fused_vjp_op`
+:1263).
+
+Two layers:
+
+- Kernel wrappers, one launch each, each counting its launches in its
+  `launches` attribute: `oss_scan_fused_fwd` (K1), `oss_scan_fused_fwd_carries`
+  (K1c), `selective_scan_fwd` (K4), `selective_scan_fwd_carries` (K4c),
+  `selective_scan_bwd` (K3). A tensor on the CPU goes to the plain version
+  (`*_ref`, `selective_scan_bwd_ref`); a CUDA tensor goes to the kernel
+  (`csrc/oss_scan_fused.cu`, `csrc/selective_scan.cu`,
+  `csrc/selective_scan_bwd.cu`), or the call raises. A wrapper has no
+  backward: on CUDA it raises where autograd would need one.
+- The differentiable entry points `selective_scan` and `oss_scan_fused`.
+  Without a gradient to record they make one forward launch (K4, K1).
+  Otherwise they run an autograd Function: the forward saves the fp32
+  state entering each chunk of `CARRY_CHUNK` positions (K4c, K1c), and the
+  backward recomputes each chunk from it (K3). The fused op's projection
+  recompute and its cotangents stay einsums around K3, as in JAX
+  (:1363-1399). On the CPU the same Functions run on the plain versions.
 
 On CUDA every scan goes to a kernel: the JAX thresholds (`min_l=512`, the
 `% 8` channel tiling, the channel scan left to XLA) were set by the TPU's
@@ -18,12 +34,16 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._build import dtype_code, f32, on_cpu
-from .selective_scan import selective_scan_chunked
+from .._build import dtype_code, f32, grad_needed, no_grad_needed, on_cpu
+from .selective_scan import selective_scan_bwd_ref, selective_scan_chunked
 
 MAX_SCAN_N = 256
 MAX_FUSED_D = 256
 MAX_FUSED_N = 32
+# positions per chunk of the kernels (CH in csrc/common.cuh): the carries
+# of K1c/K4c and the chunk walk of K3 must agree on it
+CARRY_CHUNK = 32
+K3_TILE = 8  # at most this many channels to a K3 block (K3_TMAX in C)
 
 
 def fused_scan_supported(d: int, N: int) -> bool:
@@ -34,42 +54,49 @@ def fused_scan_supported(d: int, N: int) -> bool:
     return d <= MAX_FUSED_D and N <= MAX_FUSED_N
 
 
-# -- K4: the plain grouped scan ---------------------------------------------
+def n_chunks(L: int) -> int:
+    return -(-L // CARRY_CHUNK)
+
+
+# -- K4 / K4c: the plain grouped scan ------------------------------------------
 
 def selective_scan_ref(u, delta, A, B, C, D=None, delta_bias=None,
                        delta_softplus=False, reverse=False, out_dtype=None):
-    """Plain version of `selective_scan` (chunked, fp32 state)."""
-    if reverse:
-        u, delta, B, C = (t.flip(1) for t in (u, delta, B, C))
+    """Plain version of `selective_scan_fwd` (chunked, fp32 state)."""
     y = selective_scan_chunked(u, delta, A, B, C, D, delta_bias,
-                               delta_softplus)
-    if reverse:
-        y = y.flip(1)
+                               delta_softplus, reverse=reverse)
     return y.to(out_dtype or u.dtype)
 
 
-def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
-                   delta_softplus=False, reverse=False, out_dtype=None):
-    """Grouped selective scan, forward. u, delta (B, L, D); A (D, N) fp32;
-    B, C (B, L, G, N); D, delta_bias (D,). Returns y (B, L, D) in
-    `out_dtype` (default: u's dtype). Inputs may be strided views; on CUDA
-    the result is a (B, L, D) view of a (B, D, L) buffer."""
-    if on_cpu(u, delta, A, B, C, D, delta_bias):
-        return selective_scan_ref(u, delta, A, B, C, D, delta_bias,
-                                  delta_softplus, reverse, out_dtype)
+def selective_scan_carries_ref(u, delta, A, B, C, D=None, delta_bias=None,
+                               delta_softplus=False, reverse=False,
+                               out_dtype=None):
+    """Plain version of `selective_scan_fwd_carries`: y and the fp32 state
+    entering each chunk of CARRY_CHUNK positions, (B, D, n_chunks, N)."""
+    y, carries = selective_scan_chunked(
+        u, delta, A, B, C, D, delta_bias, delta_softplus,
+        chunk_size=CARRY_CHUNK, reverse=reverse, return_carries=True)
+    return y.to(out_dtype or u.dtype), carries
+
+
+def _scan_shapes(u, delta, A, B, C, name):
     bsz, L, dim = u.shape
     G, N = B.shape[2], A.shape[1]
     if delta.shape != u.shape or B.shape != (bsz, L, G, N) or (
             C.shape != B.shape) or A.shape != (dim, N):
-        raise ValueError("selective_scan: shapes do not agree: u "
-                         f"{tuple(u.shape)} delta {tuple(delta.shape)} A "
-                         f"{tuple(A.shape)} B {tuple(B.shape)} C "
-                         f"{tuple(C.shape)}")
+        raise ValueError(f"{name}: shapes do not agree: u {tuple(u.shape)} "
+                         f"delta {tuple(delta.shape)} A {tuple(A.shape)} B "
+                         f"{tuple(B.shape)} C {tuple(C.shape)}")
     if dim % G or N > MAX_SCAN_N:
-        raise ValueError(f"selective_scan: D={dim} G={G} N={N} not taken "
-                         f"by the kernel (D % G == 0, N <= {MAX_SCAN_N})")
-    out_dtype = out_dtype or u.dtype
-    y = torch.empty(bsz, dim, L, dtype=out_dtype, device=u.device)
+        raise ValueError(f"{name}: D={dim} G={G} N={N} not taken by the "
+                         f"kernel (D % G == 0, N <= {MAX_SCAN_N})")
+    return bsz, L, dim, G, N
+
+
+def _launch_k4(u, delta, A, B, C, D, delta_bias, softplus, reverse,
+               out_dtype, carries):
+    bsz, L, dim, G, N = _scan_shapes(u, delta, A, B, C, "selective_scan")
+    y = torch.empty(bsz, dim, L, dtype=out_dtype or u.dtype, device=u.device)
     A32 = f32(A)
     D32 = None if D is None else f32(D)
     b32 = None if delta_bias is None else f32(delta_bias)
@@ -83,45 +110,142 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
         None if D32 is None else D32.data_ptr(),
         None if b32 is None else b32.data_ptr(),
         y.data_ptr(), dtype_code(y, "out"), *y.stride(),
-        bsz, L, dim, G, N, int(bool(reverse)), int(bool(delta_softplus)),
+        None if carries is None else carries.data_ptr(),
+        bsz, L, dim, G, N, int(bool(reverse)), int(bool(softplus)),
     )
-    selective_scan.launches += 1
     return y.transpose(1, 2)
 
 
-selective_scan.launches = 0
+def selective_scan_fwd(u, delta, A, B, C, D=None, delta_bias=None,
+                       delta_softplus=False, reverse=False, out_dtype=None):
+    """K4: grouped selective scan, forward. u, delta (B, L, D); A (D, N)
+    fp32; B, C (B, L, G, N); D, delta_bias (D,). Returns y (B, L, D) in
+    `out_dtype` (default: u's dtype). Inputs may be strided views; on CUDA
+    the result is a (B, L, D) view of a (B, D, L) buffer."""
+    args = (u, delta, A, B, C, D, delta_bias)
+    if on_cpu(*args):
+        return selective_scan_ref(*args, delta_softplus, reverse, out_dtype)
+    no_grad_needed("selective_scan_fwd", *args)
+    y = _launch_k4(*args, delta_softplus, reverse, out_dtype, None)
+    selective_scan_fwd.launches += 1
+    return y
 
 
-# -- K1: the projection-fused direction-pair scan -----------------------------
+def selective_scan_fwd_carries(u, delta, A, B, C, D=None, delta_bias=None,
+                               delta_softplus=False, reverse=False,
+                               out_dtype=None):
+    """K4c: `selective_scan_fwd` that also returns the fp32 state entering
+    each chunk of CARRY_CHUNK positions, (B, D, n_chunks, N), indexed by
+    the chunk's position in L (for reverse scans too)."""
+    args = (u, delta, A, B, C, D, delta_bias)
+    if on_cpu(*args):
+        return selective_scan_carries_ref(*args, delta_softplus, reverse,
+                                          out_dtype)
+    no_grad_needed("selective_scan_fwd_carries", *args)
+    bsz, L, dim = u.shape
+    carries = torch.empty(bsz, dim, n_chunks(L), A.shape[1],
+                          dtype=torch.float32, device=u.device)
+    y = _launch_k4(*args, delta_softplus, reverse, out_dtype, carries)
+    selective_scan_fwd_carries.launches += 1
+    return y, carries
+
+
+selective_scan_fwd.launches = 0
+selective_scan_fwd_carries.launches = 0
+
+
+# -- K3: the scan backward -----------------------------------------------------
+
+def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy, carries, *,
+                       delta_softplus=False, reverse=False):
+    """K3: the gradients of `sum(y * dy)` for y = selective_scan(u, delta,
+    A, B, C, D, delta_bias), recomputing each chunk from `carries`, the
+    output of K4c/K1c on the same inputs. Returns (du, ddelta, dA, dB, dC,
+    dD, dbias) in fp32, shaped as the inputs (du, ddelta as (B, L, D) views
+    of (B, D, L) buffers); ddelta is the gradient of the raw delta; dD and
+    dbias are None where D and delta_bias are."""
+    args = (u, delta, A, B, C, D, delta_bias)
+    if on_cpu(*args, dy, carries):
+        return selective_scan_bwd_ref(*args, dy,
+                                      delta_softplus=delta_softplus,
+                                      reverse=reverse)
+    no_grad_needed("selective_scan_bwd", *args, dy, carries)
+    bsz, L, dim, G, N = _scan_shapes(u, delta, A, B, C, "selective_scan_bwd")
+    if dy.shape != u.shape:
+        raise ValueError(f"selective_scan_bwd: dy {tuple(dy.shape)} != u "
+                         f"{tuple(u.shape)}")
+    if carries.shape != (bsz, dim, n_chunks(L), N) or (
+            carries.dtype != torch.float32) or not carries.is_contiguous():
+        raise ValueError(
+            f"selective_scan_bwd: carries {tuple(carries.shape)} "
+            f"{carries.dtype}; the kernels' chunk of {CARRY_CHUNK} needs "
+            f"contiguous fp32 {(bsz, dim, n_chunks(L), N)}")
+    dg = dim // G
+    # channels to a K3 block: the largest divisor of the group's width up
+    # to K3_TILE; it sets the layout of the dB/dC partials
+    T = max(t for t in range(1, min(dg, K3_TILE) + 1) if dg % t == 0)
+    dev = u.device
+    du = torch.empty(bsz, dim, L, device=dev)
+    ddl = torch.empty(bsz, dim, L, device=dev)
+    dBp = torch.empty(bsz, dim // T, N, L, device=dev)
+    dCp = torch.empty(bsz, dim // T, N, L, device=dev)
+    dAp = torch.empty(bsz, dim, N, device=dev)
+    dDp = torch.empty(bsz, dim, device=dev)
+    dbp = torch.empty(bsz, dim, device=dev)
+    A32 = f32(A)
+    D32 = None if D is None else f32(D)
+    b32 = None if delta_bias is None else f32(delta_bias)
+    _build.launch(
+        "vmt_selective_scan_bwd", dev,
+        u.data_ptr(), dtype_code(u, "u"), *u.stride(),
+        delta.data_ptr(), dtype_code(delta, "delta"), *delta.stride(),
+        A32.data_ptr(),
+        B.data_ptr(), dtype_code(B, "B"), *B.stride(),
+        C.data_ptr(), dtype_code(C, "C"), *C.stride(),
+        None if D32 is None else D32.data_ptr(),
+        None if b32 is None else b32.data_ptr(),
+        dy.data_ptr(), dtype_code(dy, "dy"), *dy.stride(),
+        carries.data_ptr(), du.data_ptr(), ddl.data_ptr(), dBp.data_ptr(),
+        dCp.data_ptr(), dAp.data_ptr(), dDp.data_ptr(), dbp.data_ptr(),
+        bsz, L, dim, G, N, T, int(bool(reverse)), int(bool(delta_softplus)),
+    )
+    selective_scan_bwd.launches += 1
+    # partials: channel tiles of a group, then batch (as `_scan_bwd_dl`)
+    dB = dBp.view(bsz, G, dg // T, N, L).sum(2).permute(0, 3, 1, 2)
+    dC = dCp.view(bsz, G, dg // T, N, L).sum(2).permute(0, 3, 1, 2)
+    return (du.transpose(1, 2), ddl.transpose(1, 2), dAp.sum(0), dB, dC,
+            None if D is None else dDp.sum(0),
+            None if delta_bias is None else dbp.sum(0))
+
+
+selective_scan_bwd.launches = 0
+
+
+# -- K1 / K1c: the projection-fused direction-pair scan -------------------------
 
 def oss_scan_fused_ref(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
                        softplus=True, reverse=False):
-    """Plain version of `oss_scan_fused`: the projection einsums, then the
-    chunked scan (JAX's `xla_equiv`, :1287)."""
+    """Plain version of `oss_scan_fused_fwd`: the projection einsums, then
+    the chunked scan (JAX's `xla_equiv`, :1287)."""
     b, g, d, l = u2.shape
-    N, R = A.shape[2], dt_proj_w.shape[2]
-    uf = u2.float()
-    x_dbl = torch.einsum("bgdl,gcd->bgcl", uf, x_proj_w.float())
-    dts = torch.einsum("bgrl,gdr->bgdl", x_dbl[:, :, :R], dt_proj_w.float())
-    u = uf.permute(0, 3, 1, 2).reshape(b, l, g * d)
-    delta = dts.permute(0, 3, 1, 2).reshape(b, l, g * d)
-    Bs = x_dbl[:, :, R:R + N].permute(0, 3, 1, 2)      # (b, l, g, N)
-    Cs = x_dbl[:, :, R + N:].permute(0, 3, 1, 2)
-    y = selective_scan_ref(
-        u, delta, A.reshape(g * d, N), Bs, Cs, Ds.reshape(-1),
-        dt_bias.reshape(-1), delta_softplus=softplus, reverse=reverse)
+    args, _ = fused_scan_inputs(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds)
+    y = selective_scan_ref(*args, delta_softplus=softplus, reverse=reverse)
     return y.reshape(b, l, g, d).permute(0, 2, 3, 1).to(u2.dtype)
 
 
-def oss_scan_fused(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
-                   softplus=True, reverse=False):
-    """Projection-fused selective scan of G direction layouts, in the
-    kernel's layout (JAX's `dl=True` form). u2 (B, G, D, L); x_proj_w
-    (G, R+2N, D); dt_proj_w (G, D, R); dt_bias (G, D); A (G, D, N) (already
-    -exp(A_log)); Ds (G, D). Returns y (B, G, D, L) in u2's dtype."""
-    if on_cpu(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds):
-        return oss_scan_fused_ref(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds,
-                                  softplus=softplus, reverse=reverse)
+def oss_scan_fused_carries_ref(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
+                               softplus=True, reverse=False):
+    """Plain version of `oss_scan_fused_fwd_carries`: y and the fp32 state
+    entering each chunk, (B, G*D, n_chunks, N)."""
+    b, g, d, l = u2.shape
+    args, _ = fused_scan_inputs(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds)
+    y, carries = selective_scan_carries_ref(*args, delta_softplus=softplus,
+                                            reverse=reverse)
+    return y.reshape(b, l, g, d).permute(0, 2, 3, 1).to(u2.dtype), carries
+
+
+def _launch_k1(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, softplus, reverse,
+               with_carries):
     b, g, d, l = u2.shape
     N, R = A.shape[2], dt_proj_w.shape[2]
     if x_proj_w.shape != (g, R + 2 * N, d) or dt_proj_w.shape != (g, d, R) \
@@ -134,15 +258,157 @@ def oss_scan_fused(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
                          f"kernel (D <= {MAX_FUSED_D}, N <= {MAX_FUSED_N})")
     u2 = u2.contiguous()
     y = torch.empty_like(u2)
+    carries = torch.empty(b, g * d, n_chunks(l), N, dtype=torch.float32,
+                          device=u2.device) if with_carries else None
     ws = [f32(t) for t in (x_proj_w, dt_proj_w, dt_bias, A, Ds)]
     _build.launch(
         "vmt_oss_scan_fused_fwd", u2.device,
         u2.data_ptr(), dtype_code(u2, "u2"), y.data_ptr(),
         *(w.data_ptr() for w in ws),
+        None if carries is None else carries.data_ptr(),
         b, g, d, l, N, R, int(bool(reverse)), int(bool(softplus)),
     )
-    oss_scan_fused.launches += 1
+    return y, carries
+
+
+def oss_scan_fused_fwd(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
+                       softplus=True, reverse=False):
+    """K1: projection-fused selective scan of G direction layouts, in the
+    kernel's layout (JAX's `dl=True` form). u2 (B, G, D, L); x_proj_w
+    (G, R+2N, D); dt_proj_w (G, D, R); dt_bias (G, D); A (G, D, N) (already
+    -exp(A_log)); Ds (G, D). Returns y (B, G, D, L) in u2's dtype."""
+    args = (u2, x_proj_w, dt_proj_w, dt_bias, A, Ds)
+    if on_cpu(*args):
+        return oss_scan_fused_ref(*args, softplus=softplus, reverse=reverse)
+    no_grad_needed("oss_scan_fused_fwd", *args)
+    y, _ = _launch_k1(*args, softplus, reverse, False)
+    oss_scan_fused_fwd.launches += 1
     return y
 
 
-oss_scan_fused.launches = 0
+def oss_scan_fused_fwd_carries(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
+                               softplus=True, reverse=False):
+    """K1c: `oss_scan_fused_fwd` that also returns the fp32 state entering
+    each chunk, (B, G*D, n_chunks, N): the layout of K4c's carries."""
+    args = (u2, x_proj_w, dt_proj_w, dt_bias, A, Ds)
+    if on_cpu(*args):
+        return oss_scan_fused_carries_ref(*args, softplus=softplus,
+                                          reverse=reverse)
+    no_grad_needed("oss_scan_fused_fwd_carries", *args)
+    out = _launch_k1(*args, softplus, reverse, True)
+    oss_scan_fused_fwd_carries.launches += 1
+    return out
+
+
+oss_scan_fused_fwd.launches = 0
+oss_scan_fused_fwd_carries.launches = 0
+
+
+# -- the differentiable entry points -------------------------------------------
+
+class _SelectiveScan(torch.autograd.Function):
+    """K4c forward, K3 backward (JAX `_make_vjp_op`)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, softplus, reverse,
+                out_dtype):
+        y, carries = selective_scan_fwd_carries(
+            u, delta, A, B, C, D, delta_bias, softplus, reverse, out_dtype)
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, carries)
+        ctx.flags = (softplus, reverse)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        *ins, carries = ctx.saved_tensors
+        softplus, reverse = ctx.flags
+        grads = selective_scan_bwd(*ins, dy, carries,
+                                   delta_softplus=softplus, reverse=reverse)
+        return (*(None if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, ins)), None, None, None)
+
+
+class _OssScanFused(torch.autograd.Function):
+    """K1c forward; K3 backward between the projection recompute and the
+    projection cotangents (JAX `_make_fused_vjp_op`, :1341-1399)."""
+
+    @staticmethod
+    def forward(ctx, u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, softplus,
+                reverse):
+        y, carries = oss_scan_fused_fwd_carries(
+            u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, softplus=softplus,
+            reverse=reverse)
+        ctx.save_for_backward(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds,
+                              carries)
+        ctx.flags = (softplus, reverse)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        u2, xw, dw, db, A, Ds, carries = ctx.saved_tensors
+        softplus, reverse = ctx.flags
+        b, g, d, l = u2.shape
+        N = A.shape[2]
+        uf, xwf, dwf = u2.float(), xw.float(), dw.float()
+        scan_args, dts_r = fused_scan_inputs(u2, xw, dw, db, A, Ds)
+        du, ddel, dA, dB, dC, dD, dbias = selective_scan_bwd(
+            *scan_args, _bld(gy), carries, delta_softplus=softplus,
+            reverse=reverse)
+        ddel_g = ddel.transpose(1, 2).reshape(b, g, d, l)
+        ddw = torch.einsum("bgdl,bgrl->gdr", ddel_g, dts_r)
+        ddts_r = torch.einsum("gdr,bgdl->bgrl", dwf, ddel_g)
+        dx_dbl = torch.cat([ddts_r, dB.permute(0, 2, 3, 1),
+                            dC.permute(0, 2, 3, 1)], 2)  # (b, g, R+2N, l)
+        du2 = du.transpose(1, 2).reshape(b, g, d, l) + torch.einsum(
+            "gcd,bgcl->bgdl", xwf, dx_dbl)
+        dxw = torch.einsum("bgcl,bgdl->gcd", dx_dbl, uf)
+        return (du2.to(u2.dtype), dxw.to(xw.dtype), ddw.to(dw.dtype),
+                dbias.reshape(g, d).to(db.dtype),
+                dA.reshape(g, d, N).to(A.dtype),
+                dD.reshape(g, d).to(Ds.dtype), None, None)
+
+
+def _bld(t):
+    """(b, g, c, l) -> a (b, l, g*c) view of its (b, g*c, l) form."""
+    return t.reshape(t.shape[0], -1, t.shape[-1]).transpose(1, 2)
+
+
+def fused_scan_inputs(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds):
+    """The projections K1 fuses, in plain PyTorch (fp32): the arguments of
+    the scan inside `oss_scan_fused` (u, the raw delta, A, B, C, D, bias;
+    u, delta, B, C as (b, l, .) views of the kernel's (b, ., l) layout),
+    and the projected dt rows (b, g, R, l). The plain fused scan runs on
+    them, and the backward recomputes them (JAX :1363-1367) for K3 and the
+    projection cotangents."""
+    b, g, d, l = u2.shape
+    N, R = A.shape[2], dt_proj_w.shape[2]
+    x_dbl = torch.einsum("gcd,bgdl->bgcl", x_proj_w.float(), u2.float())
+    dts_r = x_dbl[:, :, :R]
+    draw = torch.einsum("gdr,bgrl->bgdl", dt_proj_w.float(), dts_r)
+    return (_bld(u2), _bld(draw), A.reshape(g * d, N),
+            x_dbl[:, :, R:R + N].permute(0, 3, 1, 2),
+            x_dbl[:, :, R + N:].permute(0, 3, 1, 2), Ds.reshape(-1),
+            dt_bias.reshape(-1)), dts_r
+
+
+def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
+                   delta_softplus=False, reverse=False, out_dtype=None):
+    """Grouped selective scan, differentiable. Layouts as
+    `selective_scan_fwd`. Without a gradient to record: one K4 launch (the
+    plain version on the CPU); otherwise K4c forward and K3 backward."""
+    args = (u, delta, A, B, C, D, delta_bias)
+    if grad_needed(*args):
+        return _SelectiveScan.apply(*args, bool(delta_softplus),
+                                    bool(reverse), out_dtype)
+    return selective_scan_fwd(*args, delta_softplus, reverse, out_dtype)
+
+
+def oss_scan_fused(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
+                   softplus=True, reverse=False):
+    """Projection-fused direction-pair scan, differentiable. Layouts as
+    `oss_scan_fused_fwd`. Without a gradient to record: one K1 launch (the
+    plain version on the CPU); otherwise K1c forward and K3 backward."""
+    args = (u2, x_proj_w, dt_proj_w, dt_bias, A, Ds)
+    if grad_needed(*args):
+        return _OssScanFused.apply(*args, bool(softplus), bool(reverse))
+    return oss_scan_fused_fwd(*args, softplus=softplus, reverse=reverse)

@@ -16,9 +16,11 @@ Layouts as in the JAX package (channels last):
 
 ``selective_scan_chunked`` keeps the state in fp32 whatever the input
 dtype; it is sequential over chunks of L, with a Hillis-Steele scan over
-(decay, input) pairs inside each chunk. This is the plain version the CUDA
-kernels are held against on the card, at full L; the tests hold it against
-the JAX package's sequential reference.
+(decay, input) pairs inside each chunk, and can return the state entering
+each chunk. ``selective_scan_bwd_ref`` is its gradient. These are the plain
+versions the CUDA kernels (forward, carry-saving forward, backward) are
+held against on the card, at full L; the tests hold them against the JAX
+package's sequential reference and its backward.
 
 The kernels themselves are in `cuda_scan.py`.
 """
@@ -64,31 +66,70 @@ def _hillis_scan(a, b, dim=1):
 
 
 def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
-                           delta_softplus=False, chunk_size: int = 64):
+                           delta_softplus=False, chunk_size: int = 64,
+                           reverse: bool = False,
+                           return_carries: bool = False):
     """Chunked version: a loop over chunks of L carries the fp32 state; each
-    chunk is one vectorised Hillis-Steele scan."""
+    chunk is one vectorised Hillis-Steele scan.
+
+    reverse=True scans L right to left: the chunks (cut at the same
+    positions as for the forward scan, so a ragged chunk stays at the end
+    of L) are walked back to front, each scanned back to front.
+    return_carries=True also returns the fp32 state entering each chunk,
+    (batch, D, n_chunks, N), indexed by the chunk's position in L: the
+    plain side of the carry-saving kernels, whose backward recomputes each
+    chunk from it."""
     uf, df, Af, Bf, Cf, Df, G = _prep(
         u, delta, A, B, C, D, delta_bias, delta_softplus)
     batch, L, dim = uf.shape
     N = Af.shape[1]
     dg = dim // G
     h = torch.zeros(batch, dim, N, device=u.device)
-    ys = []
-    for t0 in range(0, L, chunk_size):
+    n_chunks = -(-L // chunk_size)
+    ys, carries = [None] * n_chunks, [None] * n_chunks
+    for k in (range(n_chunks - 1, -1, -1) if reverse else range(n_chunks)):
+        t0 = k * chunk_size
         t1 = min(L, t0 + chunk_size)
-        d_c, u_c = df[:, t0:t1], uf[:, t0:t1]
+        carries[k] = h
+
+        def part(t):
+            return t[:, t0:t1].flip(1) if reverse else t[:, t0:t1]
+
+        d_c, u_c = part(df), part(uf)
         ck = t1 - t0
         da = torch.exp(d_c[..., None] * Af)                 # (b, ck, D, N)
         x = (d_c * u_c).view(batch, ck, G, dg)
-        bb = (Bf[:, t0:t1, :, None, :] * x[..., None]).reshape(
+        bb = (part(Bf)[:, :, :, None, :] * x[..., None]).reshape(
             batch, ck, dim, N)
         aa, bb = _hillis_scan(da, bb, dim=1)
         h_all = aa * h[:, None] + bb
-        ys.append(torch.einsum(
-            "blgn,blgdn->blgd", Cf[:, t0:t1],
-            h_all.view(batch, ck, G, dg, N)).reshape(batch, ck, dim))
+        y_c = torch.einsum(
+            "blgn,blgdn->blgd", part(Cf),
+            h_all.view(batch, ck, G, dg, N)).reshape(batch, ck, dim)
+        ys[k] = y_c.flip(1) if reverse else y_c
         h = h_all[:, -1]
     y = torch.cat(ys, 1)
     if Df is not None:
         y = y + uf * Df
-    return y.to(u.dtype)
+    y = y.to(u.dtype)
+    if return_carries:
+        return y, torch.stack(carries, 2)
+    return y
+
+
+def selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, dy, *,
+                           delta_softplus=False, reverse=False):
+    """Plain version of the scan backward: the gradients of
+    `sum(y * dy)` for y = selective_scan(u, delta, A, B, C, D, delta_bias),
+    by autograd through the chunked scan in fp32. Returns (du, ddelta, dA,
+    dB, dC, dD, dbias) in fp32, shaped as the inputs; ddelta is the
+    gradient of the raw delta (before bias and softplus); dD and dbias are
+    None where D and delta_bias are."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().float().requires_grad_()
+               for t in (u, delta, A, B, C, D, delta_bias)]
+        y = selective_scan_chunked(*ins, delta_softplus=delta_softplus,
+                                   reverse=reverse)
+        given = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(y, given, dy.float()))
+    return tuple(None if t is None else next(grads) for t in ins)

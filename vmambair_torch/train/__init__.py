@@ -1,0 +1,33 @@
+"""Training layer of the port: model wrappers, schedules, checkpoints.
+
+Counterpart of `vmambair_tpu/train/__init__.py` for the S1 (pixel-loss)
+stage. `train/pipeline.py`, the data layer and the GAN stage are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from ..utils.registry import MODEL_REGISTRY
+from . import checkpoint
+from .base_model import BaseModel, build_optimizer, ema_update, set_lr
+from .schedulers import SCHEDULERS, build_scheduler
+from .sr_model import ImageRestorationModel, SRModel
+
+logger = logging.getLogger("vmambair_torch")
+
+
+def build_model(opt: dict, device="cuda"):
+    """YAML `model_type` -> model instance, on `device` (the card unless
+    the caller asks for the CPU)."""
+    model = MODEL_REGISTRY.get(opt["model_type"])(opt, device=device)
+    logger.info("Model [%s] is created.", model.__class__.__name__)
+    return model
+
+
+__all__ = [
+    "build_model", "BaseModel", "SRModel", "ImageRestorationModel",
+    "build_optimizer", "build_scheduler", "ema_update", "set_lr",
+    "SCHEDULERS", "checkpoint", "MODEL_REGISTRY",
+]

@@ -1,0 +1,90 @@
+"""Training-model layer: optimizer, learning rate, EMA and the shared
+`BaseModel` (schedule, log, checkpoint paths).
+
+Counterpart of `vmambair_tpu/train/base_model.py:56-166`. The JAX package
+builds an optax transform with an injected learning rate and updates in
+one jitted step; here the optimizer is a `torch.optim` one whose param
+groups get the schedule's learning rate before each step (`set_lr`), a
+global-norm clip is `clip_grad_norm_` before the step, and the EMA is an
+in-place lerp of a second copy of the network. The validation loop waits
+for the port's metrics.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from typing import Any, Dict, Iterable
+
+import torch
+
+from .schedulers import build_scheduler
+
+
+def build_optimizer(params: Iterable[torch.nn.Parameter], optim_opt: dict):
+    """YAML `optim_g` block -> torch optimizer. As in JAX: Adam with a
+    weight decay is AdamW (decoupled, as `optax.adamw`), eps 1e-8; the
+    learning rate is set per step by the schedule."""
+    opt = dict(optim_opt)
+    otype = opt.pop("type", "Adam").lower()
+    lr = float(opt.pop("lr", 0.0))
+    betas = tuple(opt.pop("betas", (0.9, 0.999)))
+    wd = float(opt.pop("weight_decay", 0.0))
+    if otype == "adam" and wd == 0:
+        return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
+    if otype in ("adam", "adamw"):
+        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8,
+                                 weight_decay=wd)
+    if otype == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    raise NotImplementedError(f"optimizer {otype}")
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+@torch.no_grad()
+def ema_update(ema: torch.nn.Module, net: torch.nn.Module,
+               decay: float) -> None:
+    """In place: ema <- decay * ema + (1 - decay) * net, parameter by
+    parameter."""
+    torch._foreach_lerp_(list(ema.parameters()), list(net.parameters()),
+                         1.0 - decay)
+
+
+class BaseModel:
+    """Shared infrastructure: device, schedule, log, checkpoint paths."""
+
+    def __init__(self, opt: Dict[str, Any], device="cuda"):
+        self.opt = opt
+        self.is_train = opt.get("is_train", False)
+        self.device = torch.device(device)
+        self.seed = int(opt.get("manual_seed") or 0)
+        self.log_dict: Dict[str, Any] = OrderedDict()
+
+    def _make_schedule(self, train_opt, optim_key="optim_g"):
+        base_lr = float(train_opt[optim_key].get("lr", 2e-4))
+        sched_opt = dict(train_opt.get("scheduler") or {"type": "ConstantLR"})
+        return build_scheduler(
+            sched_opt, base_lr,
+            total_iter=int(train_opt.get("total_iter", 10**6)),
+            warmup_iter=int(train_opt.get("warmup_iter", -1)))
+
+    def get_current_learning_rate(self):
+        return self.log_dict.get("lr", 0.0)
+
+    def get_current_log(self):
+        """The log as floats; the losses stay device scalars until here, so
+        a step does not wait for the card."""
+        return {k: (v if isinstance(v, (int, float)) else float(v))
+                for k, v in self.log_dict.items()}
+
+    def _net_path(self, name: str, current_iter) -> str:
+        return os.path.join(self.opt["path"]["models"],
+                            f"{name}_{current_iter}.pth")
+
+    def _state_path(self, current_iter) -> str:
+        return os.path.join(self.opt["path"]["training_states"],
+                            f"{current_iter}.state")

@@ -1,0 +1,161 @@
+"""SRModel / ImageCleanModel: single-network restoration training.
+
+Counterpart of `vmambair_tpu/train/sr_model.py:43-302`, on one device. A
+step is forward, pixel loss, backward (through the scan and GDFN kernels'
+autograd Functions on CUDA), an optional global-norm clip, the optimizer
+step and the EMA lerp. `feed_data` takes the JAX package's contract: NHWC
+float32 arrays, which land on the device as NCHW. Weights come from
+`torch.Generator().manual_seed(manual_seed)` (`build_network`); mixup draws
+from a host generator seeded the same way.
+"""
+
+from __future__ import annotations
+
+import copy
+from collections import OrderedDict
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..losses import build_loss
+from ..models import build_network
+from ..utils.registry import MODEL_REGISTRY
+from .base_model import BaseModel, build_optimizer, ema_update, set_lr
+from .checkpoint import (
+    load_network,
+    load_training_state,
+    save_network,
+    save_training_state,
+)
+
+def mixup_batch(rng: np.random.RandomState, lq, gt, alpha=1.2):
+    """Mixup: convex-combine pairs inside the batch with a Beta(alpha,
+    alpha) weight drawn from `rng`."""
+    lam = float(rng.beta(alpha, alpha))
+    perm = torch.as_tensor(rng.permutation(lq.shape[0]), device=lq.device)
+    return lam * lq + (1 - lam) * lq[perm], lam * gt + (1 - lam) * gt[perm]
+
+
+def to_device_nchw(v, device) -> torch.Tensor:
+    """An NHWC float32 array -> an NCHW float32 tensor on `device`."""
+    t = torch.from_numpy(np.asarray(v, np.float32))
+    return t.permute(0, 3, 1, 2).contiguous().to(device)
+
+
+@MODEL_REGISTRY.register(name="SRModel")
+class SRModel(BaseModel):
+    """Single-generator restoration model with a pixel loss."""
+
+    def __init__(self, opt: Dict[str, Any], device="cuda"):
+        super().__init__(opt, device)
+        self.net_g = build_network(opt["network_g"], device=self.device,
+                                   seed=self.seed)
+        self.scale = int(opt.get("scale", 1))
+        self.window_size = int((opt.get("val") or {}).get("window_size", 8))
+        self.ema_decay = 0.0
+        self.net_g_ema: Optional[torch.nn.Module] = None
+        self.optimizer = None
+        self.output = self.lq = self.gt = None
+        if self.is_train:
+            self.init_training_settings()
+        load_path = (opt.get("path") or {}).get("pretrain_network_g")
+        if load_path:
+            self.load_net_g(load_path)
+
+    def init_training_settings(self):
+        train_opt = self.opt["train"]
+        self.ema_decay = float(train_opt.get("ema_decay", 0))
+        if self.ema_decay > 0:
+            self.net_g_ema = copy.deepcopy(self.net_g).requires_grad_(False)
+        mixing = train_opt.get("mixing_augs") or {}
+        self.mixup = bool(train_opt.get("mixup", mixing.get("mixup", False)))
+        self.mixup_beta = float(mixing.get("mixup_beta", 1.2))
+        self.host_rng = np.random.RandomState(self.seed)
+        pixel_opt = train_opt.get("pixel_opt")
+        if train_opt.get("perceptual_opt"):
+            raise NotImplementedError(
+                "perceptual_opt: the perceptual loss is not ported yet")
+        if not pixel_opt:
+            raise ValueError("train.pixel_opt is required")
+        self.cri_pix = build_loss(dict(pixel_opt))
+        self.grad_clip = (float(train_opt.get("grad_clip", 0.01))
+                          if train_opt.get("use_grad_clip") else None)
+        self.optimizer = build_optimizer(self.net_g.parameters(),
+                                         dict(train_opt["optim_g"]))
+        self.schedule = self._make_schedule(train_opt)
+
+    def feed_data(self, data: Dict[str, Any]):
+        self.lq = to_device_nchw(data["lq"], self.device)
+        gt = data.get("gt")
+        self.gt = None if gt is None else to_device_nchw(gt, self.device)
+
+    def optimize_parameters(self, current_iter: int):
+        lr = self.schedule(current_iter)
+        set_lr(self.optimizer, lr)
+        lq, gt = self.lq, self.gt
+        if self.mixup:
+            lq, gt = mixup_batch(self.host_rng, lq, gt, self.mixup_beta)
+        self.optimizer.zero_grad(set_to_none=True)
+        l_pix = self.cri_pix(self.net_g(lq), gt)
+        l_pix.backward()
+        if self.grad_clip:
+            torch.nn.utils.clip_grad_norm_(self.net_g.parameters(),
+                                           self.grad_clip)
+        self.optimizer.step()
+        if self.net_g_ema is not None:
+            ema_update(self.net_g_ema, self.net_g, self.ema_decay)
+        # the loss stays a device scalar: no wait on the card here
+        self.log_dict = OrderedDict(l_pix=l_pix.detach(), lr=float(lr))
+
+    def eval_net(self) -> torch.nn.Module:
+        return self.net_g_ema if self.net_g_ema is not None else self.net_g
+
+    def test(self):
+        """Pad to the window (reflect), forward the EMA net, crop back.
+        `self.output` is NCHW on the device."""
+        lq = self.lq
+        _, _, h, w = lq.shape
+        ws = self.window_size
+        ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
+        if ph or pw:
+            lq = F.pad(lq, (0, pw, 0, ph), mode="reflect")
+        with torch.inference_mode():
+            out = self.eval_net()(lq)
+        self.output = out[:, :, :h * self.scale, :w * self.scale]
+
+    def save(self, epoch: int, current_iter: int):
+        ema = None if self.net_g_ema is None else self.net_g_ema.state_dict()
+        save_network(self._net_path("net_g", current_iter),
+                     self.net_g.state_dict(), ema)
+        if current_iter != -1:
+            states = {"optimizer": self.optimizer.state_dict()}
+            if ema is not None:
+                states["params_ema"] = ema
+            save_training_state(self._state_path(current_iter),
+                                current_iter, epoch, **states)
+
+    def load_net_g(self, path: str, param_key: Optional[str] = None):
+        path_opt = self.opt.get("path") or {}
+        key = param_key or path_opt.get("param_key_g", "params")
+        strict = bool(path_opt.get("strict_load_g", True))
+        load_network(path, self.net_g, key, strict)
+        if self.net_g_ema is not None:
+            load_network(path, self.net_g_ema, "params_ema", strict)
+
+    def resume_training(self, state_path: str) -> Dict[str, int]:
+        st = load_training_state(state_path)
+        if "optimizer" in st and self.optimizer is not None:
+            self.optimizer.load_state_dict(st["optimizer"])
+        if "params_ema" in st and self.net_g_ema is not None:
+            self.net_g_ema.load_state_dict(st["params_ema"])
+        return {"iter": int(st["iter"]), "epoch": int(st["epoch"])}
+
+
+@MODEL_REGISTRY.register(name="MambaSISRModel")
+@MODEL_REGISTRY.register(name="MambaSISRModel2")
+@MODEL_REGISTRY.register(name="ImageCleanModel")
+class ImageRestorationModel(SRModel):
+    """Named aliases: the MambaSISR S1 trainer and the deraining
+    ImageCleanModel reduce to SRModel here, as in the JAX package."""
