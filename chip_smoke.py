@@ -38,11 +38,26 @@ non-zero, and without a CUDA device the script stops before any result:
    prediction, finite losses falling from step 1 to step 6; save, resume
    into a new model, one more step on each: the same step; a
    torch.profiler table of one step in `chiprun_out/train_profile.txt`.
+7. pipeline - `train_pipeline` with both OSS switches on (K5, K6) at the
+   full size of the recipe, on a synthetic paired PNG dataset written by
+   the port's encoder into `build/chip_smoke_data/` (16 pairs of 480x480
+   GT / 120x120 LQ, 2 validation pairs, one with a 61x45 LQ): 8 steps,
+   validation with PSNR-Y at iters 0, 4, 8 and the end, checkpoints at 4
+   and 8, the launches of the whole run against the dispatch's prediction;
+   auto-resume to iter 10; `test_pipeline`; `inference_torch.py --device
+   cuda` on the validation LQ, outputs read back at 4x; ms per iteration
+   and data ms per iteration from the pipeline's timers.
 
-fp32 matrix products and convolutions run in full fp32 (TF32 off). The
-second-to-last lines are a JSON object of the kernels (launches in the
-serve and train phases, max error, times and bound from phase 3) and the
-card's name and power limit from nvidia-smi; the last line is
+The OSS switches (`VMAMBAIR_OSS_FRONT`, `VMAMBAIR_OSS_TAIL`) are off except
+where a phase turns them on: phase 3 holds K5 and K6 against their plain
+versions (fp32 and bf16, the forward envelope), phases 4 and 4b run once
+with them off and once on, and phase 5 races served forwards with them off
+and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
+never when off). fp32 matrix products and convolutions run in full fp32
+(TF32 off). The second-to-last lines are a JSON object of the kernels
+(launches in the serve, train and pipeline phases, max error, times and
+bound from phase 3) and the card's name and power limit from nvidia-smi;
+the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -59,11 +74,15 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vmambair_torch import _build
 from vmambair_torch.models import MamberBlock, build_network
 from vmambair_torch.ops import cuda_effn, cuda_scan
 from vmambair_torch.train import build_model
+from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
+from vmambair_torch.utils.img_util import imread, imwrite
+from vmambair_torch.utils.options import finalize_options
 from vmambair_torch.utils.upscaler import RestorationUpscaler
 
 PALLAS = "vmambair_tpu/ops/pallas_scan.py"
@@ -92,6 +111,14 @@ KERNELS = {
         fn=cuda_effn.gdfn_residual_fwd,
         source="vmambair_torch/csrc/gdfn.cu",
         replaces="vmambair_tpu/ops/pallas_effn.py:119"),
+    "oss_front_fused": dict(
+        fn=cuda_effn.oss_front_fwd,
+        source="vmambair_torch/csrc/oss_front.cu",
+        replaces="vmambair_tpu/ops/pallas_effn.py:269"),
+    "oss_tail_fused": dict(
+        fn=cuda_effn.oss_tail_fwd,
+        source="vmambair_torch/csrc/oss_tail.cu",
+        replaces="vmambair_tpu/ops/pallas_effn.py:444"),
 }
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
@@ -128,14 +155,22 @@ SCAN_PARAMS = ("x_proj_weight", "dt_projs_weight", "dt_projs_bias",
 GDFN_PARAMS = ("ffn.project_in.weight", "ffn.dwconv.weight",
                "ffn.project_out.weight", "norm2.body.weight",
                "norm2.body.bias")
+# parameters K5 (norm1 .. conv2d) and K6 (out_norm) take
+FRONT_TAIL_PARAMS = ("attn.in_conv.weight", "attn.in_conv.bias",
+                     "attn.conv2d.weight", "attn.conv2d.bias",
+                     "attn.out_norm.body.weight", "attn.out_norm.body.bias",
+                     "norm1.body.weight", "norm1.body.bias")
+SWITCHES = ("VMAMBAIR_OSS_FRONT", "VMAMBAIR_OSS_TAIL")
 
 
 def expected_launches(net, train: bool = False) -> dict:
     """Kernel launches of one forward (train: one training step), as the
     port's dispatch routes it: per MamberBlock two spatial pair scans (K1
     when the width is at most 256, else K4), one channel scan (K4) and one
-    GDFN (K2). A training step takes the carry-saving forwards (K1c, K4c)
-    instead of K1 and K4, and one scan backward (K3) per scan."""
+    GDFN (K2), and with the switches on one OSS front (K5) and one OSS
+    tail (K6). A training step takes the carry-saving forwards (K1c, K4c)
+    instead of K1 and K4, and one scan backward (K3) per scan; K2, K5 and
+    K6 have no backward kernel."""
     out = dict.fromkeys(KERNELS, 0)
     sfx = "_carries" if train else ""
     for m in net.modules():
@@ -149,7 +184,26 @@ def expected_launches(net, train: bool = False) -> dict:
             out["selective_scan_bwd"] += 3
         if not m.use_bias and m.ln_bias:
             out["gdfn_residual_fused"] += 1
+        if m.ln_bias and cuda_effn.oss_front_supported():
+            out["oss_front_fused"] += 1
+        if cuda_effn.oss_tail_supported():
+            out["oss_tail_fused"] += 1
     return out
+
+
+@contextlib.contextmanager
+def oss_switches(on: bool):
+    """Turns K5 and K6 on (or off) for the phase inside."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update({k: "1" if on else "0" for k in SWITCHES})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def reset_launches():
@@ -303,6 +357,47 @@ def _gdfn_case(b, c, hw, dtype, gen):
     )
 
 
+def _front_case(b, c, hw, dtype, gen):
+    """K5's inputs at a MamberBlock's shape (E = C), drawn on the card."""
+    def r(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda") * 2 - 1
+    return ((0.5 * torch.randn(b, c, hw, hw, generator=gen, device="cuda")
+             ).to(dtype), 1 + 0.1 * r(c), 0.1 * r(c), r(2 * c, c) / c ** 0.5,
+            r(2 * c) / c ** 0.5, r(c, 3, 3) / 3, r(c) / 3)
+
+
+def _tail_case(b, d, hw, dtype, gen):
+    """K6's inputs: the scans' (B, 2, D, L) sum and the SiLU gate."""
+    return (torch.randn(b, 2, d, hw * hw, generator=gen, device="cuda"
+                        ).to(dtype),
+            F.silu(torch.randn(b, d, hw, hw, generator=gen, device="cuda")
+                   ).to(dtype),
+            1 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
+            0.1 * torch.randn(d, generator=gen, device="cuda"))
+
+
+def _front_bound(args):
+    """JAX's count (pallas_effn.py:322): B H W (4 C E + 18 E), the in_conv
+    products on the tensor cores for bf16 inputs; x read, xs and z
+    written once."""
+    x, w_dw = args[0], args[5]
+    b, c, h, w = x.shape
+    e = w_dw.shape[0]
+    px = b * h * w
+    mma, other = px * 4 * c * e, px * 18 * e
+    by = nbytes(x) + 2 * px * e * x.element_size() + nbytes(*args[1:])
+    if x.dtype == torch.bfloat16:
+        return bound(by, other, mma)
+    return bound(by, other + mma)
+
+
+def _tail_bound(args):
+    """y read, z read and out written once; 10 flops per element."""
+    y, z = args[0], args[1]
+    return bound(nbytes(y) + 2 * nbytes(z) + nbytes(*args[2:]),
+                 10 * z.numel())
+
+
 def _fused_bound(args, carries=False):
     u2 = args[0]
     b, g, d, L = u2.shape
@@ -362,6 +457,11 @@ def kernels_vs_plain() -> dict:
     def fwd_cmp(label, dtype):
         return lambda got, ref: check_close(label, got, ref, *TOL[dtype])
 
+    def pair_cmp(label, dtype):
+        return lambda got, ref: max(
+            check_close(f"{label} {n}", g, r, *TOL[dtype])
+            for n, g, r in zip(("xs", "z"), got, ref))
+
     def carries_cmp(label, kernel_y):
         def cmp(got, ref):
             y, car = got
@@ -410,6 +510,23 @@ def kernels_vs_plain() -> dict:
                 lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
                 lambda a=a: cuda_effn.gdfn_residual_ref(*a),
                 fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
+    # K5 and K6 at the five MamberBlock shapes of a served forward (the
+    # first, 30 of the 50 blocks, is the main shape)
+    cgen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b, c, hw) in ((8, 96, 128), (8, 48, 128), (8, 96, 64),
+                           (8, 192, 32), (8, 384, 16)):
+            lab = f"({b},{c},{hw},{hw})"
+            a = _front_case(b, c, hw, dtype, cgen)
+            add("oss_front_fused", lab, dtype,
+                lambda a=a: cuda_effn.oss_front_fwd(*a),
+                lambda a=a: cuda_effn.oss_front_ref(*a),
+                pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a))
+            a = _tail_case(b, c, hw, dtype, cgen)
+            add("oss_tail_fused", lab, dtype,
+                lambda a=a: cuda_effn.oss_tail_fwd(*a),
+                lambda a=a: cuda_effn.oss_tail_ref(*a),
+                fwd_cmp(f"K6 {lab} {dtype}", dtype), _tail_bound(a))
     a = _scan_case(8, 96, 8, torch.float32, gen, lifted=False)
     add("selective_scan", "channel scan (8,96,8) G=2", torch.float32,
         lambda a=a: cuda_scan.selective_scan_fwd(*a, delta_softplus=True),
@@ -513,6 +630,8 @@ def plain_ops():
          cuda_scan.selective_scan_carries_ref),
         (cuda_scan, "selective_scan_bwd", _bwd_ref_from_carries),
         (cuda_effn, "gdfn_residual_fwd", cuda_effn.gdfn_residual_ref),
+        (cuda_effn, "oss_front_fwd", cuda_effn.oss_front_ref),
+        (cuda_effn, "oss_tail_fwd", cuda_effn.oss_tail_ref),
     ]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -529,11 +648,12 @@ def _reduced_net(seed):
                               num_refinement_blocks=1), seed=seed)
 
 
-def model_vs_plain():
+def model_vs_plain(fused: bool):
+    """Phase 4; `fused`: with K5 and K6 on."""
     net = _reduced_net(1)
     x = torch.rand(8, 3, 128, 128, generator=torch.Generator().manual_seed(2)
                    ).cuda()
-    with torch.inference_mode():
+    with oss_switches(fused), torch.inference_mode():
         t0 = time.perf_counter()
         got = net(x)
         torch.cuda.synchronize()
@@ -543,9 +663,10 @@ def model_vs_plain():
             torch.cuda.synchronize()
         t2 = time.perf_counter()
     assert got.shape == (8, 3, 512, 512), got.shape
-    err = check_close("model [1,1,1,1]+1 fp32", got, ref, 1e-3, 1e-3)
+    tag = "K5/K6 on" if fused else "K5/K6 off"
+    err = check_close(f"model [1,1,1,1]+1 fp32 {tag}", got, ref, 1e-3, 1e-3)
     print(f"[model] MambaSISR6 widths, depth [1,1,1,1]+1, (8,3,128,128) "
-          f"fp32: max abs err {err:.3e} (tol 1e-3); kernels "
+          f"fp32, {tag}: max abs err {err:.3e} (tol 1e-3); kernels "
           f"{1e3 * (t1 - t0):.1f} ms, plain {1e3 * (t2 - t1):.1f} ms "
           "(first calls)")
 
@@ -557,24 +678,27 @@ def _grads(net, lq, gt):
     return {k: p.grad.detach().clone() for k, p in net.named_parameters()}
 
 
-def model_grads_vs_plain():
+def model_grads_vs_plain(fused: bool):
+    """Phase 4b; `fused`: with K5 and K6 on (their parameters' gradients
+    then come through the recompute backward of their Functions)."""
     net = _reduced_net(3)
     g = torch.Generator().manual_seed(4)
     gt = torch.rand(8, 3, 256, 256, generator=g)
     lq = torch.nn.functional.avg_pool2d(gt, 4).cuda()
     gt = gt.cuda()
-    want = expected_launches(net, train=True)
-    reset_launches()
-    t0 = time.perf_counter()
-    got = _grads(net, lq, gt)
-    t1 = time.perf_counter()
-    counts = launches()
-    if counts != want:
-        raise SystemExit(f"FAIL model grads: launches {counts}, predicted "
-                         f"{want}")
-    with plain_ops():
-        ref = _grads(net, lq, gt)
-    t2 = time.perf_counter()
+    with oss_switches(fused):
+        want = expected_launches(net, train=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = _grads(net, lq, gt)
+        t1 = time.perf_counter()
+        counts = launches()
+        if counts != want:
+            raise SystemExit(f"FAIL model grads: launches {counts}, "
+                             f"predicted {want}")
+        with plain_ops():
+            ref = _grads(net, lq, gt)
+        t2 = time.perf_counter()
     top = max(r.abs().max().item() for r in ref.values())
     worst, checked = (0.0, ""), 0
     for k, gk in got.items():
@@ -593,18 +717,23 @@ def model_grads_vs_plain():
         if rel > GRAD_BAR:
             raise SystemExit(f"FAIL model grads: {k} rel err {rel:.3e} > "
                              f"{GRAD_BAR}")
+    groups = SCAN_PARAMS + GDFN_PARAMS + (FRONT_TAIL_PARAMS if fused
+                                          else ())
     kernel_params = [k for k in got if k.rsplit(".", 1)[-1] in SCAN_PARAMS
-                     or k.endswith(GDFN_PARAMS)]
+                     or k.endswith(GDFN_PARAMS)
+                     or (fused and k.endswith(FRONT_TAIL_PARAMS))]
     zero = [k for k in kernel_params if not got[k].abs().max() > 0]
     n_blocks = sum(isinstance(m, MamberBlock) for m in net.modules())
-    if zero or len(kernel_params) != n_blocks * (len(SCAN_PARAMS)
-                                                 + len(GDFN_PARAMS)):
+    if zero or len(kernel_params) != n_blocks * len(groups):
         raise SystemExit(f"FAIL model grads: zero gradients at {zero} "
-                         f"({len(kernel_params)} scan/GDFN tensors)")
+                         f"({len(kernel_params)} kernel tensors)")
+    tag = "K5/K6 on" if fused else "K5/K6 off"
     print(f"[grads] MambaSISR6 widths, depth [1,1,1,1]+1, 8x64x64 LQ, L1, "
-          f"fp32: {checked} parameter tensors within {GRAD_BAR} of their "
+          f"fp32, {tag}: {checked} parameter tensors within {GRAD_BAR} of "
+          "their "
           f"largest entry (worst {worst[0]:.3e} at {worst[1]}); "
-          f"{len(kernel_params)} scan/GDFN tensors with non-zero finite "
+          f"{len(kernel_params)} scan/GDFN{'/front/tail' if fused else ''} "
+          "tensors with non-zero finite "
           f"gradients; launches {counts}; kernels {1e3 * (t1 - t0):.1f} ms,"
           f" plain {1e3 * (t2 - t1):.1f} ms (first calls)")
     del net, got, ref
@@ -651,7 +780,48 @@ def serve() -> dict:
           f"{nvidia_smi_line()}")
     profile("serve", lambda: ups.tile_process(
         np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
-    return counts
+    raced = race(ups, net)
+    with oss_switches(True):
+        profile("serve_front_tail", lambda: ups.tile_process(
+            np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
+    return {k: counts[k] + raced[k] for k in counts}
+
+
+def race(ups, net, rounds=6) -> dict:
+    """The served forward with K5/K6 off against on, in turns (off, on, on,
+    off, ...), `rounds` of each in this process: every forward's launches
+    against the prediction (K5 and K6 once per MamberBlock when on, never
+    when off), the two medians, and the largest difference between the two
+    outputs. Returns the launches of all the forwards."""
+    img = np.random.RandomState(200).rand(512, 256, 3).astype(np.float32)
+    n_blocks = sum(isinstance(m, MamberBlock) for m in net.modules())
+    times, outs = {False: [], True: []}, {}
+    total = dict.fromkeys(KERNELS, 0)
+    for i in range(rounds):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            with oss_switches(on):
+                want = expected_launches(net)
+                reset_launches()
+                t0 = time.perf_counter()
+                outs[on] = ups.tile_process(img)
+                times[on].append(time.perf_counter() - t0)
+                got = launches()
+            if got != want or any(got[k] != (n_blocks if on else 0) for k
+                                  in ("oss_front_fused", "oss_tail_fused")):
+                raise SystemExit(f"FAIL race: K5/K6 {'on' if on else 'off'}"
+                                 f" launches {got}, predicted {want}")
+            for k, v in got.items():
+                total[k] += v
+    off, on = (1e3 * statistics.median(times[k]) for k in (False, True))
+    every = {k: [round(1e3 * t, 1) for t in v] for k, v in times.items()}
+    diff = np.abs(outs[True] - outs[False]).max()
+    print(f"[race] served forward (8 bf16 tiles of 128x128), median of "
+          f"{rounds} each, in turns: K5/K6 off {off:.1f} ms, on {on:.1f} ms "
+          f"({off / on:.3f}x); all off {every[False]}, all on "
+          f"{every[True]}; launches per "
+          f"forward K5 {n_blocks} / K6 {n_blocks} on, 0 off; max |out on - "
+          f"out off| {diff:.3e}; card {nvidia_smi_line()}")
+    return total
 
 
 # device kernels by class, for the "where the time goes" tables: the
@@ -661,6 +831,8 @@ KERNEL_CLASSES = (
     ("K1/K1c fused scan", ("oss_scan_fused_kernel",)),
     ("K4/K4c scan", ("selective_scan_kernel",)),
     ("K2 GDFN", ("gdfn_kernel",)),
+    ("K5 OSS front", ("oss_front_kernel",)),
+    ("K6 OSS tail", ("oss_tail_kernel",)),
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "implicit",
                       "cudnn", "winograd")),
     ("matrix products (einsums)", ("gemm", "xmma", "cutlass", "splitK")),
@@ -798,25 +970,211 @@ def train() -> dict:
     return counts
 
 
+# -- phase 7: the pipeline ----------------------------------------------------
+
+DATA = os.path.join("build", "chip_smoke_data")
+PIPE = os.path.join("build", "chip_smoke_pipeline")
+
+
+def _synthetic_image(rng, h, w) -> np.ndarray:
+    """A seeded HWC uint8 image: smooth waves and a little noise."""
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.zeros((h, w, 3))
+    for _ in range(4):
+        f, phase = rng.uniform(2, 24, 2), rng.uniform(0, 2 * np.pi, 3)
+        img += np.sin(2 * np.pi * (f[0] * yy + f[1] * xx)[..., None] + phase)
+    img = 0.5 + 0.1 * img + 0.03 * rng.randn(h, w, 3)
+    return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
+
+
+def write_dataset():
+    """16 training pairs of 480x480 GT (the DF2K sub-image size) and their
+    4x box-downsampled 120x120 LQ, and 2 validation pairs (120x120 and
+    61x45 LQ), as PNG by the port's encoder."""
+    shutil.rmtree(DATA, ignore_errors=True)
+    rng = np.random.RandomState(0)
+    sizes = [("train", f"{i:04d}", 120, 120) for i in range(16)] + [
+        ("val", "v0", 120, 120), ("val", "v1", 61, 45)]
+    for split, name, h, w in sizes:
+        gt = _synthetic_image(rng, 4 * h, 4 * w)
+        lq = gt.reshape(h, 4, w, 4, 3).mean((1, 3)).round().astype(np.uint8)
+        imwrite(gt, os.path.join(DATA, split, "gt", f"{name}.png"))
+        imwrite(lq, os.path.join(DATA, split, "lq", f"{name}.png"))
+
+
+def _val_dataset() -> dict:
+    return {"name": "synthetic val", "type": "PairedImageDataset",
+            "dataroot_gt": os.path.join(DATA, "val", "gt"),
+            "dataroot_lq": os.path.join(DATA, "val", "lq"),
+            "io_backend": {"type": "disk"}}
+
+
+def _pipeline_opt(total_iter: int, auto_resume: bool) -> dict:
+    """RECIPE with its datasets pointed at the synthetic PNGs, 8 steps,
+    validation (PSNR-Y, crop 4) every 4, checkpoints every 4."""
+    train_ds = {"name": "synthetic DF2K", "type": "PairedImageDataset",
+                "dataroot_gt": os.path.join(DATA, "train", "gt"),
+                "dataroot_lq": os.path.join(DATA, "train", "lq"),
+                "io_backend": {"type": "disk"}, "gt_size": 256,
+                "use_hflip": True, "use_rot": True, "num_worker_per_gpu": 8,
+                "batch_size_per_gpu": 8, "dataset_enlarge_ratio": 100}
+    opt = json.loads(json.dumps(RECIPE))
+    opt.update(num_gpu=1, auto_resume=auto_resume,
+               datasets={"train": train_ds, "val_1": _val_dataset()},
+               path={"experiments_root": os.path.join(PIPE, "exp"),
+                     "pretrain_network_g": None, "param_key_g": "params_ema",
+                     "strict_load_g": True, "resume_state": None},
+               logger={"print_freq": 1, "save_checkpoint_freq": 4,
+                       "use_tb_logger": False})
+    opt["train"]["total_iter"] = total_iter
+    opt["val"] = {"window_size": 8, "val_freq": 4, "save_img": False,
+                  "metrics": {"psnr": {"type": "calculate_psnr",
+                                       "crop_border": 4,
+                                       "test_y_channel": True}}}
+    return finalize_options(opt, ".", is_train=True)
+
+
+def _last_log(prefix: str) -> str:
+    log_dir = os.path.join(PIPE, "exp")
+    names = sorted(f for f in os.listdir(log_dir)
+                   if f.startswith(prefix) and f.endswith(".log"))
+    with open(os.path.join(log_dir, names[-1])) as f:
+        return f.read()
+
+
+def _numbers(log: str, key: str) -> list:
+    return [float(line.rsplit(key, 1)[1].split()[0])
+            for line in log.splitlines() if key in line]
+
+
+def pipeline() -> dict:
+    """Phase 7: train, validate, save, resume, test and serve through the
+    pipeline's entry points with K5 and K6 on."""
+    t0 = time.perf_counter()
+    write_dataset()
+    shutil.rmtree(PIPE, ignore_errors=True)
+    print(f"[pipeline] dataset written in {time.perf_counter() - t0:.1f} s")
+    with oss_switches(True):
+        arch = build_network(dict(type="MambaSISR6"), device="cpu")
+        fwd, step = (expected_launches(arch, train=t) for t in (False, True))
+        del arch
+        reset_launches()
+        t1 = time.perf_counter()
+        model = train_pipeline(".", _pipeline_opt(8, False), device="cuda")
+        t2 = time.perf_counter()
+        log = _last_log("train_")
+        first = launches()
+        # validation before step 1, at 4 and 8, and after the loop: 2
+        # images each
+        n_val = 2 * 4
+        want = {k: 8 * step[k] + n_val * fwd[k] for k in KERNELS}
+        if first != want:
+            raise SystemExit(f"FAIL pipeline: launches {first}, predicted "
+                             f"{want}")
+        losses, psnrs = _numbers(log, "l_pix:"), _numbers(log, "# psnr:")
+        if len(losses) != 8 or not np.isfinite(losses).all():
+            raise SystemExit(f"FAIL pipeline: losses {losses}")
+        if len(psnrs) != 4 or not np.isfinite(psnrs).all():
+            raise SystemExit(f"FAIL pipeline: validation PSNR {psnrs}")
+        exp = os.path.join(PIPE, "exp")
+        for path in ("models/net_g_4.pth", "models/net_g_8.pth",
+                     "training_states/8.state"):
+            if not os.path.isfile(os.path.join(exp, path)):
+                raise SystemExit(f"FAIL pipeline: no {path}")
+        iter_ms = 1e3 * model.timers["iter"].get_avg_time()
+        data_ms = 1e3 * model.timers["data"].get_avg_time()
+        print(f"[pipeline] 8 steps of the recipe: l_pix "
+              f"{[round(v, 5) for v in losses]}; validation PSNR-Y "
+              f"{[round(v, 4) for v in psnrs]} dB (iters 0, 4, 8, end); ms "
+              f"per iter {iter_ms:.1f}, data ms per iter {data_ms:.1f} (mean "
+              f"of 8); run {t2 - t1:.1f} s; launches {first}; card "
+              f"{nvidia_smi_line()}")
+        del model
+
+        # auto-resume to 10: steps 9 and 10, then validation
+        reset_launches()
+        model = train_pipeline(".", _pipeline_opt(10, True), device="cuda")
+        log = _last_log("train_")
+        resumed = launches()
+        want = {k: 2 * step[k] + 2 * fwd[k] for k in KERNELS}
+        if "Resuming training from epoch 0, iter 8." not in log \
+                or resumed != want:
+            raise SystemExit(f"FAIL pipeline: resume: launches {resumed} "
+                             f"(predicted {want}); log:\n{log[-2000:]}")
+        if not os.path.isfile(os.path.join(exp, "models", "net_g_10.pth")):
+            raise SystemExit("FAIL pipeline: no net_g_10.pth")
+        del model
+        print(f"[pipeline] auto-resume at iter 8 to iter 10: launches "
+              f"{resumed}")
+
+        # test_pipeline on the validation pairs, then the inference CLI
+        ckpt = os.path.join(exp, "models", "net_g_10.pth")
+        res = os.path.join(PIPE, "results")
+        opt = finalize_options({
+            "name": "chip_smoke_test", "model_type": "MambaSISRModel",
+            "scale": 4, "manual_seed": 0,
+            "network_g": RECIPE["network_g"],
+            "datasets": {"test_1": _val_dataset()},
+            "path": {"results_root": res, "pretrain_network_g": ckpt,
+                     "param_key_g": "params_ema"},
+            "val": {"window_size": 8, "save_img": True,
+                    "metrics": {"psnr": {"type": "calculate_psnr",
+                                         "crop_border": 4,
+                                         "test_y_channel": True}}},
+        }, ".", is_train=False)
+        reset_launches()
+        test_pipeline(".", opt, device="cuda")
+        tested = launches()
+        if tested != {k: 2 * fwd[k] for k in KERNELS}:
+            raise SystemExit(f"FAIL pipeline: test launches {tested}")
+        lq_dir = os.path.join(DATA, "val", "lq")
+        out_dir = os.path.join(PIPE, "cli")
+        t3 = time.perf_counter()
+        subprocess.run([sys.executable, "inference_torch.py", "--model_path",
+                        ckpt, "--arch", "MambaSISR6", "-i", lq_dir, "-o",
+                        out_dir, "--scale", "4", "--device", "cuda"],
+                       check=True)
+        t4 = time.perf_counter()
+    for name in sorted(os.listdir(lq_dir)):
+        stem = os.path.splitext(name)[0]
+        lq = imread(os.path.join(lq_dir, name))
+        for out in (os.path.join(res, "visualization", "synthetic val",
+                                 name),
+                    os.path.join(out_dir, f"{stem}_out.png")):
+            img = imread(out)
+            if img.shape != (4 * lq.shape[0], 4 * lq.shape[1], 3):
+                raise SystemExit(f"FAIL pipeline: {out} is {img.shape} for "
+                                 f"an LQ of {lq.shape}")
+    print(f"[pipeline] test_pipeline and inference_torch.py --device cuda "
+          f"(subprocess, {t4 - t3:.1f} s): outputs 4x their LQ; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: first[k] + resumed[k] + tested[k] for k in KERNELS}
+
+
 def main():
     t0 = time.perf_counter()
+    os.environ.update({k: "0" for k in SWITCHES})
+    os.environ.pop("VMAMBAIR_EFFN_FUSED", None)
     probe()
     build()
     stats = kernels_vs_plain()
-    model_vs_plain()
-    model_grads_vs_plain()
+    for fused in (False, True):
+        model_vs_plain(fused)
+        model_grads_vs_plain(fused)
     serve_counts = serve()
     train_counts = train()
+    pipe_counts = pipeline()
     kernels = []
     for name, k in KERNELS.items():
-        n = serve_counts[name] + train_counts[name]
-        if n == 0:
+        n = serve_counts[name] + train_counts[name] + pipe_counts[name]
+        if n == 0 or pipe_counts[name] == 0:
             raise SystemExit(f"FAIL: {name} never launched on a main path")
         kernels.append(dict(
             name=name, route="cuda", source=k["source"],
             replaces=k["replaces"], launches=n,
             launches_serve=serve_counts[name],
-            launches_train=train_counts[name], **stats[name]))
+            launches_train=train_counts[name],
+            launches_pipeline=pipe_counts[name], **stats[name]))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

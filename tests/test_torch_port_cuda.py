@@ -302,3 +302,107 @@ def test_tiny_ossnet_training_step_launches_kernels(cuda):
         assert torch.isfinite(p.grad).all(), k
         if not k.endswith("conv_cout.bias"):
             assert p.grad.abs().max() > 0, k
+
+
+def _front_args(cuda, c, e, h, w, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    args = [0.5 * torch.randn(2, c, h, w, generator=g),
+            1 + 0.1 * torch.randn(c, generator=g),
+            0.1 * torch.randn(c, generator=g),
+            torch.randn(2 * e, c, generator=g) / c ** 0.5,
+            0.3 * torch.randn(2 * e, generator=g),
+            torch.randn(e, 3, 3, generator=g) / 3,
+            0.3 * torch.randn(e, generator=g)]
+    args = [a.to(cuda) for a in args]
+    args[0] = args[0].to(dtype)
+    return args
+
+
+def _tail_args(cuda, d, h, w, ydtype, zdtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(2, 2, d, h * w, generator=g).to(cuda, ydtype),
+            torch.nn.functional.silu(torch.randn(2, d, h, w, generator=g)
+                                     ).to(cuda, zdtype),
+            (1 + 0.1 * torch.randn(d, generator=g)).to(cuda),
+            (0.1 * torch.randn(d, generator=g)).to(cuda)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,e,h,w", [(48, 48, 13, 19), (96, 100, 8, 8),
+                                     (384, 384, 5, 7), (20, 70, 3, 33)])
+def test_oss_front_kernel_matches_plain(cuda, c, e, h, w, dtype):
+    """K5 at ragged tiles, E past one channel tile and E != C."""
+    args = _front_args(cuda, c, e, h, w, dtype, c + h)
+    n0 = cuda_effn.oss_front_fwd.launches
+    xs, z = cuda_effn.oss_front_fused(*args)
+    assert cuda_effn.oss_front_fwd.launches == n0 + 1
+    rxs, rz = cuda_effn.oss_front_ref(*args)
+    assert xs.dtype == z.dtype == dtype and xs.shape == (2, e, h, w)
+    _close(xs, rxs, dtype)
+    _close(z, rz, dtype)
+
+
+@pytest.mark.parametrize("ydtype,zdtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("d,h,w", [(48, 13, 19), (96, 16, 16), (192, 9, 16),
+                                   (384, 5, 7)])
+def test_oss_tail_kernel_matches_plain(cuda, d, h, w, ydtype, zdtype):
+    """D=192 fills exactly the 48 KB of dynamic shared memory that needs
+    no opt-in, beside the static statistics."""
+    args = _tail_args(cuda, d, h, w, ydtype, zdtype, d + w)
+    n0 = cuda_effn.oss_tail_fwd.launches
+    got = cuda_effn.oss_tail_fused(*args)
+    assert cuda_effn.oss_tail_fwd.launches == n0 + 1
+    assert got.dtype == zdtype and got.shape == (2, d, h, w)
+    _close(got, cuda_effn.oss_tail_ref(*args), zdtype)
+
+
+def test_autograd_oss_front_and_tail_match_plain_path(cuda):
+    cases = [(cuda_effn.oss_front_fused, cuda_effn.oss_front_ref,
+              _front_args(cuda, 48, 48, 9, 13, torch.float32, 1)),
+             (cuda_effn.oss_tail_fused, cuda_effn.oss_tail_ref,
+              _tail_args(cuda, 48, 9, 13, torch.float32, torch.float32, 2))]
+    for fn, ref_fn, ins in cases:
+        ins = [a.requires_grad_() for a in ins]
+        out = fn(*ins)
+        outs = out if isinstance(out, tuple) else (out,)
+        ws = [torch.randn_like(o) for o in outs]
+        got = torch.autograd.grad(outs, ins, ws)
+        ref = ref_fn(*ins)
+        ref = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,),
+                                  ins, ws)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, **GRAD_TOL)
+    fa = _front_args(cuda, 8, 8, 4, 4, torch.float32, 3)
+    fa[0].requires_grad_()
+    ta = _tail_args(cuda, 8, 4, 4, torch.float32, torch.float32, 4)
+    ta[1].requires_grad_()
+    for call in (lambda: cuda_effn.oss_front_fwd(*fa),
+                 lambda: cuda_effn.oss_tail_fwd(*ta)):
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+
+
+def test_tiny_ossnet_with_front_and_tail_matches_plain(cuda, monkeypatch):
+    """Both switches on: a forward and a training step launch K5 and K6
+    once per MamberBlock, and the forward agrees with the switches off."""
+    import chip_smoke
+
+    net = build_network(dict(type="OSSNet", dim=40, num_blocks=[1, 1, 1, 1],
+                             num_refinement_blocks=1, scale=4), device=cuda)
+    x = torch.rand(2, 3, 32, 24, device=cuda)
+    with torch.inference_mode():
+        ref = net(x)
+    monkeypatch.setenv("VMAMBAIR_OSS_FRONT", "1")
+    monkeypatch.setenv("VMAMBAIR_OSS_TAIL", "1")
+    chip_smoke.reset_launches()
+    with torch.inference_mode():
+        got = net(x)
+    assert chip_smoke.launches() == chip_smoke.expected_launches(net)
+    assert chip_smoke.launches()["oss_front_fused"] == 8
+    _close(got, ref, torch.float32)
+    chip_smoke.reset_launches()
+    (net(x) - 1).abs().mean().backward()
+    assert chip_smoke.launches() == chip_smoke.expected_launches(
+        net, train=True)

@@ -24,23 +24,50 @@ TINY = dict(type="OSSNet", dim=8, num_blocks=[1, 1, 1, 1],
 torch.set_num_threads(1)
 
 
+BLOCKED = ("import sys\n"
+           "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', "
+           "'vmambair_tpu'):\n"
+           "    sys.modules[m] = None\n")
+
+
 def test_imports_with_jax_and_cv2_blocked():
-    """The port and chip_smoke import nothing of JAX, flax or the JAX
-    package (vmambair_tpu), and neither cv2 nor yaml."""
-    code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'vmambair_tpu'):\n"
-        "    sys.modules[m] = None\n"
-        "import vmambair_torch, vmambair_torch.models, vmambair_torch.ops\n"
-        "import vmambair_torch.ops.cuda_scan, vmambair_torch.ops.cuda_effn\n"
-        "import vmambair_torch.utils.upscaler, vmambair_torch.utils.convert\n"
-        "import vmambair_torch.utils.registry, vmambair_torch.losses\n"
-        "import vmambair_torch.train, vmambair_torch.train.sr_model\n"
-        "import vmambair_torch.inference, chip_smoke\n"
+    """The port, its entry points and chip_smoke import nothing of JAX,
+    flax or the JAX package (vmambair_tpu), and neither cv2 nor yaml:
+    every module of the package is imported with those blocked."""
+    pkg = os.path.join(ROOT, "vmambair_torch")
+    mods = sorted(
+        os.path.relpath(os.path.join(d, f), ROOT)[:-3].replace(os.sep, ".")
+        .removesuffix(".__init__")
+        for d, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
+    assert {"vmambair_torch.data.loader", "vmambair_torch.train.pipeline",
+            "vmambair_torch.utils.img_util", "vmambair_torch.metrics",
+            "vmambair_torch.utils.options"} <= set(mods)
+    code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
+        "import chip_smoke, inference_torch, train_torch, test_torch\n"
         "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"
-        "               and sys.modules[k] for k in sys.modules)\n"
-    )
+        "               and sys.modules[k] for k in sys.modules)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+def test_inference_cli_on_cpu_without_cv2(tmp_path):
+    """The inference CLI reads and writes PNG with the port's codec: it
+    runs with cv2 (and JAX) blocked."""
+    from vmambair_torch.utils.img_util import imread, imwrite
+
+    net = build_network(TINY, device="cpu", seed=3)
+    torch.save({"params": net.state_dict()}, tmp_path / "net.pth")
+    imwrite((np.random.RandomState(0).rand(10, 6, 3) * 255).astype(
+        np.uint8), str(tmp_path / "in" / "b.png"))
+    opt = json.dumps({k: v for k, v in TINY.items()
+                      if k not in ("type", "scale")})
+    argv = ["--model_path", str(tmp_path / "net.pth"), "--arch", "OSSNet",
+            "-i", str(tmp_path / "in"), "-o", str(tmp_path / "out"),
+            "--network_opt", opt, "--device", "cpu"]
+    code = BLOCKED + ("import torch; torch.set_num_threads(1)\n"
+                      "from vmambair_torch import inference\n"
+                      f"inference.main({argv!r})\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+    assert imread(str(tmp_path / "out" / "b_out.png")).shape == (40, 24, 3)
 
 
 def test_nvcc_command_targets_sm90a():
@@ -51,8 +78,8 @@ def test_nvcc_command_targets_sm90a():
         assert flag in cmd
     srcs = [s for s in cmd if s.endswith(".cu")]
     assert {os.path.basename(s) for s in srcs} == {
-        "gdfn.cu", "oss_scan_fused.cu", "selective_scan.cu",
-        "selective_scan_bwd.cu"}
+        "gdfn.cu", "oss_front.cu", "oss_scan_fused.cu", "oss_tail.cu",
+        "selective_scan.cu", "selective_scan_bwd.cu"}
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -75,6 +102,7 @@ def test_source_hash_follows_sources(monkeypatch, tmp_path):
                                   "vmambair_torch/ops/cuda_effn.py",
                                   "vmambair_torch/_build.py",
                                   "vmambair_torch/models/unet.py",
+                                  "vmambair_torch/models/oss.py",
                                   "vmambair_torch/train/sr_model.py"])
 def test_cuda_wrappers_have_no_fallback_try(path):
     """A CUDA tensor goes to the kernel or raises: no try/except in the

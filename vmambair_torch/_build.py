@@ -81,6 +81,15 @@ SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
         _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
     ],
+    "vmt_oss_front_fwd": [
+        _P, _I, _P, _P,                          # x, dt, xs, z
+        _P, _P, _P, _P, _P, _P,                  # lnw lnb win_t bin wdw bdw
+        _I, _I, _I, _I, _I, _F, _P,              # B C E H W eps stream
+    ],
+    "vmt_oss_tail_fwd": [
+        _P, _I, _P, _I, _P, _P, _P,              # y dty z dtz out lnw lnb
+        _I, _I, _I, _I, _F, _P,                  # B D H W eps stream
+    ],
 }
 
 

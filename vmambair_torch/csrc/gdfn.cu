@@ -28,23 +28,15 @@
 // through shared memory in slices that all 8 warps share, loaded
 // coalesced. Odd hidden widths are handled by masking the last tile; no
 // lane padding. C <= 384.
-#include "common.cuh"
+#include "ln_halo.cuh"
 
 namespace vmt {
 
-constexpr int TH = 4, TW = 8;            // output tile
-constexpr int PH = TH + 2, PW = TW + 2;  // halo tile
-constexpr int P = PH * PW;               // 60 halo pixels
-constexpr int PP = 64;                   // halo pitch (slots >= P are zero)
-constexpr int Q = TH * TW;               // 32 output pixels
-constexpr int HT = 64;                   // hidden channels per tile
-constexpr int NTH = 256;                 // threads
-constexpr int NWARP = NTH / 32;
-constexpr int PIX_W = PP / NWARP;        // projection: pixels per warp (8)
-constexpr int ROWS_L = 2 * HT / 32;      // projection: rows per lane (4)
+using namespace halo;  // the tile, its halo and the projection (ln_halo.cuh)
+
+constexpr int HT = RT;                   // hidden channels per tile
 constexpr int QG = 4;                    // output: pixels per thread
 constexpr int KMAX = 12;                 // output: channels per lane, C <= 384
-constexpr int KC = 32;                   // W_in rows staged per step
 constexpr int JC = 16;                   // W_out rows staged per step
 
 __device__ __forceinline__ float gelu_erf(float v) {
@@ -75,35 +67,8 @@ __global__ void __launch_bounds__(NTH, 2) gdfn_kernel(
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
 
-  // 1. the halo of x, zero outside the image and in the pad slots
-  for (int i = tid; i < C * PP; i += NTH) {
-    const int c = i / PP, p = i % PP;
-    const int gy = y0 - 1 + p / PW, gx = x0 - 1 + p % PW;
-    const bool in = p < P && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    zn[i] = in ? ld_act(x, xb + c * HW + (long long)gy * W + gx, dt) : 0.f;
-  }
-  __syncthreads();
-  // 2. LayerNorm statistics, one thread per halo pixel
-  if (tid < P) {
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) s += zn[c * PP + tid];
-    const float mu = s / C;
-    float v = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float d = zn[c * PP + tid] - mu;
-      v += d * d;
-    }
-    s_mu[tid] = mu;
-    s_rs[tid] = rsqrtf(v / C + eps);
-  }
-  __syncthreads();
-  for (int i = tid; i < C * PP; i += NTH) {
-    const int c = i / PP, p = i % PP;
-    const int gy = y0 - 1 + p / PW, gx = x0 - 1 + p % PW;
-    const bool in = p < P && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    zn[i] = in ? round_act((zn[i] - s_mu[p]) * s_rs[p] * lnw[c] + lnb[c], dt)
-               : 0.f;
-  }
+  // 1-2. LN(x) over the halo (ln_halo.cuh)
+  ln_halo(x, dt, xb, lnw, lnb, C, H, W, y0, x0, eps, zn, s_mu, s_rs);
 
   // output accumulators: lane owns channels lane + 32k, warp owns pixels
   // warp*QG .. warp*QG + QG - 1
@@ -115,47 +80,16 @@ __global__ void __launch_bounds__(NTH, 2) gdfn_kernel(
 
   for (int h0 = 0; h0 < hid; h0 += HT) {
     __syncthreads();  // zn ready; the previous tile's gb readers are done
-    // 3. project the hidden tile over the halo. Row r < HT is x1 channel
-    // h0 + r, row r >= HT is x2 channel hid + h0 + r - HT. Lane owns rows
-    // lane + 32m, warp owns pixels warp*PIX_W ...; W_in comes through
-    // shared memory KC input channels at a time.
+    // 3. project the hidden tile over the halo: row r < HT is x1 channel
+    // h0 + r, row r >= HT is x2 channel hid + h0 + r - HT
     {
       float pa[ROWS_L][PIX_W];
+      project_tile(zn, ws, win_t, C, hid, h0, pa);
 #pragma unroll
       for (int m = 0; m < ROWS_L; ++m)
 #pragma unroll
-        for (int j = 0; j < PIX_W; ++j) pa[m][j] = 0.f;
-      const int pb = warp * PIX_W;
-      for (int k0 = 0; k0 < C; k0 += KC) {
-        const int kc = min(KC, C - k0);
-        __syncthreads();  // the previous slice's readers are done
-        for (int i = tid; i < kc * 2 * HT; i += NTH) {
-          const int kk = i / (2 * HT), r = i % (2 * HT);
-          const int ch = h0 + r % HT;
-          ws[i] = ch < hid
-                      ? win_t[(long long)(k0 + kk) * 2 * hid + (r / HT) * hid + ch]
-                      : 0.f;
-        }
-        __syncthreads();
-        for (int kk = 0; kk < kc; ++kk) {
-          const float4* zr =
-              reinterpret_cast<const float4*>(zn + (k0 + kk) * PP + pb);
-          const float4 za = zr[0], zb = zr[1];
-          const float z[PIX_W] = {za.x, za.y, za.z, za.w,
-                                  zb.x, zb.y, zb.z, zb.w};
-          const float* wr = ws + kk * 2 * HT + lane;
-#pragma unroll
-          for (int m = 0; m < ROWS_L; ++m) {
-            const float w = wr[32 * m];
-#pragma unroll
-            for (int j = 0; j < PIX_W; ++j) pa[m][j] += w * z[j];
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < ROWS_L; ++m)
-#pragma unroll
-        for (int j = 0; j < PIX_W; ++j) hb[(lane + 32 * m) * PP + pb + j] = pa[m][j];
+        for (int j = 0; j < PIX_W; ++j)
+          hb[(lane + 32 * m) * PP + warp * PIX_W + j] = pa[m][j];
     }
     __syncthreads();
     // 4. depthwise 3x3 and the gate

@@ -5,7 +5,9 @@ Counterpart of `vmambair_tpu/inference.py`, with the same flags plus
 `--device` (default `cuda`; there is no silent CPU fallback). It builds the
 net, loads a torch state dict (`scripts/convert_jax_to_torch.py` writes one
 from a JAX `.ckpt`) and runs `RestorationUpscaler`: tiled when `--tile` is
-given, else the whole image padded to the window.
+given, else the whole image padded to the window. Images are read and
+written by the port's own codec (`utils/img_util.py`: PNG without `cv2`;
+other formats through `cv2` where it is installed).
 
     python inference_torch.py --model_path net_g.pth --arch MambaSISR6 \
         --input inputs/ --output results/ --scale 4 [--tile 128]
@@ -22,6 +24,7 @@ import torch
 
 from .models import build_network
 from .utils.convert import load_network
+from .utils.img_util import imread, imwrite
 from .utils.upscaler import RestorationUpscaler
 
 
@@ -55,7 +58,6 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
-    import cv2  # image I/O only
 
     window = args.window or {1: 32, 2: 16, 4: 8}.get(args.scale, 8)
     network_g = {"type": args.arch, "scale": args.scale}
@@ -73,9 +75,8 @@ def main(argv=None):
     for path in paths:
         name = os.path.splitext(os.path.basename(path))[0]
         print(f"Processing {name} ...")
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        out, _ = ups.enhance(img)
-        cv2.imwrite(os.path.join(args.output, f"{name}_out.png"), out)
+        out, _ = ups.enhance(imread(path, "color"))
+        imwrite(out, os.path.join(args.output, f"{name}_out.png"))
 
 
 if __name__ == "__main__":

@@ -17,6 +17,11 @@ JAX's `SpatialScan` and `ChannelScan` modules are the methods
 
 In NCHW the row-major scan input `x.view(B, D, H*W)` is already the scan
 kernels' (B, D, L) layout.
+
+With `VMAMBAIR_OSS_FRONT=1` the front (norm1 through the two SiLUs) runs
+as one K5 launch, and with `VMAMBAIR_OSS_TAIL=1` the tail (merge,
+out_norm, gate) as one K6 launch (`ops/cuda_effn.py`); both are off by
+default, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +32,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda_effn import (
+    oss_front_fused,
+    oss_front_supported,
+    oss_tail_fused,
+    oss_tail_supported,
+)
 from ..ops.cuda_scan import (
     fused_scan_supported,
     oss_scan_fused,
@@ -190,6 +201,10 @@ class OSS(nn.Module):
                 return y.transpose(1, 2).reshape(b, 2, d, L)
 
             y = run(0, False) + run(2, True)
+        if oss_tail_supported():
+            # K6 reads the column-major pair at its transposed position
+            lw, lb = self.out_norm.scale_bias()
+            return oss_tail_fused(y, z, lw, lb, eps=self.out_norm.eps)
         y_row = y[:, 0].reshape(b, d, h, w)
         y_colT = y[:, 1].reshape(b, d, w, h).transpose(2, 3)
         y = self.out_norm((y_row + y_colT).float()).to(x.dtype)
@@ -216,12 +231,21 @@ class OSS(nn.Module):
         return self.channel_norm(y[:, :, None, None]).to(y2.dtype)
 
     def forward(self, x, norm=None):
-        """norm: the preceding LayerNorm2d (MamberBlock's norm1)."""
-        if norm is not None:
-            x = norm(x)
-        xs, z = self.in_conv(x).chunk(2, dim=1)
-        z = F.silu(z)
-        xs = F.silu(self.conv2d(xs))
+        """norm: the preceding LayerNorm2d (MamberBlock's norm1), passed
+        un-applied so that K5 can fold it in (JAX's condition: a norm with
+        a bias)."""
+        if norm is not None and norm.use_bias and oss_front_supported():
+            lw, lb = norm.scale_bias()
+            xs, z = oss_front_fused(
+                x, lw, lb, self.in_conv.weight[:, :, 0, 0],
+                self.in_conv.bias, self.conv2d.weight[:, 0],
+                self.conv2d.bias, eps=norm.eps)
+        else:
+            if norm is not None:
+                x = norm(x)
+            xs, z = self.in_conv(x).chunk(2, dim=1)
+            z = F.silu(z)
+            xs = F.silu(self.conv2d(xs))
         y2 = self.spatial_scan(xs, z)
         c = self.channel_scan(y2)
         y2 = y2 * c + y2 if self.channel_attn == "mul" else y2 + c

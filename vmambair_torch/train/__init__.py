@@ -1,8 +1,9 @@
 """Training layer of the port: model wrappers, schedules, checkpoints.
 
 Counterpart of `vmambair_tpu/train/__init__.py` for the S1 (pixel-loss)
-stage. `train/pipeline.py`, the data layer and the GAN stage are not ported
-yet.
+stage; `train/pipeline.py` holds `train_pipeline` and `test_pipeline`
+(the entry points `train_torch.py` and `test_torch.py`). The GAN stage is
+not ported yet.
 """
 
 from __future__ import annotations

@@ -6,19 +6,26 @@ builds an optax transform with an injected learning rate and updates in
 one jitted step; here the optimizer is a `torch.optim` one whose param
 groups get the schedule's learning rate before each step (`set_lr`), a
 global-norm clip is `clip_grad_norm_` before the step, and the EMA is an
-in-place lerp of a second copy of the network. The validation loop waits
-for the port's metrics.
+in-place lerp of a second copy of the network. `BaseModel.validation` is
+the per-image evaluation loop with the registry's metrics
+(`vmambair_tpu/train/base_model.py:169-227`).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from collections import OrderedDict
 from typing import Any, Dict, Iterable
 
+import numpy as np
 import torch
 
+from ..metrics import calculate_metric, metric_report_key
+from ..utils.img_util import batch2img, imwrite
 from .schedulers import build_scheduler
+
+logger = logging.getLogger("vmambair_torch")
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], optim_opt: dict):
@@ -88,3 +95,50 @@ class BaseModel:
     def _state_path(self, current_iter) -> str:
         return os.path.join(self.opt["path"]["training_states"],
                             f"{current_iter}.state")
+
+    def validation(self, dataloader, current_iter, tb_logger=None,
+                   save_img: bool = False) -> Dict[str, float]:
+        """Runs `test` on every image of the loader (batches of 1), writes
+        the outputs as PNG when `save_img`, and averages each metric of
+        `val.metrics` over the images; logs and returns the averages."""
+        dataset_name = getattr(dataloader, "name", None) or "val"
+        metric_opts = (self.opt.get("val") or {}).get("metrics") or {}
+        report_keys = {k: metric_report_key(k, dict(v))
+                       for k, v in metric_opts.items()}
+        results = {k: [] for k in metric_opts}
+        cnt = 0
+        for batch in dataloader:
+            path = (batch.get("lq_path") or batch.get("gt_path")
+                    or [f"img{cnt}"])[0]
+            img_name = os.path.splitext(os.path.basename(path))[0]
+            self.feed_data(batch)
+            self.test()
+            sr_img = batch2img(_hwc(self.output[0]))
+            if save_img:
+                sub = (os.path.join(img_name, f"{img_name}_{current_iter}.png")
+                       if self.opt["is_train"] else
+                       os.path.join(dataset_name, f"{img_name}.png"))
+                imwrite(sr_img, os.path.join(
+                    self.opt["path"]["visualization"], sub))
+            if metric_opts and self.gt is not None:
+                gt_img = batch2img(_hwc(self.gt[0]))
+                for name, mopt in metric_opts.items():
+                    results[name].append(
+                        calculate_metric(dict(mopt), sr_img, gt_img))
+            cnt += 1
+        out = {}
+        if metric_opts and cnt:
+            for name, vals in results.items():
+                avg = float(np.mean(vals))
+                key = report_keys[name]
+                out[key] = avg
+                logger.info("Validation %s\t # %s: %.4f", dataset_name, key,
+                            avg)
+                if tb_logger is not None:
+                    tb_logger.add_scalar(f"metrics/{key}", avg, current_iter)
+        return out
+
+
+def _hwc(t: torch.Tensor) -> np.ndarray:
+    """A (C, H, W) tensor -> an HWC float32 numpy array on the host."""
+    return t.detach().float().permute(1, 2, 0).cpu().numpy()

@@ -4,7 +4,11 @@ Counterpart of `vmambair_tpu/train/sr_model.py:43-302`, on one device. A
 step is forward, pixel loss, backward (through the scan and GDFN kernels'
 autograd Functions on CUDA), an optional global-norm clip, the optimizer
 step and the EMA lerp. `feed_data` takes the JAX package's contract: NHWC
-float32 arrays, which land on the device as NCHW. Weights come from
+float32 arrays, which land on the device as NCHW through `put_batch`, the
+device prefetcher's hook; tensors already on the device (what `put_batch`
+returns) are taken as they are. `test` pads to the window, or runs chop
+inference through `RestorationUpscaler` when `val.tile` is set. Weights
+come from
 `torch.Generator().manual_seed(manual_seed)` (`build_network`); mixup draws
 from a host generator seeded the same way.
 """
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from ..losses import build_loss
 from ..models import build_network
 from ..utils.registry import MODEL_REGISTRY
+from ..utils.upscaler import RestorationUpscaler
 from .base_model import BaseModel, build_optimizer, ema_update, set_lr
 from .checkpoint import (
     load_network,
@@ -39,9 +44,24 @@ def mixup_batch(rng: np.random.RandomState, lq, gt, alpha=1.2):
 
 
 def to_device_nchw(v, device) -> torch.Tensor:
-    """An NHWC float32 array -> an NCHW float32 tensor on `device`."""
-    t = torch.from_numpy(np.asarray(v, np.float32))
-    return t.permute(0, 3, 1, 2).contiguous().to(device)
+    """An NHWC float32 array -> an NCHW float32 tensor on `device`; to a
+    CUDA device from pinned memory without blocking the host (the copy
+    runs on the current stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+
+
+def _is_on(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether t lies on `device` ("cuda" without an index is the current
+    card)."""
+    if t.device.type != device.type:
+        return False
+    if device.type != "cuda":
+        return True
+    return t.device.index == (torch.cuda.current_device()
+                              if device.index is None else device.index)
 
 
 @MODEL_REGISTRY.register(name="SRModel")
@@ -86,10 +106,24 @@ class SRModel(BaseModel):
                                          dict(train_opt["optim_g"]))
         self.schedule = self._make_schedule(train_opt)
 
+    def put_batch(self, data: Dict[str, Any],
+                  keys=("lq", "gt")) -> Dict[str, Any]:
+        """The batch with its `keys` as NCHW float32 tensors on the
+        model's device (NHWC arrays are copied; tensors already on the
+        device pass through): the hook `data.DevicePrefetcher` calls one
+        step ahead, on its side stream."""
+        out = dict(data)
+        for k in keys:
+            v = data.get(k)
+            if v is not None and not (torch.is_tensor(v)
+                                      and _is_on(v, self.device)):
+                out[k] = to_device_nchw(v, self.device)
+        return out
+
     def feed_data(self, data: Dict[str, Any]):
-        self.lq = to_device_nchw(data["lq"], self.device)
-        gt = data.get("gt")
-        self.gt = None if gt is None else to_device_nchw(gt, self.device)
+        batch = self.put_batch(data)
+        self.lq = batch["lq"]
+        self.gt = batch.get("gt")
 
     def optimize_parameters(self, current_iter: int):
         lr = self.schedule(current_iter)
@@ -113,8 +147,13 @@ class SRModel(BaseModel):
         return self.net_g_ema if self.net_g_ema is not None else self.net_g
 
     def test(self):
-        """Pad to the window (reflect), forward the EMA net, crop back.
-        `self.output` is NCHW on the device."""
+        """Pad to the window (reflect), forward the EMA net, crop back; with
+        `val.tile`, chop inference instead (`test_tiled`). `self.output` is
+        NCHW on the device."""
+        val_opt = self.opt.get("val") or {}
+        tile = int(val_opt.get("tile", 0) or 0)
+        if tile:
+            return self.test_tiled(tile, int(val_opt.get("tile_pad", 0)))
         lq = self.lq
         _, _, h, w = lq.shape
         ws = self.window_size
@@ -124,6 +163,19 @@ class SRModel(BaseModel):
         with torch.inference_mode():
             out = self.eval_net()(lq)
         self.output = out[:, :, :h * self.scale, :w * self.scale]
+
+    def test_tiled(self, tile: int, tile_pad: int = 0):
+        """Fixed-tile chop inference of the EMA net through
+        `RestorationUpscaler.tile_process` (JAX's `test_tiled`): tiles of
+        one shape with a `tile_pad` halo, in batches of 16."""
+        ups = RestorationUpscaler(
+            self.scale, self.eval_net(), self.device, tile=tile,
+            tile_pad=tile_pad, pre_pad=0, window=self.window_size,
+            tile_batch=16)
+        lq = self.lq.permute(0, 2, 3, 1).float().cpu().numpy()
+        out = np.stack([ups.tile_process(img) for img in lq])
+        self.output = torch.from_numpy(out).permute(0, 3, 1, 2).to(
+            self.device)
 
     def save(self, epoch: int, current_iter: int):
         ema = None if self.net_g_ema is None else self.net_g_ema.state_dict()
