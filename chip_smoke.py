@@ -47,6 +47,19 @@ non-zero, and without a CUDA device the script stops before any result:
    auto-resume to iter 10; `test_pipeline`; `inference_torch.py --device
    cuda` on the validation LQ, outputs read back at 4x; ms per iteration
    and data ms per iteration from the pipeline's timers.
+8. probes - the scan-design probes (`vmambair_torch/tools/`) at
+   MambaSISR6's full-resolution scan (B=8 tiles of 128x128, L=16384, G=2
+   groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
+   (`selective_scan_ld_fwd`), `scan_seq` and `scan_lpar` against the plain
+   scan, bf16 (3e-2 / 5e-2) and fp32 (6e-4 / 2e-3), forward and reverse,
+   on DL, channels-last and kseq views; the five kpeak probes at REP 64
+   against their plain versions (fp32 within a relative 1e-5, bf16 the
+   envelope); then, counts reset, the probe path through the tools' entry
+   points: kvariants' race against K4, kseq with and without its
+   relayout, kpeak's rates, each kernel's launches against what the tools
+   scheduled. Every scan's bound gains its exp2 term (one SFU exp2 per
+   (b, l, d, n)), phase 3's rows included, at the larger of the SFU's
+   nominal rate and the measured exp rate, both printed.
 
 The OSS switches (`VMAMBAIR_OSS_FRONT`, `VMAMBAIR_OSS_TAIL`) are off except
 where a phase turns them on: phase 3 holds K5 and K6 against their plain
@@ -55,9 +68,12 @@ with them off and once on, and phase 5 races served forwards with them off
 and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
-(launches in the serve, train and pipeline phases, max error, times and
-bound from phase 3) and the card's name and power limit from nvidia-smi;
-the last line is
+(for K1-K6 the launches in the serve, train and pipeline phases, for the
+probe kernels those of the probe path, which must be at least one each; a
+launch is one call of the kernel's wrapper, which for `scan_lpar` is three
+grids, `grids_per_launch` in its entry;
+max error, times and bound from phases 3 and 8) and the card's name and
+power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -78,7 +94,8 @@ import torch.nn.functional as F
 
 from vmambair_torch import _build
 from vmambair_torch.models import MamberBlock, build_network
-from vmambair_torch.ops import cuda_effn, cuda_scan
+from vmambair_torch.ops import cuda_effn, cuda_probes, cuda_scan
+from vmambair_torch.tools import FP32_FLOPS, HBM_BPS, kpeak, kseq, kvariants
 from vmambair_torch.train import build_model
 from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
 from vmambair_torch.utils.img_util import imread, imwrite
@@ -90,45 +107,84 @@ KERNELS = {
     "oss_scan_fused": dict(
         fn=cuda_scan.oss_scan_fused_fwd,
         source="vmambair_torch/csrc/oss_scan_fused.cu",
-        replaces=f"{PALLAS}:1112"),
+        replaces=f"{PALLAS}:1112", path="model"),
     "oss_scan_fused_carries": dict(
         fn=cuda_scan.oss_scan_fused_fwd_carries,
         source="vmambair_torch/csrc/oss_scan_fused.cu",
-        replaces=f"{PALLAS}:1161"),
+        replaces=f"{PALLAS}:1161", path="model"),
     "selective_scan": dict(
         fn=cuda_scan.selective_scan_fwd,
         source="vmambair_torch/csrc/selective_scan.cu",
-        replaces=f"{PALLAS}:74"),
+        replaces=f"{PALLAS}:74", path="model"),
     "selective_scan_carries": dict(
         fn=cuda_scan.selective_scan_fwd_carries,
         source="vmambair_torch/csrc/selective_scan.cu",
-        replaces=f"{PALLAS}:401"),
+        replaces=f"{PALLAS}:401", path="model"),
     "selective_scan_bwd": dict(
         fn=cuda_scan.selective_scan_bwd,
         source="vmambair_torch/csrc/selective_scan_bwd.cu",
-        replaces=f"{PALLAS}:694"),
+        replaces=f"{PALLAS}:694", path="model"),
     "gdfn_residual_fused": dict(
         fn=cuda_effn.gdfn_residual_fwd,
         source="vmambair_torch/csrc/gdfn.cu",
-        replaces="vmambair_tpu/ops/pallas_effn.py:119"),
+        replaces="vmambair_tpu/ops/pallas_effn.py:119", path="model"),
     "oss_front_fused": dict(
         fn=cuda_effn.oss_front_fwd,
         source="vmambair_torch/csrc/oss_front.cu",
-        replaces="vmambair_tpu/ops/pallas_effn.py:269"),
+        replaces="vmambair_tpu/ops/pallas_effn.py:269", path="model"),
     "oss_tail_fused": dict(
         fn=cuda_effn.oss_tail_fwd,
         source="vmambair_torch/csrc/oss_tail.cu",
-        replaces="vmambair_tpu/ops/pallas_effn.py:444"),
+        replaces="vmambair_tpu/ops/pallas_effn.py:444", path="model"),
+    # phase 8's kernels: K7 and the scan-design probes
+    "selective_scan_ld": dict(
+        fn=cuda_scan.selective_scan_ld_fwd,
+        source="vmambair_torch/csrc/scan_seq.cu",
+        replaces=f"{PALLAS}:493", path="probe"),
+    "scan_seq": dict(
+        fn=cuda_probes.scan_seq,
+        source="vmambair_torch/csrc/scan_seq.cu",
+        replaces="tools/kseq.py:75", path="probe"),
+    "scan_lpar": dict(
+        fn=cuda_probes.scan_lpar,
+        source="vmambair_torch/csrc/scan_lpar.cu",
+        replaces="tools/kvariants.py:85", path="probe",
+        grids_per_launch=cuda_probes.SCAN_LPAR_GRIDS),
+    "peak_fma_fp32": dict(
+        fn=cuda_probes.peak_fma_fp32, source="vmambair_torch/csrc/peak.cu",
+        replaces="tools/kpeak.py:56", probe="fma_fp32", path="probe"),
+    "peak_fma_bf16": dict(
+        fn=cuda_probes.peak_fma_bf16, source="vmambair_torch/csrc/peak.cu",
+        replaces="tools/kpeak.py:56", probe="fma_bf16", path="probe"),
+    "peak_exp": dict(
+        fn=cuda_probes.peak_exp, source="vmambair_torch/csrc/peak.cu",
+        replaces="tools/kpeak.py:69", probe="exp_fp32", path="probe"),
+    "peak_roll": dict(
+        fn=cuda_probes.peak_roll, source="vmambair_torch/csrc/peak.cu",
+        replaces="tools/kpeak.py:76", probe="roll+add_fp32", path="probe"),
+    "peak_shift": dict(
+        fn=cuda_probes.peak_shift, source="vmambair_torch/csrc/peak.cu",
+        replaces="tools/kpeak.py:83", probe="concatshift+add_fp32",
+        path="probe"),
 }
+# `path`: where a kernel's launches are counted, the model's paths (serve,
+# train, pipeline) or phase 8's probe path
+MODEL_KERNELS = tuple(n for n, k in KERNELS.items() if k["path"] == "model")
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
 OUT_DIR = "chiprun_out"
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; fp32 outside the
-# tensor cores and bf16 dense tensor-core FLOP/s
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and fp32 FLOP/s outside
+# the tensor cores (HBM_BPS, FP32_FLOPS, shared with the probes); bf16 dense
+# tensor-core FLOP/s
 BF16_TC_FLOPS = 989e12
+# rates no data sheet gives: bf16x2 FMA on the CUDA cores at twice the fp32
+# rate; the SFU's nominal 16 exp2 per clock per SM (compute capability 9.0)
+# at 132 SMs and 1.98 GHz. The exp2 term of every bound divides by the
+# larger of that and the ex2 rate phase 8 measures, so that no bound rests
+# on a rate below the card's.
+BF16X2_FLOPS = 2 * FP32_FLOPS
+SFU_NOMINAL = 16 * 132 * 1.98e9
 # the S1 recipe of options/MambaSISR15_x4.yml (the script reads no YAML:
 # the card's machine need not have a YAML parser)
 RECIPE = {
@@ -259,11 +315,24 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(bytes_moved, fp32_ops, bf16_mma=0) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over their peak rate."""
-    t_b = bytes_moved / HBM_BPS * 1e3
-    t_o = (fp32_ops / FP32_FLOPS + bf16_mma / BF16_TC_FLOPS) * 1e3
+def bound(bytes_moved, fp32_ops, bf16_mma=0, exp2=0) -> dict:
+    """The terms of the least time the card could take for a call: the
+    bytes over the HBM rate and the operations over their peak rates (ms),
+    and the count of SFU exp2s, whose term `finish_bound` adds once phase 8
+    has measured the ex2 rate to set beside the nominal one."""
+    return dict(bytes_ms=bytes_moved / HBM_BPS * 1e3,
+                ops_ms=(fp32_ops / FP32_FLOPS + bf16_mma / BF16_TC_FLOPS)
+                * 1e3, exp2=exp2)
+
+
+def finish_bound(terms, ex2_rate=None) -> dict:
+    """The largest of the bound's terms: bytes, operations, and (given the
+    ex2 rate, per second: the larger of the nominal and the measured one)
+    the exp2s."""
+    t_o = terms["ops_ms"]
+    if terms["exp2"] and ex2_rate:
+        t_o = max(t_o, terms["exp2"] / ex2_rate * 1e3)
+    t_b = terms["bytes_ms"]
     return dict(bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations")
 
@@ -407,7 +476,7 @@ def _fused_bound(args, carries=False):
     if carries:
         by += b * g * d * cuda_scan.n_chunks(L) * N * 4
     ops = 10 * el * N + 2 * el * (2 * R + 2 * N)
-    return bound(by, ops)
+    return bound(by, ops, exp2=el * N)
 
 
 def _scan_bound(args, out_dtype, carries=False):
@@ -417,7 +486,7 @@ def _scan_bound(args, out_dtype, carries=False):
     by = (nbytes(*args) + b * L * d * torch.finfo(out_dtype).bits // 8)
     if carries:
         by += b * d * cuda_scan.n_chunks(L) * N * 4
-    return bound(by, 10 * b * L * d * N)
+    return bound(by, 10 * b * L * d * N, exp2=b * L * d * N)
 
 
 def _bwd_bound(args, dy):
@@ -428,7 +497,7 @@ def _bwd_bound(args, dy):
     # written once (fp32)
     by = (nbytes(*args, dy) + b * d * cuda_scan.n_chunks(L) * N * 4
           + 4 * (2 * b * L * d + 2 * b * L * Bm.shape[2] * N + d * N + 2 * d))
-    return bound(by, 24 * b * L * d * N)
+    return bound(by, 24 * b * L * d * N, exp2=b * L * d * N)
 
 
 def _gdfn_bound(args):
@@ -599,10 +668,12 @@ def kernels_vs_plain() -> dict:
                 f"{err:.3e}")
         if st["ms"] is None:  # the first case: the main path's shape
             st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=3)
-            st.update(bnd)
+            st["terms"] = bnd
+            fb = finish_bound(bnd)
             line += (f"; kernel {st['ms']:.3f} ms, plain "
-                     f"{st['plain_ms']:.3f} ms, bound {bnd['bound_ms']:.4f}"
-                     f" ms ({bnd['bound_by']})")
+                     f"{st['plain_ms']:.3f} ms, bound {fb['bound_ms']:.4f}"
+                     f" ms ({fb['bound_by']}"
+                     + ("; exp2 term after phase 8)" if bnd["exp2"] else ")"))
         print(line)
     torch.cuda.empty_cache()
     return stats
@@ -1151,6 +1222,185 @@ def pipeline() -> dict:
     return {k: first[k] + resumed[k] + tested[k] for k in KERNELS}
 
 
+# -- phase 8: the scan-design probes -------------------------------------------
+
+PROBE_SHAPE = kvariants.Shape(**kvariants.SHAPE)
+KSEQ_RACE = ("seq", "seq_win8", "seq_win16")
+PEAK_KERNELS = {k["probe"]: name for name, k in KERNELS.items()
+                if "probe" in k}
+
+
+def _probe_inputs(dtype) -> tuple[dict, dict]:
+    """kvariants' model-realistic inputs (post-softplus delta in [1e-3,
+    0.1], A = -n) at the probe shape, in `dtype`, with their channels-last
+    copies; and the same values in kseq's (G, L, 8, Dg) / (G, L, N, 8, 1)
+    layout."""
+    inp = kvariants.make_inputs(PROBE_SHAPE, 7, "cuda", "real")
+    for k in ("u", "delta", "Bm", "Cm", "u_ld", "delta_ld"):
+        inp[k] = inp[k].to(dtype)
+    G = PROBE_SHAPE.G
+    b, dim, L = inp["u"].shape
+    kin = {k: inp[k] for k in ("A", "Dv", "bias")}
+    for k in ("u", "delta"):
+        kin[k] = inp[k].view(b, G, dim // G, L).permute(1, 3, 0, 2) \
+            .contiguous()
+    for k in ("Bm", "Cm"):
+        kin[k] = inp[k].permute(1, 3, 2, 0).contiguous()[..., None]
+    return inp, kin
+
+
+def _scan_probe_cases(inp, kin, rev):
+    """(kernel, label, call -> y as (B, DIM, L)) at the probe shape,
+    through the tools' runners; the first of each kernel is its timed main
+    case."""
+    kv = kvariants
+
+    def seq_kseq():  # (G, L, 8, Dg) -> (8, G*Dg, L)
+        return kseq.run_seq(kin, 8, rev).permute(2, 0, 3, 1).flatten(1, 2)
+
+    return [
+        ("scan_seq", "DL win 8", lambda: kv.run_seq(inp, rev, 8)),
+        ("scan_seq", "DL win 16", lambda: kv.run_seq(inp, rev, 16)),
+        ("scan_seq", "DL win 1", lambda: kv.run_seq(inp, rev, 1)),
+        ("scan_seq", "kseq (G,L,8,Dg) win 8", seq_kseq),
+        ("selective_scan_ld", f"LD (K7, win {cuda_scan.K7_WIN})",
+         lambda: kv.run_seq_ld(inp, rev)),
+        ("scan_lpar", "DL seg 1024", lambda: kv.run_lpar(inp, rev, 1024)),
+        ("scan_lpar", "DL seg 256", lambda: kv.run_lpar(inp, rev, 256)),
+        ("scan_lpar", "DL seg 4096", lambda: kv.run_lpar(inp, rev, 4096)),
+        ("scan_lpar", "LD seg 1024",
+         lambda: kv.run_lpar(inp, rev, 1024, ld=True))]
+
+
+def _probe_scan_bound(dtype) -> dict:
+    """At the probe shape: u, delta, B, C (in `dtype`) and A, D, bias (fp32)
+    read once, y written once; 10 fp32 operations and one exp2 per
+    (b, l, d, n), as K4's bound."""
+    s = PROBE_SHAPE
+    el = s.B * s.L * s.dim * s.N
+    act = 3 * s.B * s.L * s.dim + 2 * s.B * s.G * s.N * s.L
+    by = act * torch.finfo(dtype).bits // 8 + 4 * s.dim * (s.N + 2)
+    return bound(by, 10 * el, exp2=el)
+
+
+def _peak_bound(name, x) -> dict:
+    """x read and y written once; kpeak's operations per element and rep at
+    REP = 64, over the fp32 rate (the bf16 FMA over twice it, the exp over
+    the SFU's nominal rate, counted as fp32 time at that rate)."""
+    _, probe, dtype, ops = cuda_probes.PEAK_PROBES[name]
+    work = x.numel() * cuda_probes.PEAK_REP * ops
+    if probe == "exp":
+        work *= FP32_FLOPS / SFU_NOMINAL
+    elif dtype == torch.bfloat16:
+        work *= FP32_FLOPS / BF16X2_FLOPS
+    return bound(2 * nbytes(x), work)
+
+
+def probe_kernels_vs_plain(stats):
+    """Phase 8a: K7, scan_seq and scan_lpar at the probe shape (B=8,
+    L=16384, G=2, D=96, N=16) against the plain scan, bf16 and fp32,
+    forward and reverse, DL, LD and kseq views; the five peak probes at
+    REP = 64 against their plain versions. Times and bounds of each
+    kernel's first case go into `stats`."""
+    for dtype in (torch.bfloat16, torch.float32):
+        inp, kin = _probe_inputs(dtype)
+        rtol, atol = TOL[dtype]
+        for rev in (False, True):
+            def plain(rev=rev):
+                return kvariants.run_reference(inp, rev)
+
+            ref = plain()
+            torch.cuda.synchronize()
+            for name, label, call in _scan_probe_cases(inp, kin, rev):
+                got = call()
+                torch.cuda.synchronize()
+                tag = f"{name} {label} rev={rev} {str(dtype)[6:]}"
+                err = check_close(tag, got, ref, rtol, atol)
+                st = stats[name]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                line = f"[probes] {tag}: max abs err {err:.3e}"
+                if st["ms"] is None:
+                    st["ms"] = time_ms(call)
+                    st["plain_ms"] = time_ms(plain, reps=3)
+                    st["terms"] = _probe_scan_bound(dtype)
+                    line += (f"; kernel {st['ms']:.3f} ms, plain "
+                             f"{st['plain_ms']:.3f} ms")
+                print(line)
+            del ref
+        del inp, kin
+        torch.cuda.empty_cache()
+    for name, (fn, probe, dtype, _) in cuda_probes.PEAK_PROBES.items():
+        x = kpeak.make_x((kpeak.GRID, kpeak.ROWS, kpeak.LANES), dtype, 0,
+                         "cuda")
+        got, ref = fn(x), cuda_probes.peak_ref(probe, x)
+        torch.cuda.synchronize()
+        rtol, atol = kpeak.TOL[dtype]
+        err = check_close(f"peak {name}", got, ref, rtol, atol)
+        st = stats[PEAK_KERNELS[name]]
+        st.update(max_abs_err=err, ms=time_ms(lambda: fn(x)),
+                  plain_ms=time_ms(lambda: cuda_probes.peak_ref(probe, x),
+                                   reps=3),
+                  terms=_peak_bound(name, x))
+        print(f"[probes] peak {name} (16,1024,1024) REP 64: max abs err "
+              f"{err:.3e} (rtol {rtol}, atol {atol}); kernel "
+              f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms")
+        del x, got, ref
+
+
+def probe_race() -> tuple[dict, float]:
+    """Phase 8b, the probe path: kvariants' race (every variant, the
+    model-realistic recipe), kseq's variants with and without the
+    relayout, kpeak's rates, through the tools' entry points. Asserts that
+    each kernel launched exactly as often as the tools scheduled. Returns
+    the launches and the ex2 rate (per second) of every bound's exp2 term:
+    the larger of the nominal and the measured one."""
+    dev = torch.device("cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    kv = kvariants.run(list(kvariants.VARIANTS), dev, delta="real")
+    ks = kseq.run(list(KSEQ_RACE), dev)
+    pk = kpeak.run(list(cuda_probes.PEAK_PROBES), dev)
+    counts = launches()
+    want = dict.fromkeys(KERNELS, 0)
+    for row in kv:
+        want[row["kernel"]] += row["launches"]
+    want["scan_seq"] += sum(row["launches"] for row in ks)
+    for row in pk:
+        want[PEAK_KERNELS[row["probe"]]] += row["launches"]
+    if counts != want:
+        raise SystemExit(f"FAIL probes: launches {counts}, scheduled {want}")
+    measured = next(r["t_ops_per_s"] for r in pk
+                    if r["probe"] == "exp_fp32") * 1e12
+    ex2_rate = max(SFU_NOMINAL, measured)
+    bnd = finish_bound(_probe_scan_bound(torch.bfloat16), ex2_rate)
+    card = nvidia_smi_line()
+    for r in kv:
+        print(f"[race] kvariants {r['variant']}: {r['ms']:.3f} ms, "
+              f"{r['gelem_per_s']:.1f} Gelem/s, {r['ms_over_k4']:.3f} of "
+              f"k4's time; bound {bnd['bound_ms']:.4f} ms, "
+              f"{bnd['bound_ms'] / r['ms']:.3f} of the time; "
+              f"parity max abs err {r['max_abs_err']:.3e}; all "
+              f"{[round(t, 3) for t in r['all_ms']]}")
+    for r in ks:
+        print(f"[race] kseq {r['variant']}: {r['ms']:.3f} ms, with the "
+              f"relayout {r['ms_with_relayout']:.3f} ms, "
+              f"{r['gelem_per_s']:.1f} Gelem/s; parity max abs err "
+              f"{r['max_abs_err']:.3e}")
+    for r in pk:
+        sheet = r["datasheet_t_ops_per_s"]
+        print(f"[race] kpeak {r['probe']}: {r['t_ops_per_s']:.2f} T-ops/s "
+              f"at REP {r['rep']} ({r['ms']:.3f} ms, bytes "
+              f"{100 * r['bytes_share']:.1f}% of it); data sheet "
+              f"{sheet if sheet else 'none'}")
+    print(f"[race] bound of every scan variant at (8,16384,192,N=16) bf16: "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; exp2 at "
+          f"{ex2_rate:.4g}/s, the larger of the nominal "
+          f"{SFU_NOMINAL:.4g}/s and the measured {measured:.4g}/s); "
+          f"launches {({k: v for k, v in counts.items() if v})}; phase "
+          f"{time.perf_counter() - t0:.1f} s; card {card}")
+    return counts, ex2_rate
+
+
 def main():
     t0 = time.perf_counter()
     os.environ.update({k: "0" for k in SWITCHES})
@@ -1164,17 +1414,41 @@ def main():
     serve_counts = serve()
     train_counts = train()
     pipe_counts = pipeline()
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    probe_kernels_vs_plain(stats)
+    probe_counts, ex2_rate = probe_race()
+    print(f"[probes] phase 8 {time.perf_counter() - t8:.1f} s")
     kernels = []
     for name, k in KERNELS.items():
-        n = serve_counts[name] + train_counts[name] + pipe_counts[name]
-        if n == 0 or pipe_counts[name] == 0:
-            raise SystemExit(f"FAIL: {name} never launched on a main path")
+        terms = stats[name].pop("terms")
+        stats[name].update(finish_bound(terms, ex2_rate))
+        if terms["exp2"]:
+            print(f"[bounds] {name}: {stats[name]['bound_ms']:.4f} ms "
+                  f"({stats[name]['bound_by']}) with the exp2 term "
+                  f"({terms['exp2'] / ex2_rate * 1e3:.4f} ms), "
+                  f"{finish_bound(terms)['bound_ms']:.4f} ms without")
+        if name in MODEL_KERNELS:
+            # launched on its own path: serve, train and the pipeline
+            n = serve_counts[name] + train_counts[name] + pipe_counts[name]
+            if n == 0 or pipe_counts[name] == 0:
+                raise SystemExit(f"FAIL: {name} never launched on a main "
+                                 "path")
+            counts = dict(launches=n, launches_serve=serve_counts[name],
+                          launches_train=train_counts[name],
+                          launches_pipeline=pipe_counts[name])
+        else:
+            # launched on its own path: the probes
+            if probe_counts[name] == 0:
+                raise SystemExit(f"FAIL: {name} never launched on the "
+                                 "probe path")
+            counts = dict(launches=probe_counts[name])
+        if "grids_per_launch" in k:
+            counts["grids_per_launch"] = k["grids_per_launch"]
         kernels.append(dict(
             name=name, route="cuda", source=k["source"],
-            replaces=k["replaces"], launches=n,
-            launches_serve=serve_counts[name],
-            launches_train=train_counts[name],
-            launches_pipeline=pipe_counts[name], **stats[name]))
+            replaces=k["replaces"], **counts,
+            launches_probe=probe_counts[name], **stats[name]))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

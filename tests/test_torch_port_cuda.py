@@ -406,3 +406,131 @@ def test_tiny_ossnet_with_front_and_tail_matches_plain(cuda, monkeypatch):
     (net(x) - 1).abs().mean().backward()
     assert chip_smoke.launches() == chip_smoke.expected_launches(
         net, train=True)
+
+
+# -- K7 and the scan-design probes (csrc/scan_seq.cu, scan_lpar.cu, peak.cu) --
+
+# memory orders of the (b, g, l, d) activations and (b, g, l, n) B/C: DL
+# (B, D, L) with B/C (B, G, N, L); LD (B, L, D) with B/C (B, L, G, N);
+# kseq's (G, L, b, Dg) with B/C (G, L, N, b)
+LAYOUTS = {"dl": ((0, 1, 3, 2), (0, 1, 3, 2)),
+           "ld": ((0, 2, 1, 3), (0, 2, 1, 3)),
+           "kseq": ((1, 2, 0, 3), (1, 2, 3, 0))}
+
+
+def _laid(t, perm):
+    """A (b, g, l, x) view of t stored in the memory order `perm`."""
+    inv = sorted(range(4), key=perm.__getitem__)
+    return t.permute(perm).contiguous().permute(inv)
+
+
+def _view_args(cuda, layout, b, G, dg, L, N, dtype, seed):
+    """u, delta, A, B, C, D, bias, y for the view-addressed scans, laid out
+    as `layout`; delta raw (softplus on) around 0.05-0.3."""
+    g = torch.Generator().manual_seed(seed)
+    act, bc = LAYOUTS[layout]
+    dim = G * dg
+    u = torch.randn(b, G, L, dg, generator=g)
+    delta = torch.rand(b, G, L, dg, generator=g) * 2 - 3
+    Bm = torch.randn(b, G, L, N, generator=g)
+    Cm = torch.randn(b, G, L, N, generator=g)
+    rest = [-torch.exp(torch.rand(dim, N, generator=g)).to(cuda),
+            torch.randn(dim, generator=g).to(cuda),
+            (torch.rand(dim, generator=g) - 1).to(cuda)]
+    u, delta, Bm, Cm = (_laid(t.to(cuda, dtype), p) for t, p in
+                        ((u, act), (delta, act), (Bm, bc), (Cm, bc)))
+    y = _laid(torch.empty(b, G, L, dg, device=cuda, dtype=dtype), act)
+    return [u, delta, rest[0], Bm, Cm, rest[1], rest[2], y]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("layout", ["dl", "ld", "kseq"])
+@pytest.mark.parametrize("win,N", [(1, 16), (16, 5), (7, 16)])
+def test_scan_seq_kernel_matches_plain(cuda, win, N, layout, reverse,
+                                       dtype):
+    """L = 101 is no multiple of the window; Dg = 37 is a tile of 32
+    channels and a ragged one; N = 5 is no power of two."""
+    from vmambair_torch.ops import cuda_probes
+
+    args = _view_args(cuda, layout, 3, 2, 37, 101, N, dtype, win + N)
+    n0 = cuda_probes.scan_seq.launches
+    got = cuda_probes.scan_seq(*args, reverse=reverse, win=win)
+    assert cuda_probes.scan_seq.launches == n0 + 1 and got is args[7]
+    _close(got, cuda_scan.scan_views_ref(*args[:7], True, reverse), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("layout", ["dl", "ld", "kseq"])
+@pytest.mark.parametrize("seg,L", [(64, 300), (100, 300), (4096, 300),
+                                   (256, 1000)])
+def test_scan_lpar_kernel_matches_plain(cuda, seg, L, layout, reverse,
+                                        dtype):
+    """Segments that do not divide L, one segment of several 256-position
+    windows, D = 74 (no multiple of a block's 4 channels)."""
+    from vmambair_torch.ops import cuda_probes
+
+    args = _view_args(cuda, layout, 2, 2, 37, L, 16, dtype, seg + L)
+    n0 = cuda_probes.scan_lpar.launches
+    got = cuda_probes.scan_lpar(*args, reverse=reverse, seg=seg)
+    assert cuda_probes.scan_lpar.launches == n0 + 1
+    _close(got, cuda_scan.scan_views_ref(*args[:7], True, reverse), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_selective_scan_ld_kernel_matches_plain(cuda, reverse, dtype):
+    """K7 on a contiguous (B, L, D) u, a strided delta and B/C viewed from
+    (B, G, N, L) memory; L = 101, D = 74."""
+    g = torch.Generator().manual_seed(11)
+    b, L, G, dg, N = 2, 101, 2, 37, 16
+    dim = G * dg
+    args = [torch.randn(b, L, dim, generator=g).to(cuda, dtype),
+            (torch.rand(b, dim, L, generator=g) * 2 - 3).to(cuda, dtype)
+            .transpose(1, 2),
+            -torch.exp(torch.rand(dim, N, generator=g)).to(cuda),
+            torch.randn(b, G, N, L, generator=g).to(cuda, dtype)
+            .permute(0, 3, 1, 2),
+            torch.randn(b, G, N, L, generator=g).to(cuda, dtype)
+            .permute(0, 3, 1, 2),
+            torch.randn(dim, generator=g).to(cuda),
+            (torch.rand(dim, generator=g) - 1).to(cuda)]
+    n0 = cuda_scan.selective_scan_ld_fwd.launches
+    got = cuda_scan.selective_scan_ld_fwd(*args, True, reverse)
+    assert cuda_scan.selective_scan_ld_fwd.launches == n0 + 1
+    assert got.shape == (b, L, dim) and got.is_contiguous()
+    _close(got, cuda_scan.selective_scan_ld_ref(*args, True, reverse), dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 128), (3, 5, 1024), (1, 3, 256)])
+@pytest.mark.parametrize("probe", ["fma_fp32", "fma_bf16", "exp_fp32",
+                                   "roll+add_fp32", "concatshift+add_fp32"])
+def test_peak_probe_kernels_match_plain(cuda, probe, shape):
+    """kpeak's five probes at its REP = 64 against their plain versions:
+    fp32 within a relative 1e-5 (the roll and shift chains end near
+    1e-11), the bf16 FMA within the bf16 envelope."""
+    from vmambair_torch.ops import cuda_probes
+    from vmambair_torch.tools import kpeak
+
+    fn, name, dtype, _ = cuda_probes.PEAK_PROBES[probe]
+    x = kpeak.make_x(shape, dtype, 3, cuda)
+    n0 = fn.launches
+    got = fn(x)
+    assert fn.launches == n0 + 1 and got.dtype == dtype
+    rtol, atol = kpeak.TOL[dtype]
+    torch.testing.assert_close(got.float(), cuda_probes.peak_ref(
+        name, x).float(), rtol=rtol, atol=atol)
+
+
+def test_probe_kernels_refuse_what_they_cannot_take(cuda):
+    from vmambair_torch.ops import cuda_probes
+
+    args = _view_args(cuda, "dl", 1, 2, 8, 40, 16, torch.float32, 1)
+    with pytest.raises(ValueError, match="win=17"):
+        cuda_probes.scan_seq(*args, win=17)
+    with pytest.raises(ValueError, match="LANES=100"):
+        cuda_probes.peak_roll(torch.rand(1, 2, 100, device=cuda))
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        cuda_probes.scan_lpar(*args)

@@ -26,14 +26,15 @@ torch.set_num_threads(1)
 
 BLOCKED = ("import sys\n"
            "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', "
-           "'vmambair_tpu'):\n"
+           "'vmambair_tpu', 'tools'):\n"
            "    sys.modules[m] = None\n")
 
 
 def test_imports_with_jax_and_cv2_blocked():
     """The port, its entry points and chip_smoke import nothing of JAX,
-    flax or the JAX package (vmambair_tpu), and neither cv2 nor yaml:
-    every module of the package is imported with those blocked."""
+    flax, the JAX package (vmambair_tpu) or its probes (the root `tools`
+    package), and neither cv2 nor yaml: every module of the package,
+    `vmambair_torch.tools.*` included, is imported with those blocked."""
     pkg = os.path.join(ROOT, "vmambair_torch")
     mods = sorted(
         os.path.relpath(os.path.join(d, f), ROOT)[:-3].replace(os.sep, ".")
@@ -41,7 +42,9 @@ def test_imports_with_jax_and_cv2_blocked():
         for d, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
     assert {"vmambair_torch.data.loader", "vmambair_torch.train.pipeline",
             "vmambair_torch.utils.img_util", "vmambair_torch.metrics",
-            "vmambair_torch.utils.options"} <= set(mods)
+            "vmambair_torch.utils.options", "vmambair_torch.tools.kseq",
+            "vmambair_torch.tools.kvariants",
+            "vmambair_torch.tools.kpeak"} <= set(mods)
     code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
         "import chip_smoke, inference_torch, train_torch, test_torch\n"
         "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"
@@ -71,15 +74,21 @@ def test_inference_cli_on_cpu_without_cv2(tmp_path):
 
 
 def test_nvcc_command_targets_sm90a():
-    cmd = _build.nvcc_command("/x/nvcc", "/tmp/lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    srcs = [s for s in cmd if s.endswith(".cu")]
+    """One compile per source for sm_90a (started together by the build),
+    then one link of their objects into the shared library."""
+    compiles, link = _build.nvcc_commands("/x/nvcc", "/tmp/b", "/tmp/lib.so")
+    for cmd in compiles:
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-fPIC", "-c"):
+            assert flag in cmd
+    srcs = [s for cmd in compiles for s in cmd if s.endswith(".cu")]
     assert {os.path.basename(s) for s in srcs} == {
         "gdfn.cu", "oss_front.cu", "oss_scan_fused.cu", "oss_tail.cu",
-        "selective_scan.cu", "selective_scan_bwd.cu"}
+        "selective_scan.cu", "selective_scan_bwd.cu", "scan_seq.cu",
+        "scan_lpar.cu", "peak.cu"}
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert link[link.index("-o") + 1] == "/tmp/lib.so" and "-shared" in link
+    assert link[-len(objs):] == objs
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -88,6 +97,56 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CUDA_HOME_DEFAULT", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(build_dir=str(tmp_path / "build"))
+
+
+STUB_NVCC = """#!/bin/sh
+# writes its -o target; fails for a source named in $STUB_NVCC_FAIL
+out=""; prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  case "$a" in *"$STUB_NVCC_FAIL") [ -n "$STUB_NVCC_FAIL" ] && exit 1;; esac
+  prev="$a"
+done
+sleep 0.2
+echo "$@" > "$out"
+"""
+
+
+def _stub_nvcc(monkeypatch, tmp_path):
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(STUB_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+
+
+@pytest.mark.parametrize("fail", ["", "peak.cu"])
+def test_build_keeps_each_build_apart(monkeypatch, tmp_path, fail):
+    """Two builds of one hash at once each compile and link in a directory
+    of their own and move only the finished library in place: the hash
+    directory ends up with the library and the log and no stray object.
+    A failed compile raises, names the source and leaves no library."""
+    import concurrent.futures
+
+    _stub_nvcc(monkeypatch, tmp_path)
+    monkeypatch.setenv("STUB_NVCC_FAIL", fail)
+    root = str(tmp_path / "build")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(_build.build, root) for _ in range(2)]
+    out_dir = os.path.join(root, _build.source_hash())
+    if fail:
+        for f in futs:
+            with pytest.raises(RuntimeError, match="(?s)nvcc failed.*peak.cu"):
+                f.result()
+        assert os.listdir(out_dir) == ["build.log"]
+        return
+    libs = {f.result() for f in futs}
+    assert libs == {os.path.join(out_dir, _build.LIB_NAME)}
+    assert sorted(os.listdir(out_dir)) == ["build.log", _build.LIB_NAME]
+    with open(libs.pop()) as f:
+        link = f.read().split()
+    assert "-shared" in link and len(
+        [a for a in link if a.endswith(".o")]) == len(_build.sources())
 
 
 def test_source_hash_follows_sources(monkeypatch, tmp_path):

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-Every `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface. The library lands in a build
+Every `csrc/*.cu` is compiled by its own `nvcc` for Hopper (`sm_90a`), all
+of them at once, and the objects are linked into one shared library with
+a plain C interface. The library lands in a build
 directory keyed by a hash of the sources and the flags, so an unchanged
 checkout builds once. The default directory is `build/vmambair_torch/` at
 the repository root (listed in `.gitignore`); `VMAMBAIR_TORCH_BUILD_DIR`
@@ -39,8 +40,9 @@ CUDA_HOME_DEFAULT = "/usr/local/cuda"
 LIB_NAME = "libvmambair_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,6 +78,30 @@ SIGNATURES = {
         _P, _I, _LL, _LL, _LL,                   # dy (B, L, D)
         _P, _P, _P, _P, _P, _P, _P, _P,          # carries, du .. dbias
         _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B L D G N T rev sp stream
+    ],
+    "vmt_scan_seq_fwd": [
+        _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)
+        _P, _I, _LL, _LL, _LL, _LL,              # delta (b, g, l, d)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (b, g, l, n)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G L Dg N win rev sp stream
+    ],
+    "vmt_scan_lpar_fwd": [
+        _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)
+        _P, _I, _LL, _LL, _LL, _LL,              # delta (b, g, l, d)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (b, g, l, n)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
+        _P, _P, _P,                              # hend, sdel, hin
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G L Dg N seg rev sp stream
+    ],
+    "vmt_peak": [
+        _I, _P, _I, _P, _LL, _I, _I, _P,         # probe x dt y rows lanes rep st
     ],
     "vmt_gdfn_residual_fwd": [
         _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
@@ -115,12 +141,35 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, out_path: str) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", out_path, *sources()]
+def nvcc_commands(nvcc: str, out_dir: str,
+                  lib_path: str) -> tuple[list[list[str]], list[str]]:
+    """One compile command per source (its object in `out_dir`) and the
+    link command that joins the objects into `lib_path`."""
+    compiles, objs = [], []
+    for src in sources():
+        obj = os.path.join(out_dir, os.path.basename(src)[:-3] + ".o")
+        compiles.append([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj])
+        objs.append(obj)
+    return compiles, [nvcc, *LINK_FLAGS, "-o", lib_path, *objs]
+
+
+def _run_all(cmds: list[list[str]]) -> list[tuple]:
+    """Starts every command at once, waits for all of them; returns
+    (command, return code, output) for each, in order. (A process whose
+    output pipe fills waits until its turn to be read; none waits on
+    another.)"""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    out = []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        out.append((cmd, proc.returncode, text))
+    return out
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -140,17 +189,27 @@ def build(build_dir: str | None = None) -> str:
         return lib
     nvcc = find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = nvcc_command(nvcc, tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    # objects, log and library go to a directory of this build's own, so
+    # that two processes building the same hash at once never share a
+    # file; the finished library and log are then moved in place whole
+    tmp = tempfile.mkdtemp(dir=out_dir)
+    tmp_lib = os.path.join(tmp, LIB_NAME)
+    compiles, link = nvcc_commands(nvcc, tmp, tmp_lib)
+    results = _run_all(compiles)
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([link])
+    log = os.path.join(tmp, "build.log")
+    with open(log, "w") as f:
+        for cmd, _, text in results:
+            f.write(" ".join(cmd) + "\n" + text)
+    os.replace(log, os.path.join(out_dir, "build.log"))
+    failed = [(cmd, rc, text) for cmd, rc, text in results if rc != 0]
+    if not failed:
+        os.replace(tmp_lib, lib)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(cmd)} ({rc}):\n{text}" for cmd, rc, text in failed))
     return lib
 
 

@@ -31,6 +31,34 @@ __device__ __forceinline__ void st_act(void* p, long long i, int dt, float v) {
   }
 }
 
+// The raw bits of E elements of an fp32 or bf16 tensor (bf16 zero-extended):
+// r[e] = p[off(e)] for each e with ok(e). The dtype is decided once, around
+// the whole unrolled loop, so every load writes its own register and
+// nothing consumes it until raw_f32 converts it: a thread's loads are in
+// flight together. (ld_act, which converts in place, makes the thread wait
+// out each load before the next.)
+template <int E, typename Off, typename Ok>
+__device__ __forceinline__ void ld_raw_n(uint32_t (&r)[E], const void* p,
+                                        int dt, Off off, Ok ok) {
+  if (dt == DT_BF16) {
+    const unsigned short* q = static_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (ok(e)) r[e] = q[off(e)];
+    }
+  } else {
+    const uint32_t* q = static_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (ok(e)) r[e] = q[off(e)];
+    }
+  }
+}
+
+__device__ __forceinline__ float raw_f32(uint32_t r, int dt) {
+  return __uint_as_float(dt == DT_BF16 ? r << 16 : r);
+}
+
 // Rounds v to the activation dtype (identity for fp32).
 __device__ __forceinline__ float round_act(float v, int dt) {
   return dt == DT_BF16 ? __bfloat162float(__float2bfloat16(v)) : v;

@@ -1,5 +1,5 @@
-"""Selective-scan entry points: the CUDA kernels K1/K1c, K4/K4c and K3,
-their plain versions, and the autograd Functions that join them.
+"""Selective-scan entry points: the CUDA kernels K1/K1c, K4/K4c, K3 and
+K7, their plain versions, and the autograd Functions that join them.
 
 Counterpart of the dispatch surface of `vmambair_tpu/ops/pallas_scan.py`
 (`oss_scan_fused` :1405, `selective_scan` :1428, `fused_scan_supported`
@@ -11,11 +11,13 @@ Two layers:
 - Kernel wrappers, one launch each, each counting its launches in its
   `launches` attribute: `oss_scan_fused_fwd` (K1), `oss_scan_fused_fwd_carries`
   (K1c), `selective_scan_fwd` (K4), `selective_scan_fwd_carries` (K4c),
-  `selective_scan_bwd` (K3). A tensor on the CPU goes to the plain version
-  (`*_ref`, `selective_scan_bwd_ref`); a CUDA tensor goes to the kernel
+  `selective_scan_bwd` (K3), `selective_scan_ld_fwd` (K7, the channels-last
+  scan). A tensor on the CPU goes to the plain version (`*_ref`,
+  `selective_scan_bwd_ref`); a CUDA tensor goes to the kernel
   (`csrc/oss_scan_fused.cu`, `csrc/selective_scan.cu`,
-  `csrc/selective_scan_bwd.cu`), or the call raises. A wrapper has no
-  backward: on CUDA it raises where autograd would need one.
+  `csrc/selective_scan_bwd.cu`, `csrc/scan_seq.cu`), or the call raises. A
+  wrapper has no backward: on CUDA it raises where autograd would need one.
+  K7 is wired into no entry point, as JAX wires `_scan_kernel_ld` nowhere.
 - The differentiable entry points `selective_scan` and `oss_scan_fused`.
   Without a gradient to record they make one forward launch (K4, K1).
   Otherwise they run an autograd Function: the forward saves the fp32
@@ -38,6 +40,11 @@ from .._build import dtype_code, f32, grad_needed, no_grad_needed, on_cpu
 from .selective_scan import selective_scan_bwd_ref, selective_scan_chunked
 
 MAX_SCAN_N = 256
+MAX_SEQ_N = 16    # states in registers in csrc/scan_seq.cu and scan_lpar.cu
+MAX_SEQ_WIN = 16  # positions to a shared-memory window of scan_seq.cu
+# K7's window: scan_seq.cu at 16 positions spills its prefetch registers
+# (440 bytes in the ptxas report for sm_90a), at 8 it does not
+K7_WIN = 8
 MAX_FUSED_D = 256
 MAX_FUSED_N = 32
 # positions per chunk of the kernels (CH in csrc/common.cuh): the carries
@@ -152,6 +159,104 @@ def selective_scan_fwd_carries(u, delta, A, B, C, D=None, delta_bias=None,
 
 selective_scan_fwd.launches = 0
 selective_scan_fwd_carries.launches = 0
+
+
+# -- K7 and the scans on (b, g, l, d) views -----------------------------------
+
+def scan_views_ref(u, delta, A, B, C, D, delta_bias, softplus, reverse):
+    """Plain version of the view-addressed scans (csrc/scan_seq.cu,
+    csrc/scan_lpar.cu): u, delta (b, g, l, d) views, B, C (b, g, l, n)
+    views of any strides. Returns y as a (b, g, l, d) view in u's dtype."""
+    bsz, G, L, dg = u.shape
+
+    def bld(t):
+        return t.permute(0, 2, 1, 3).reshape(bsz, L, G * dg)
+
+    y = selective_scan_chunked(bld(u), bld(delta), A, B.permute(0, 2, 1, 3),
+                               C.permute(0, 2, 1, 3), D, delta_bias,
+                               softplus, reverse=reverse)
+    return y.view(bsz, L, G, dg).permute(0, 2, 1, 3)
+
+
+def view_shapes(name, u, delta, A, B, C, y):
+    """Checks the (b, g, l, d) / (b, g, l, n) views a view-addressed kernel
+    takes; returns (B, G, L, Dg, N)."""
+    bsz, G, L, dg = u.shape
+    N = A.shape[1]
+    if delta.shape != u.shape or y.shape != u.shape or A.shape != (
+            G * dg, N) or B.shape != (bsz, G, L, N) or C.shape != B.shape:
+        raise ValueError(f"{name}: shapes do not agree: u {tuple(u.shape)} "
+                         f"delta {tuple(delta.shape)} y {tuple(y.shape)} A "
+                         f"{tuple(A.shape)} B {tuple(B.shape)} C "
+                         f"{tuple(C.shape)}")
+    if N > MAX_SEQ_N:
+        raise ValueError(f"{name}: N={N} over the kernel's {MAX_SEQ_N} "
+                         "register states")
+    return bsz, G, L, dg, N
+
+
+def launch_views(name, u, delta, A, B, C, D, delta_bias, y, softplus,
+                 reverse, extra, scratch=()):
+    """Launches the exported C function `name` of a view-addressed scan
+    (`vmt_scan_seq_fwd`, `vmt_scan_lpar_fwd`) on CUDA tensors; y is written
+    in place. `extra` is the kernel's own size (win, seg); `scratch` its
+    scratch buffers."""
+    bsz, G, L, dg, N = view_shapes(name, u, delta, A, B, C, y)
+    A32 = f32(A)
+    D32 = None if D is None else f32(D)
+    b32 = None if delta_bias is None else f32(delta_bias)
+    _build.launch(
+        name, u.device,
+        u.data_ptr(), dtype_code(u, "u"), *u.stride(),
+        delta.data_ptr(), dtype_code(delta, "delta"), *delta.stride(),
+        A32.data_ptr(),
+        B.data_ptr(), dtype_code(B, "B"), *B.stride(),
+        C.data_ptr(), dtype_code(C, "C"), *C.stride(),
+        None if D32 is None else D32.data_ptr(),
+        None if b32 is None else b32.data_ptr(),
+        y.data_ptr(), dtype_code(y, "out"), *y.stride(),
+        *(t.data_ptr() for t in scratch),
+        bsz, G, L, dg, N, extra, int(bool(reverse)), int(bool(softplus)),
+    )
+
+
+def _gld(t, G):
+    """(b, l, g*d) -> its (b, g, l, d) view."""
+    b, L, dim = t.shape
+    return t.view(b, L, G, dim // G).permute(0, 2, 1, 3)
+
+
+def selective_scan_ld_ref(u, delta, A, B, C, D=None, delta_bias=None,
+                          delta_softplus=False, reverse=False, out_dtype=None):
+    """Plain version of `selective_scan_ld_fwd`: the chunked scan, as a
+    contiguous (B, L, D)."""
+    return selective_scan_ref(u, delta, A, B, C, D, delta_bias,
+                              delta_softplus, reverse, out_dtype).contiguous()
+
+
+def selective_scan_ld_fwd(u, delta, A, B, C, D=None, delta_bias=None,
+                          delta_softplus=False, reverse=False, out_dtype=None):
+    """K7: the grouped selective scan, channels last (JAX
+    `_build_pallas_fwd_ld`, pallas_scan.py:557). u, delta (B, L, D); A
+    (D, N) fp32, N <= 16; B, C any strided view of (B, L, G, N); D,
+    delta_bias (D,). Returns a contiguous y (B, L, D) in `out_dtype`
+    (default: u's dtype). On CUDA: the sequential register scan of
+    csrc/scan_seq.cu in windows of K7_WIN positions."""
+    args = (u, delta, A, B, C, D, delta_bias)
+    if on_cpu(*args):
+        return selective_scan_ld_ref(*args, delta_softplus, reverse,
+                                     out_dtype)
+    no_grad_needed("selective_scan_ld_fwd", *args)
+    bsz, L, dim, G, N = _scan_shapes(u, delta, A, B, C, "selective_scan_ld")
+    y = torch.empty(bsz, L, dim, dtype=out_dtype or u.dtype, device=u.device)
+    launch_views("vmt_scan_seq_fwd", _gld(u, G), _gld(delta, G), A,
+                 B.permute(0, 2, 1, 3), C.permute(0, 2, 1, 3), D, delta_bias,
+                 _gld(y, G), delta_softplus, reverse, K7_WIN)
+    selective_scan_ld_fwd.launches += 1
+    return y
+
+
+selective_scan_ld_fwd.launches = 0
 
 
 # -- K3: the scan backward -----------------------------------------------------

@@ -1,0 +1,77 @@
+"""The scan-design probes, on an NVIDIA GPU: counterparts of the TPU probes
+in the repository's `tools/` (`kseq.py`, `kvariants.py`, `kpeak.py`), with
+hand-written sm_90a kernels (`ops/cuda_probes.py`, `ops/cuda_scan.py`'s K7).
+
+    python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
+    python -m vmambair_torch.tools.kseq [names] [--device cuda|cpu]
+    python -m vmambair_torch.tools.kpeak [--device cuda|cpu]
+
+Each checks every variant against its plain version before timing it and
+prints one JSON row per variant. On `cuda` (the default) the times are
+CUDA-event medians, every timed call on another input set than the call
+before it, all variants interleaved in one process. On `cpu` the shapes
+shrink (as the TPU probes' interpret modes shrink them) and the rows carry
+the parity check only: the plain versions run there, and a CPU time is no
+measure of the card.
+
+This package imports neither JAX nor anything of the JAX package or of the
+root `tools/`: it keeps its own copy of their shapes and input recipes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# H100 SXM rates from NVIDIA's data sheet: HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores (chip_smoke.py's bounds use them too)
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def device_of(name: str) -> torch.device:
+    """The probes' device; `cuda` without a card raises (no fallback)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (pass --device cpu "
+                           "for the parity checks on the plain versions)")
+    return dev
+
+
+def max_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """Largest absolute difference, and it over the reference's largest
+    magnitude."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    return err, err / (ref.abs().max().item() + 1e-30)
+
+
+def race(calls: dict, inputs: list, repeats: int) -> dict:
+    """CUDA-event times (ms) of every call in `calls` (name -> fn(inputs)),
+    interleaved: `repeats` rounds, each over all names, forward order in
+    even rounds and backward in odd ones, one warm-up call each first.
+    Consecutive calls take consecutive entries of `inputs` (a pool of input
+    sets, rotated), so no call finds its inputs left in L2 by the call
+    before it. Nothing synchronises between the timed calls, so the host
+    runs ahead of the card and no call waits for its own launch. Returns
+    name -> list of ms."""
+    names = list(calls)
+    k = 0
+    for name in names:
+        calls[name](inputs[k % len(inputs)])
+        k += 1
+    events = []
+    for r in range(repeats):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            inp = inputs[k % len(inputs)]
+            k += 1
+            e0.record()
+            calls[name](inp)
+            e1.record()
+            events.append((name, e0, e1))
+    torch.cuda.synchronize()
+    times = {n: [] for n in names}
+    for name, e0, e1 in events:
+        times[name].append(e0.elapsed_time(e1))
+    return times

@@ -1,0 +1,292 @@
+"""Scan-kernel variant race on an NVIDIA GPU: the counterpart of the TPU
+race `tools/kvariants.py`.
+
+Every variant is the grouped selective-scan forward (softplus delta, D
+skip, fp32 state, bf16 output) at MambaSISR6's full-resolution
+decoder/refinement scan: B = 8 tiles of 128x128, L = 16384, G = 2 groups
+x 96 channels, N = 16. Inputs in the TPU race's DL layout (B, DIM, L), B
+and C (B, G, N, L), bf16; the channels-last variants read (B, L, DIM)
+copies made with the inputs (the relayout is not timed).
+
+    k4            production K4 (`cuda_scan.selective_scan_fwd`) on DL
+    k4_ld         K4 on the channels-last copies (it takes strides)
+    seq           csrc/scan_seq.cu on DL, windows of 1 (kseq's kernel_seq)
+    seq_win8      ... windows of 8 (kseq's kernel_seq_win)
+    seq_win16     ... windows of 16
+    seq_ld        K7 (`cuda_scan.selective_scan_ld_fwd`, scan_seq.cu in
+                  windows of 8) on build_ld's channels-last layout (v12_ld)
+    lpar_256      csrc/scan_lpar.cu on DL, segments of 256 positions (the
+    lpar_1024     exact Hillis-Steele and log-domain families v0, v1, v6,
+    lpar_4096     v8, v8s, v9, v11, v13, v14, v15, v15b, v19)
+    lpar_ld_1024  scan_lpar.cu on the channels-last copies
+
+The TPU's matmul-dual and bf16-stack families (v22-v26, v3, v10), v4 and
+v16 are not carried: asking for one raises and names its ROADMAP row.
+
+    python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
+        [--delta default|real]
+
+`--delta real` (or VMAMBAIR_KV_DELTA=real, as for the TPU race) draws the
+model-realistic recipe: post-softplus delta log-uniform in [1e-3, 0.1],
+A = -n. Parity: each variant against the plain chunked scan on the first
+2048 positions, within the bf16 envelope (rtol 3e-2, atol 5e-2), before
+any timing; a variant off it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import re
+import statistics
+
+import torch
+
+from ..ops import cuda_probes, cuda_scan
+from . import device_of, max_err, race
+
+SHAPE = dict(B=8, L=16384, D=96, G=2, N=16)  # hot level-1 decoder shape
+CPU_SHAPE = dict(SHAPE, B=2, L=512)          # the TPU race's interpret size
+PARITY_L = 2048
+REPEATS = 5
+POOL = 3
+TOL = (3e-2, 5e-2)  # bf16 envelope: rtol, atol
+BF16 = torch.bfloat16
+
+# TPU variant families by number: not carried yet, or carried by the
+# L-parallel and channels-last variants here
+NOT_CARRIED = {22, 23, 24, 25, 26, 3, 10, 4, 16}
+EXACT = {0, 1, 6, 8, 9, 11, 12, 13, 14, 15, 19}
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    B: int
+    L: int
+    D: int
+    G: int
+    N: int
+
+    @property
+    def dim(self) -> int:
+        return self.G * self.D
+
+
+def make_inputs(shape: Shape, seed: int, device,
+                delta: str = "default") -> dict:
+    """The TPU race's `make_inputs` (tools/kvariants.py:1169-1195), drawn by
+    a torch.Generator: u, delta (B, DIM, L) bf16; Bm, Cm (B, G, N, L) bf16;
+    A (DIM, N), Dv (DIM,) ones, bias (DIM,) fp32; and the channels-last
+    copies u_ld, delta_ld (B, L, DIM)."""
+    B, L, G, N, dim = shape.B, shape.L, shape.G, shape.N, shape.dim
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device=device)
+
+    inp = {"u": randn(B, dim, L).to(BF16)}
+    if delta == "real":
+        lo, hi = math.log(1e-3), math.log(0.1)
+        tgt = torch.exp(torch.rand(B, dim, L, generator=g, device=device)
+                        * (hi - lo) + lo)
+        inp["delta"] = torch.log(torch.expm1(tgt)).to(BF16)
+        inp["A"] = -torch.arange(1, N + 1, dtype=torch.float32,
+                                 device=device).expand(dim, N).contiguous()
+    else:
+        inp["delta"] = (randn(B, dim, L).to(BF16).abs() * 0.5)
+        inp["A"] = -torch.exp(randn(dim, N) * 0.5)
+    inp["Bm"] = randn(B, G, N, L).to(BF16)
+    inp["Cm"] = randn(B, G, N, L).to(BF16)
+    inp["Dv"] = torch.ones(dim, device=device)
+    inp["bias"] = randn(dim) * 0.01
+    inp["u_ld"] = inp["u"].transpose(1, 2).contiguous()
+    inp["delta_ld"] = inp["delta"].transpose(1, 2).contiguous()
+    return inp
+
+
+def sliced(inp: dict, L: int) -> dict:
+    """The inputs' first L positions (views)."""
+    out = dict(inp)
+    for k in ("u", "delta", "Bm", "Cm"):
+        out[k] = inp[k][..., :L]
+    for k in ("u_ld", "delta_ld"):
+        out[k] = inp[k][:, :L]
+    return out
+
+
+def gdl(t: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, G*D, L) -> its (b, g, l, d) view."""
+    b, dim, L = t.shape
+    return t.view(b, G, dim // G, L).permute(0, 1, 3, 2)
+
+
+def gld(t: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, L, G*D) -> its (b, g, l, d) view."""
+    b, L, dim = t.shape
+    return t.view(b, L, G, dim // G).permute(0, 2, 1, 3)
+
+
+def _bln(t: torch.Tensor) -> torch.Tensor:
+    """B or C (B, G, N, L) -> the (B, L, G, N) view K4 and K7 take."""
+    return t.permute(0, 3, 1, 2)
+
+
+def params(inp):
+    """A, B and C as K4 and K7 take them, D, bias."""
+    return inp["A"], _bln(inp["Bm"]), _bln(inp["Cm"]), inp["Dv"], inp["bias"]
+
+
+# each runner returns y as (B, DIM, L) (a view for the channels-last ones),
+# in the inputs' dtype
+
+
+def run_k4(inp, reverse=False, ld=False):
+    u, d = (inp["u_ld"], inp["delta_ld"]) if ld else (
+        inp["u"].transpose(1, 2), inp["delta"].transpose(1, 2))
+    y = cuda_scan.selective_scan_fwd(u, d, *params(inp), True, reverse,
+                                     u.dtype)
+    return y.transpose(1, 2)
+
+
+def run_seq_ld(inp, reverse=False):
+    u = inp["u_ld"]
+    y = cuda_scan.selective_scan_ld_fwd(u, inp["delta_ld"], *params(inp),
+                                        True, reverse, u.dtype)
+    return y.transpose(1, 2)
+
+
+def views(inp, y, ld):
+    """The (b, g, l, d) / (b, g, l, n) views of the inputs and of y (DL:
+    (B, DIM, L); channels-last: (B, L, DIM))."""
+    G = inp["Bm"].shape[1]
+    to = gld if ld else gdl
+    u, d = (inp["u_ld"], inp["delta_ld"]) if ld else (inp["u"], inp["delta"])
+    return (to(u, G), to(d, G), inp["A"], inp["Bm"].permute(0, 1, 3, 2),
+            inp["Cm"].permute(0, 1, 3, 2), inp["Dv"], inp["bias"], to(y, G))
+
+
+def run_seq(inp, reverse=False, win=1):
+    y = torch.empty_like(inp["u"])
+    cuda_probes.scan_seq(*views(inp, y, False), reverse=reverse, win=win)
+    return y
+
+
+def run_lpar(inp, reverse=False, seg=1024, ld=False):
+    y = torch.empty_like(inp["u_ld"] if ld else inp["u"])
+    cuda_probes.scan_lpar(*views(inp, y, ld), reverse=reverse, seg=seg)
+    return y.transpose(1, 2) if ld else y
+
+
+# name -> (call(inputs) -> y as (B, DIM, L), the kernel it launches, by
+# chip_smoke.py's names)
+VARIANTS = {
+    "k4": (run_k4, "selective_scan"),
+    "k4_ld": (lambda i: run_k4(i, ld=True), "selective_scan"),
+    "seq": (lambda i: run_seq(i, win=1), "scan_seq"),
+    "seq_win8": (lambda i: run_seq(i, win=8), "scan_seq"),
+    "seq_win16": (lambda i: run_seq(i, win=16), "scan_seq"),
+    "seq_ld": (run_seq_ld, "selective_scan_ld"),
+    "lpar_256": (lambda i: run_lpar(i, seg=256), "scan_lpar"),
+    "lpar_1024": (lambda i: run_lpar(i, seg=1024), "scan_lpar"),
+    "lpar_4096": (lambda i: run_lpar(i, seg=4096), "scan_lpar"),
+    "lpar_ld_1024": (lambda i: run_lpar(i, seg=1024, ld=True), "scan_lpar"),
+}
+
+
+def check_names(names: list) -> None:
+    """Raises for a name this race does not carry, naming where the TPU
+    variant stands."""
+    for name in names:
+        if name in VARIANTS:
+            continue
+        m = re.match(r"v(\d+)", name)
+        fam = int(m.group(1)) if m else None
+        if fam in NOT_CARRIED:
+            raise ValueError(
+                f"{name}: the TPU's dual / bf16-stack / cumsum / combined "
+                "variants are not carried yet (ROADMAP.md, Queue 2: "
+                "'kvariants.py::build, the dual and bf16-stack families')")
+        if fam in EXACT:
+            raise ValueError(
+                f"{name}: the TPU's exact families are carried by lpar_256, "
+                "lpar_1024, lpar_4096 (DL) and seq_ld, lpar_ld_1024 "
+                "(channels last)")
+        raise ValueError(f"{name}: unknown variant; known: {list(VARIANTS)}")
+
+
+def parity(names: list, shape: Shape, device, delta: str) -> dict:
+    """Each variant on the first PARITY_L positions of a seeded input set
+    against the plain chunked scan; raises outside the bf16 envelope.
+    Returns name -> (max abs err, relative err)."""
+    inp = sliced(make_inputs(shape, 42, device, delta),
+                 min(PARITY_L, shape.L))
+    ref = run_reference(inp)
+    out = {}
+    for name in names:
+        got = VARIANTS[name][0](inp)
+        err = (got.float() - ref.float()).abs()
+        if (err > TOL[1] + TOL[0] * ref.float().abs()).any():
+            raise RuntimeError(f"kvariants {name}: off the plain scan by "
+                               f"{err.max().item():.3e} (rtol {TOL[0]}, "
+                               f"atol {TOL[1]})")
+        out[name] = max_err(got, ref)
+    return out
+
+
+def run_reference(inp, reverse=False):
+    """The plain chunked scan on DL inputs, as (B, DIM, L) in their
+    dtype."""
+    u, d = inp["u"].transpose(1, 2), inp["delta"].transpose(1, 2)
+    return cuda_scan.selective_scan_ref(u, d, *params(inp), True, reverse,
+                                        u.dtype).transpose(1, 2)
+
+
+# kernel launches `run` makes for each variant: the parity check, the
+# warm-up and the timed calls
+LAUNCHES_PER_VARIANT = 2 + REPEATS
+
+
+def run(names: list, device, shape: Shape = None,
+        delta: str = "default") -> list:
+    """Parity, then (on CUDA) the interleaved race; one row per variant."""
+    check_names(names)
+    cpu = device.type == "cpu"
+    shape = shape or Shape(**(CPU_SHAPE if cpu else SHAPE))
+    errs = parity(names, shape, device, delta)
+    rows = [dict(variant=n, max_abs_err=errs[n][0], rel_err=errs[n][1])
+            for n in names]
+    if cpu:
+        return rows
+    pool = [make_inputs(shape, seed, device, delta)
+            for seed in range(1, POOL + 1)]
+    times = race({n: VARIANTS[n][0] for n in names}, pool, REPEATS)
+    del pool
+    elems = shape.B * shape.L * shape.dim * shape.N
+    k4 = statistics.median(times["k4"]) if "k4" in times else None
+    for row in rows:
+        ms = statistics.median(times[row["variant"]])
+        row.update(ms=ms, gelem_per_s=elems / ms / 1e6,
+                   all_ms=times[row["variant"]],
+                   kernel=VARIANTS[row["variant"]][1],
+                   launches=LAUNCHES_PER_VARIANT)
+        if k4:
+            row["ms_over_k4"] = ms / k4
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("names", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--delta", choices=("default", "real"),
+                    default=os.environ.get("VMAMBAIR_KV_DELTA") or "default")
+    args = ap.parse_args(argv)
+    for row in run(args.names, device_of(args.device), delta=args.delta):
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
