@@ -26,8 +26,10 @@ non-zero, and without a CUDA device the script stops before any result:
 5. serve  - full-size MambaSISR6 (bf16 activations, fp32 weights, seeded
    weights) answers 3 requests of a 512x256 image through
    `RestorationUpscaler.tile_process` (tile 128, tile_pad 0, tile_batch 8:
-   one batch of 8 tiles each); checks the output shape, finiteness and
-   that each kernel launched exactly as often as the dispatch predicts;
+   one batch of 8 tiles each), then one untimed `enhance` of a uint8
+   image of the same size with `outscale=3.5` (the Lanczos-4 resize on the
+   card); checks the output shapes, mode, finiteness and that each kernel
+   launched exactly as often as the dispatch predicts for the 4 forwards;
    then a torch.profiler table of one more request is printed (top rows)
    and written to `chiprun_out/serve_profile.txt`;
 6. train  - full-size MambaSISR6 through `build_model` with the recipe of
@@ -52,14 +54,22 @@ non-zero, and without a CUDA device the script stops before any result:
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
    (`selective_scan_ld_fwd`), `scan_seq` and `scan_lpar` against the plain
    scan, bf16 (3e-2 / 5e-2) and fp32 (6e-4 / 2e-3), forward and reverse,
-   on DL, channels-last and kseq views; the five kpeak probes at REP 64
-   against their plain versions (fp32 within a relative 1e-5, bf16 the
-   envelope); then, counts reset, the probe path through the tools' entry
-   points: kvariants' race against K4, kseq with and without its
-   relayout, kpeak's rates, each kernel's launches against what the tools
-   scheduled. Every scan's bound gains its exp2 term (one SFU exp2 per
-   (b, l, d, n)), phase 3's rows included, at the larger of the SFU's
-   nominal rate and the measured exp rate, both printed.
+   on DL, channels-last and kseq views; kvariants' v16 (`scan_combined`,
+   y and the chunk-local reverse y2), v3 and v10 (`scan_stack_ab`,
+   `scan_stack_b`) in bf16 against their plain versions (the bf16
+   envelope; the stacks' error against the exact scan printed beside),
+   and the stacks again with each position's last composition in bf16
+   (`last_bf16`, the TPU's rounding), checked, then raced against the
+   default and lpar_1024; the
+   five kpeak probes at REP 64 against their plain versions (fp32 within a
+   relative 1e-5, bf16 the envelope); then, counts reset, the probe path
+   through the tools' entry points: kvariants' race against K4 and
+   lpar_1024 (v16 against twice lpar_1024's time, the stacks against
+   once), kseq with and without its relayout, kpeak's rates, each kernel's
+   launches against what the tools scheduled. Every scan's bound gains
+   its exp2 term (one SFU exp2 per (b, l, d, n)), phase 3's rows included,
+   at the larger of the SFU's nominal rate and the measured exp rate, both
+   printed.
 
 The OSS switches (`VMAMBAIR_OSS_FRONT`, `VMAMBAIR_OSS_TAIL`) are off except
 where a phase turns them on: phase 3 holds K5 and K6 against their plain
@@ -70,8 +80,9 @@ never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
 (for K1-K6 the launches in the serve, train and pipeline phases, for the
 probe kernels those of the probe path, which must be at least one each; a
-launch is one call of the kernel's wrapper, which for `scan_lpar` is three
-grids, `grids_per_launch` in its entry;
+launch is one call of the kernel's wrapper, which for `scan_lpar`,
+`scan_combined` and the stacks is three grids, `grids_per_launch` in its
+entry;
 max error, times and bound from phases 3 and 8) and the card's name and
 power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -149,6 +160,21 @@ KERNELS = {
         fn=cuda_probes.scan_lpar,
         source="vmambair_torch/csrc/scan_lpar.cu",
         replaces="tools/kvariants.py:85", path="probe",
+        grids_per_launch=cuda_probes.SCAN_LPAR_GRIDS),
+    "scan_combined": dict(
+        fn=cuda_probes.scan_combined,
+        source="vmambair_torch/csrc/scan_lpar.cu",
+        replaces="tools/kvariants.py:710", path="probe",
+        grids_per_launch=cuda_probes.SCAN_LPAR_GRIDS),
+    "scan_stack_ab": dict(
+        fn=cuda_probes.scan_stack_ab,
+        source="vmambair_torch/csrc/scan_stack_bf16.cu",
+        replaces="tools/kvariants.py:122", path="probe",
+        grids_per_launch=cuda_probes.SCAN_LPAR_GRIDS),
+    "scan_stack_b": dict(
+        fn=cuda_probes.scan_stack_b,
+        source="vmambair_torch/csrc/scan_stack_bf16.cu",
+        replaces="tools/kvariants.py:326", path="probe",
         grids_per_launch=cuda_probes.SCAN_LPAR_GRIDS),
     "peak_fma_fp32": dict(
         fn=cuda_probes.peak_fma_fp32, source="vmambair_torch/csrc/peak.cu",
@@ -836,9 +862,19 @@ def serve() -> dict:
         print(f"[serve] request {i}: {1e3 * times[-1]:.1f} ms, "
               f"{out.shape[0] * out.shape[1] / times[-1] / 1e6:.3f} MP/s "
               f"out, mean {out.mean():.4f}")
+    # untimed: enhance with outscale (uint8 in, the resize on the card)
+    img = (np.random.RandomState(103).rand(512, 256, 3) * 255).astype(
+        np.uint8)
+    out, mode = ups.enhance(img, outscale=3.5)
+    if out.shape != (1792, 896, 3) or mode != "RGB" or out.dtype != np.uint8:
+        raise SystemExit(f"FAIL serve: enhance(outscale=3.5) gave "
+                         f"{out.shape} {out.dtype} {mode}")
+    print(f"[serve] enhance(outscale=3.5) of a 512x256 uint8 image: "
+          f"{out.shape} {mode}, mean {out.mean():.2f}")
     counts = launches()
-    want = {k: 3 * v for k, v in predicted.items()}
-    print(f"[serve] launches in 3 requests: {counts} (predicted {want})")
+    want = {k: 4 * v for k, v in predicted.items()}
+    print(f"[serve] launches in 3 requests and the enhance: {counts} "
+          f"(predicted {want})")
     if counts != want:
         raise SystemExit("FAIL serve: launch counts differ from the "
                          "dispatch's prediction")
@@ -1283,6 +1319,40 @@ def _probe_scan_bound(dtype) -> dict:
     return bound(by, 10 * el, exp2=el)
 
 
+def _combined_bound() -> dict:
+    """v16 at the probe shape, bf16: u, delta, B, C read once, y and y2
+    written once. The forward's 10 fp32 operations per (b, l, d, n), as
+    K4's bound, and the reverse's own 4: its state FMA and its C h_rev
+    FMA. The two directions share the decay's product and exp2 and
+    x = delta u B: one exp2 per (b, l, d, n)."""
+    s = PROBE_SHAPE
+    el = s.B * s.L * s.dim * s.N
+    act = 4 * s.B * s.L * s.dim + 2 * s.B * s.G * s.N * s.L
+    return bound(2 * act + 4 * s.dim * (s.N + 2), (10 + 4) * el, exp2=el)
+
+
+def _kvariants_cases(inp):
+    """(kernel, label, call, plain, bound) of kvariants' v16, v3 and v10 at
+    the probe shape, DL, through the tool's runners; calls and plain
+    versions give (B, DIM, L), v16's a pair (y, y2)."""
+    kv = kvariants
+    chunk = PROBE_SHAPE.chunk
+    v = kv.views(inp, torch.empty_like(inp["u"]), False)[:7]
+    return [
+        ("scan_combined", f"v16 chunk {chunk}",
+         lambda: kv.run_combined(inp, chunk),
+         lambda: tuple(kv.dl_of(t) for t in cuda_probes.scan_combined_ref(
+             *v, chunk=chunk)), _combined_bound()),
+        ("scan_stack_ab", f"v3 chunk {chunk}",
+         lambda: kv.run_stack(inp, "ab", chunk),
+         lambda: kv.ref_stack(inp, "ab", chunk),
+         _probe_scan_bound(torch.bfloat16)),
+        ("scan_stack_b", f"v10 sub {kv.V10_SUB}",
+         lambda: kv.run_stack(inp, "b", chunk, kv.V10_SUB),
+         lambda: kv.ref_stack(inp, "b", chunk, kv.V10_SUB),
+         _probe_scan_bound(torch.bfloat16))]
+
+
 def _peak_bound(name, x) -> dict:
     """x read and y written once; kpeak's operations per element and rep at
     REP = 64, over the fp32 rate (the bf16 FMA over twice it, the exp over
@@ -1296,12 +1366,85 @@ def _peak_bound(name, x) -> dict:
     return bound(2 * nbytes(x), work)
 
 
+def kvariants_vs_plain(stats):
+    """Phase 8a's kvariants v16, v3 and v10 at the probe shape in bf16 on
+    the model-realistic recipe, against their plain versions (v16: y and
+    y2); the stacks' distance from the exact scan printed beside. Times
+    and bounds go into `stats`."""
+    inp, _ = _probe_inputs(torch.bfloat16)
+    rtol, atol = TOL[torch.bfloat16]
+    exact = kvariants.run_reference(inp)
+    for name, label, call, plain, bnd in _kvariants_cases(inp):
+        got = call()
+        torch.cuda.synchronize()
+        ref = plain()
+        pairs = (zip(("y", "y2"), got, ref) if isinstance(got, tuple)
+                 else [("y", got, ref)])
+        errs = [check_close(f"{name} {label} {what}", g, r, rtol, atol)
+                for what, g, r in pairs]
+        st = stats[name]
+        st["max_abs_err"] = max(errs)
+        st["ms"], st["plain_ms"] = time_ms(call), time_ms(plain, reps=3)
+        st["terms"] = bnd
+        line = (f"[probes] {name} {label} bf16: max abs err "
+                f"{', '.join(f'{e:.3e}' for e in errs)} against the plain "
+                f"version; kernel {st['ms']:.3f} ms, plain "
+                f"{st['plain_ms']:.3f} ms")
+        if not isinstance(got, tuple):
+            # the stack's own rounding: its distance from the exact scan
+            e = (got.float() - exact.float()).abs()
+            off = int((e > atol + rtol * exact.float().abs()).sum())
+            line += (f"; against the exact scan {e.max().item():.3e}, "
+                     f"{off} of {e.numel()} off the envelope")
+        print(line)
+        del got, ref
+    stacks_last_bf16(inp, stats)
+    del inp, exact
+    torch.cuda.empty_cache()
+
+
+def stacks_last_bf16(inp, stats):
+    """The bf16 stacks with each position's last composition in bf16, the
+    TPU kernels' rounding (`last_bf16`), against the plain version at the
+    probe shape, then raced against the default (that step in fp32) and
+    lpar_1024 in one interleaved race: the cost of the step the default
+    moves to fp32. Results go into the stacks' `stats` as *_last_bf16."""
+    kv = kvariants
+    chunk = PROBE_SHAPE.chunk
+    rtol, atol = TOL[torch.bfloat16]
+    calls = {"lpar_1024": lambda i: kv.run_lpar(i, seg=1024)}
+    for name, stack, sub in (("scan_stack_ab", "ab", None),
+                             ("scan_stack_b", "b", kv.V10_SUB)):
+        got = kv.run_stack(inp, stack, chunk, sub, last_bf16=True)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} last step bf16", got,
+                          kv.ref_stack(inp, stack, chunk, sub), rtol, atol)
+        stats[name]["max_abs_err_last_bf16"] = err
+        print(f"[probes] {name} with the last step in bf16: max abs err "
+              f"{err:.3e} against the plain version")
+        del got
+        for last in (False, True):
+            calls[(name, last)] = (
+                lambda i, stack=stack, sub=sub, last=last: kv.run_stack(
+                    i, stack, chunk, sub, last_bf16=last))
+    times = {k: statistics.median(v) for k, v in
+             kv.race(calls, [inp], 9).items()}
+    base = times.pop("lpar_1024")
+    for (name, last), ms in times.items():
+        if last:
+            stats[name]["ms_last_bf16"] = ms
+        print(f"[probes] {name} last step {'bf16' if last else 'fp32'}: "
+              f"{ms:.4f} ms, {ms / base:.3f} of lpar_1024's {base:.4f} ms "
+              f"(interleaved, 9 rounds); card {nvidia_smi_line()}")
+
+
 def probe_kernels_vs_plain(stats):
     """Phase 8a: K7, scan_seq and scan_lpar at the probe shape (B=8,
     L=16384, G=2, D=96, N=16) against the plain scan, bf16 and fp32,
-    forward and reverse, DL, LD and kseq views; the five peak probes at
-    REP = 64 against their plain versions. Times and bounds of each
-    kernel's first case go into `stats`."""
+    forward and reverse, DL, LD and kseq views; kvariants' v16, v3 and v10
+    (`kvariants_vs_plain`); the five peak probes at REP = 64 against their
+    plain versions. Times and bounds of each kernel's first case go into
+    `stats`."""
     for dtype in (torch.bfloat16, torch.float32):
         inp, kin = _probe_inputs(dtype)
         rtol, atol = TOL[dtype]
@@ -1329,6 +1472,7 @@ def probe_kernels_vs_plain(stats):
             del ref
         del inp, kin
         torch.cuda.empty_cache()
+    kvariants_vs_plain(stats)
     for name, (fn, probe, dtype, _) in cuda_probes.PEAK_PROBES.items():
         x = kpeak.make_x((kpeak.GRID, kpeak.ROWS, kpeak.LANES), dtype, 0,
                          "cuda")
@@ -1375,12 +1519,25 @@ def probe_race() -> tuple[dict, float]:
     bnd = finish_bound(_probe_scan_bound(torch.bfloat16), ex2_rate)
     card = nvidia_smi_line()
     for r in kv:
+        b = (finish_bound(_combined_bound(), ex2_rate)
+             if r["kernel"] == "scan_combined" else bnd)
         print(f"[race] kvariants {r['variant']}: {r['ms']:.3f} ms, "
               f"{r['gelem_per_s']:.1f} Gelem/s, {r['ms_over_k4']:.3f} of "
-              f"k4's time; bound {bnd['bound_ms']:.4f} ms, "
-              f"{bnd['bound_ms'] / r['ms']:.3f} of the time; "
-              f"parity max abs err {r['max_abs_err']:.3e}; all "
-              f"{[round(t, 3) for t in r['all_ms']]}")
+              f"k4's time, {r['ms_over_lpar_1024']:.3f} of lpar_1024's; "
+              f"bound {b['bound_ms']:.4f} ms, "
+              f"{b['bound_ms'] / r['ms']:.3f} of the time; "
+              f"parity max abs err {r['max_abs_err']:.3e}"
+              + (f" (y2 {r['y2_max_abs_err']:.3e})"
+                 if "y2_max_abs_err" in r else "")
+              + (f" (the exact scan {r['exact_max_abs_err']:.3e}, "
+                 f"{r['exact_off_envelope']:.3%} off the envelope)"
+                 if "exact_max_abs_err" in r else "")
+              + f"; all {[round(t, 3) for t in r['all_ms']]}")
+    rel = {r["variant"]: r["ms_over_lpar_1024"] for r in kv}
+    print(f"[race] v16 over lpar_1024: {rel['v16_combined_128']:.3f} (a "
+          f"combined pass can win below 2); v3, v10_128 over lpar_1024: "
+          f"{rel['v3']:.3f}, {rel['v10_128']:.3f} (the bf16 stacks win "
+          f"below 1); card {card}")
     for r in ks:
         print(f"[race] kseq {r['variant']}: {r['ms']:.3f} ms, with the "
               f"relayout {r['ms_with_relayout']:.3f} ms, "

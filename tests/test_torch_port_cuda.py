@@ -523,6 +523,78 @@ def test_peak_probe_kernels_match_plain(cuda, probe, shape):
         name, x).float(), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["dl", "ld", "kseq"])
+@pytest.mark.parametrize("chunk,L,N", [(256, 1000, 16), (1024, 300, 16),
+                                       (100, 300, 5), (512, 2048, 16)])
+def test_scan_combined_kernel_matches_plain(cuda, chunk, L, N, layout,
+                                            dtype):
+    """kvariants' v16: y and the chunk-local reverse y2. Chunks that do
+    not divide L, a chunk of several 256-position windows and one that is
+    no multiple of a window, a chunk longer than L, N = 5."""
+    from vmambair_torch.ops import cuda_probes
+
+    args = _view_args(cuda, layout, 2, 2, 37, L, N, dtype, chunk + L + N)
+    y2 = torch.empty_strided(args[7].shape, args[7].stride(), dtype=dtype,
+                             device=cuda)
+    n0 = cuda_probes.scan_combined.launches
+    y, got2 = cuda_probes.scan_combined(*args, y2, chunk=chunk)
+    assert cuda_probes.scan_combined.launches == n0 + 1
+    assert y is args[7] and got2 is y2
+    ref, ref2 = cuda_probes.scan_combined_ref(*args[:7], chunk=chunk)
+    _close(y, ref, dtype)
+    _close(y2, ref2, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["dl", "ld"])
+@pytest.mark.parametrize("stack,chunk,sub,L,N", [
+    ("ab", 1024, None, 1000, 16),  # one stack longer than L
+    ("ab", 256, None, 1000, 5),    # a stack per window, ragged tail
+    ("ab", 512, 64, 300, 16),      # stacks of 8 lanes
+    ("b", 1024, 128, 1000, 16),    # v10's sub-chunks of 128
+    ("b", 512, 512, 2048, 16),     # a stack over two windows
+    ("b", 64, 8, 300, 5),          # a stack per lane
+])
+def test_scan_stack_kernels_match_plain(cuda, stack, chunk, sub, L, N,
+                                        layout, dtype):
+    """kvariants' v3 (stack "ab") and v10 (stack "b") against the plain
+    version, which rounds where the TPU kernels round. Both round the
+    stack to bf16 whatever the input dtype, so both dtypes are held to
+    the bf16 envelope."""
+    from vmambair_torch.ops import cuda_probes
+
+    fn = getattr(cuda_probes, f"scan_stack_{stack}")
+    args = _view_args(cuda, layout, 2, 2, 37, L, N, dtype, chunk + L + N)
+    n0 = fn.launches
+    got = fn(*args, chunk=chunk, sub=sub)
+    assert fn.launches == n0 + 1 and got is args[7]
+    ref = cuda_probes.scan_stack_bf16_ref(*args[:7], stack=stack,
+                                          sub=sub or chunk)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("stack,sub", [("ab", None), ("b", 128)])
+def test_scan_stack_last_bf16_matches_plain_on_the_probe_recipe(cuda, stack,
+                                                                 sub):
+    """The stacks with each position's last composition in bf16, the
+    TPU's rounding, which `chip_smoke.py` times beside the default: on
+    kvariants' model-realistic recipe, where it is timed, within the bf16
+    envelope of the plain version (two chunks and a ragged tail). It is
+    not the default because elsewhere two bf16 trees can differ by more
+    than the envelope: on test_scan_stack_kernels_match_plain's inputs
+    v3's left it on 1 of 148000 elements, by 1.14x."""
+    from vmambair_torch.tools import kvariants
+
+    shape = kvariants.Shape(B=2, L=2304, D=96, G=2, N=16, chunk=1024)
+    inp = kvariants.make_inputs(shape, 5, cuda, "real")
+    got = kvariants.run_stack(inp, stack, shape.chunk, sub, last_bf16=True)
+    ref = kvariants.ref_stack(inp, stack, shape.chunk, sub)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
 def test_probe_kernels_refuse_what_they_cannot_take(cuda):
     from vmambair_torch.ops import cuda_probes
 
@@ -531,6 +603,19 @@ def test_probe_kernels_refuse_what_they_cannot_take(cuda):
         cuda_probes.scan_seq(*args, win=17)
     with pytest.raises(ValueError, match="LANES=100"):
         cuda_probes.peak_roll(torch.rand(1, 2, 100, device=cuda))
+    with pytest.raises(ValueError, match="divides chunk=100"):
+        cuda_probes.scan_stack_b(*args, chunk=100, sub=64)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_probes.scan_stack_ab(*args, chunk=96, sub=48)
+    with pytest.raises(ValueError, match="y's shape, strides"):
+        cuda_probes.scan_combined(*args, args[7].contiguous())
+    wide = _view_args(cuda, "dl", 1, 2, 8, 40, 17, torch.float32, 1)
+    for call in (cuda_probes.scan_stack_ab, cuda_probes.scan_stack_b,
+                 lambda *a: cuda_probes.scan_combined(*a, a[7].clone())):
+        with pytest.raises(ValueError, match="N=17 over"):
+            call(*wide)
     args[0].requires_grad_()
     with pytest.raises(RuntimeError, match="has no backward"):
         cuda_probes.scan_lpar(*args)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        cuda_probes.scan_stack_ab(*args)

@@ -85,7 +85,7 @@ def test_nvcc_command_targets_sm90a():
     assert {os.path.basename(s) for s in srcs} == {
         "gdfn.cu", "oss_front.cu", "oss_scan_fused.cu", "oss_tail.cu",
         "selective_scan.cu", "selective_scan_bwd.cu", "scan_seq.cu",
-        "scan_lpar.cu", "peak.cu"}
+        "scan_lpar.cu", "scan_stack_bf16.cu", "peak.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert link[link.index("-o") + 1] == "/tmp/lib.so" and "-shared" in link
     assert link[-len(objs):] == objs
@@ -157,7 +157,72 @@ def test_source_hash_follows_sources(monkeypatch, tmp_path):
     assert _build.source_hash() != h
 
 
+def _c_arg_type(decl: str):
+    """The ctypes type a C parameter declaration passes as."""
+    if "*" in decl:
+        return _build._P
+    if "long long" in decl:
+        return _build._LL
+    if decl.split()[0] == "float":
+        return _build._F
+    assert decl.split()[0] == "int", decl
+    return _build._I
+
+
+def test_signatures_match_the_exported_c_functions():
+    """Every `extern "C"` function of csrc/ has a ctypes signature in
+    `_build.SIGNATURES` with its parameters' kinds in its order (pointer,
+    int, long long, float), and every signature names such a function: a
+    mismatch would pass a truncated pointer or shift every later
+    argument, and nothing here compiles the sources to catch it."""
+    import re
+
+    exported = {}
+    for src in _build.sources():
+        with open(src) as f:
+            text = f.read()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\((.*?)\)\s*\{', text, re.S):
+            exported[name] = [_c_arg_type(" ".join(p.split()))
+                              for p in params.split(",")]
+    assert set(exported) == set(_build.SIGNATURES)
+    for name, kinds in exported.items():
+        assert kinds == _build.SIGNATURES[name], name
+
+
+def test_probe_wrappers_pass_their_signatures(monkeypatch):
+    """Each view-addressed probe wrapper's launch path, driven here with
+    the CPU routing and the launch stubbed: it names an exported function
+    and passes exactly its signature's arguments (a pointer as an int or
+    None, an int or long long as an int), the stream added by `launch`."""
+    from vmambair_torch.ops import cuda_probes
+
+    calls = []
+    monkeypatch.setattr(cuda_probes, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, dev, *a: calls.append((name, a)))
+    u = torch.zeros(1, 2, 40, 4)
+    bc = torch.zeros(1, 2, 40, 16)
+    args = (u, u, torch.zeros(8, 16), bc, bc, torch.ones(8), torch.zeros(8),
+            u.clone())
+    cuda_probes.scan_seq(*args, win=8)
+    cuda_probes.scan_lpar(*args, seg=16)
+    cuda_probes.scan_combined(*args, u.clone(), chunk=16)
+    cuda_probes.scan_stack_ab(*args, chunk=16)
+    cuda_probes.scan_stack_b(*args, chunk=32, sub=8)
+    cuda_probes.scan_stack_ab(*args, chunk=16, last_bf16=True)
+    assert [c[0] for c in calls] == [
+        "vmt_scan_seq_fwd", "vmt_scan_lpar_fwd", "vmt_scan_combined_fwd",
+        "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd"]
+    for name, a in calls:
+        kinds = _build.SIGNATURES[name][:-1]  # the stream: added by launch
+        assert len(a) == len(kinds), name
+        for k, v in zip(kinds, a):
+            assert isinstance(v, int) or (k is _build._P and v is None), name
+
+
 @pytest.mark.parametrize("path", ["vmambair_torch/ops/cuda_scan.py",
+                                  "vmambair_torch/ops/cuda_probes.py",
                                   "vmambair_torch/ops/cuda_effn.py",
                                   "vmambair_torch/_build.py",
                                   "vmambair_torch/models/unet.py",

@@ -97,8 +97,32 @@ SIGNATURES = {
         _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
         _P, _P,                                  # Dskip, bias
         _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
-        _P, _P, _P,                              # hend, sdel, hin
+        _P, _P, _P,                              # hend, aend, hin
         _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G L Dg N seg rev sp stream
+    ],
+    "vmt_scan_combined_fwd": [
+        _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)
+        _P, _I, _LL, _LL, _LL, _LL,              # delta (b, g, l, d)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (b, g, l, n)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
+        _P, _P, _P, _P, _P, _P,                  # y2 hend aend hin rtot rdec
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G L Dg N seg rev sp stream
+    ],
+    "vmt_scan_stack_fwd": [
+        _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)
+        _P, _I, _LL, _LL, _LL, _LL,              # delta (b, g, l, d)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (b, g, l, n)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
+        _P, _P, _P,                              # hend, aend, hin
+        _I, _I, _I, _I, _I,                      # B G L Dg N
+        _I, _I, _I, _I,                          # seg sub a_bf16 last_bf16
+        _I, _I, _P,                              # rev sp stream
     ],
     "vmt_peak": [
         _I, _P, _I, _P, _LL, _I, _I, _P,         # probe x dt y rows lanes rep st

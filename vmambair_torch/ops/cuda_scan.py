@@ -163,19 +163,20 @@ selective_scan_fwd_carries.launches = 0
 
 # -- K7 and the scans on (b, g, l, d) views -----------------------------------
 
+def bl_flat(t):
+    """A (b, g, l, x) view -> (b, l, g*x), the inverse of `_gld`."""
+    b, G, L, x = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b, L, G * x)
+
+
 def scan_views_ref(u, delta, A, B, C, D, delta_bias, softplus, reverse):
     """Plain version of the view-addressed scans (csrc/scan_seq.cu,
     csrc/scan_lpar.cu): u, delta (b, g, l, d) views, B, C (b, g, l, n)
     views of any strides. Returns y as a (b, g, l, d) view in u's dtype."""
-    bsz, G, L, dg = u.shape
-
-    def bld(t):
-        return t.permute(0, 2, 1, 3).reshape(bsz, L, G * dg)
-
-    y = selective_scan_chunked(bld(u), bld(delta), A, B.permute(0, 2, 1, 3),
-                               C.permute(0, 2, 1, 3), D, delta_bias,
-                               softplus, reverse=reverse)
-    return y.view(bsz, L, G, dg).permute(0, 2, 1, 3)
+    y = selective_scan_chunked(bl_flat(u), bl_flat(delta), A,
+                               B.permute(0, 2, 1, 3), C.permute(0, 2, 1, 3),
+                               D, delta_bias, softplus, reverse=reverse)
+    return _gld(y, u.shape[1])
 
 
 def view_shapes(name, u, delta, A, B, C, y):
@@ -196,11 +197,13 @@ def view_shapes(name, u, delta, A, B, C, y):
 
 
 def launch_views(name, u, delta, A, B, C, D, delta_bias, y, softplus,
-                 reverse, extra, scratch=()):
+                 reverse, extra, buffers=()):
     """Launches the exported C function `name` of a view-addressed scan
-    (`vmt_scan_seq_fwd`, `vmt_scan_lpar_fwd`) on CUDA tensors; y is written
-    in place. `extra` is the kernel's own size (win, seg); `scratch` its
-    scratch buffers."""
+    (`vmt_scan_seq_fwd`, `vmt_scan_lpar_fwd`, `vmt_scan_combined_fwd`,
+    `vmt_scan_stack_fwd`) on CUDA tensors; y is written in place. `extra`
+    is the tuple of the kernel's own sizes ((win,), (seg,), ...);
+    `buffers` the further tensors it writes (a second output, scratch),
+    passed as pointers after y's."""
     bsz, G, L, dg, N = view_shapes(name, u, delta, A, B, C, y)
     A32 = f32(A)
     D32 = None if D is None else f32(D)
@@ -215,8 +218,8 @@ def launch_views(name, u, delta, A, B, C, D, delta_bias, y, softplus,
         None if D32 is None else D32.data_ptr(),
         None if b32 is None else b32.data_ptr(),
         y.data_ptr(), dtype_code(y, "out"), *y.stride(),
-        *(t.data_ptr() for t in scratch),
-        bsz, G, L, dg, N, extra, int(bool(reverse)), int(bool(softplus)),
+        *(t.data_ptr() for t in buffers),
+        bsz, G, L, dg, N, *extra, int(bool(reverse)), int(bool(softplus)),
     )
 
 
@@ -251,7 +254,7 @@ def selective_scan_ld_fwd(u, delta, A, B, C, D=None, delta_bias=None,
     y = torch.empty(bsz, L, dim, dtype=out_dtype or u.dtype, device=u.device)
     launch_views("vmt_scan_seq_fwd", _gld(u, G), _gld(delta, G), A,
                  B.permute(0, 2, 1, 3), C.permute(0, 2, 1, 3), D, delta_bias,
-                 _gld(y, G), delta_softplus, reverse, K7_WIN)
+                 _gld(y, G), delta_softplus, reverse, (K7_WIN,))
     selective_scan_ld_fwd.launches += 1
     return y
 

@@ -19,18 +19,39 @@ copies made with the inputs (the relayout is not timed).
     lpar_1024     exact Hillis-Steele and log-domain families v0, v1, v6,
     lpar_4096     v8, v8s, v9, v11, v13, v14, v15, v15b, v19)
     lpar_ld_1024  scan_lpar.cu on the channels-last copies
+    v16_combined_128
+                  scan_lpar.cu's combined pass (`cuda_probes.scan_combined`):
+                  y and a reverse scan restarted every chunk, y2
+    v3            csrc/scan_stack_bf16.cu, the (a, b) stack in bf16 over
+                  each chunk, fp32 carry (`scan_stack_ab`)
+    v10_128       ... the b stack in bf16 over sub-chunks of 128
+                  (`scan_stack_b`)
 
-The TPU's matmul-dual and bf16-stack families (v22-v26, v3, v10), v4 and
-v16 are not carried: asking for one raises and names its ROADMAP row.
+The chunk is the TPU race's grid chunk, part of the function of v3 and of
+v16's y2: 1024 at the race's size, 256 at the interpret size of `--device
+cpu` (the TPU race's interpret CHUNK).
+
+The TPU's matmul-dual families (v22-v26) and its cumsum form v4 are not
+carried: asking for one raises and names its ROADMAP row.
 
     python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
         [--delta default|real]
 
 `--delta real` (or VMAMBAIR_KV_DELTA=real, as for the TPU race) draws the
 model-realistic recipe: post-softplus delta log-uniform in [1e-3, 0.1],
-A = -n. Parity: each variant against the plain chunked scan on the first
-2048 positions, within the bf16 envelope (rtol 3e-2, atol 5e-2), before
-any timing; a variant off it raises.
+A = -n. Parity: each variant against its plain version on the first 2048
+positions, within the bf16 envelope (rtol 3e-2, atol 5e-2), before any
+timing; a variant off it raises. The plain version is the plain chunked
+scan; for v16 also the plain reverse scan of each chunk (y2); for the bf16
+stacks v3 and v10 `cuda_probes.scan_stack_bf16_ref`, which rounds where
+the TPU kernels round. The stacks' distance from the exact scan is a
+finding, not a gate, and their rows report it: under the default recipe
+(post-softplus delta near 0.9) they leave the exact scan's envelope, as
+the TPU's kernels do in interpret mode, since their rounding error is a
+bf16 ulp of states several times larger than y. Each row gives its time
+over k4's and, when it is raced, over lpar_1024's: v16 under twice
+lpar_1024's time is the test the TPU kernel_v16's docstring sets for a
+combined pass to be able to win.
 """
 
 from __future__ import annotations
@@ -48,17 +69,19 @@ import torch
 from ..ops import cuda_probes, cuda_scan
 from . import device_of, max_err, race
 
-SHAPE = dict(B=8, L=16384, D=96, G=2, N=16)  # hot level-1 decoder shape
-CPU_SHAPE = dict(SHAPE, B=2, L=512)          # the TPU race's interpret size
+# hot level-1 decoder shape, with the TPU race's grid chunk
+SHAPE = dict(B=8, L=16384, D=96, G=2, N=16, chunk=1024)
+CPU_SHAPE = dict(SHAPE, B=2, L=512, chunk=256)  # the TPU race's interpret size
 PARITY_L = 2048
 REPEATS = 5
 POOL = 3
 TOL = (3e-2, 5e-2)  # bf16 envelope: rtol, atol
 BF16 = torch.bfloat16
 
+V10_SUB = 128
 # TPU variant families by number: not carried yet, or carried by the
 # L-parallel and channels-last variants here
-NOT_CARRIED = {22, 23, 24, 25, 26, 3, 10, 4, 16}
+NOT_CARRIED = {22, 23, 24, 25, 26, 4}
 EXACT = {0, 1, 6, 8, 9, 11, 12, 13, 14, 15, 19}
 
 
@@ -69,6 +92,7 @@ class Shape:
     D: int
     G: int
     N: int
+    chunk: int  # v3's stack and v16's reverse span it
 
     @property
     def dim(self) -> int:
@@ -180,19 +204,67 @@ def run_lpar(inp, reverse=False, seg=1024, ld=False):
     return y.transpose(1, 2) if ld else y
 
 
-# name -> (call(inputs) -> y as (B, DIM, L), the kernel it launches, by
-# chip_smoke.py's names)
+def run_combined(inp, chunk):
+    """v16: (y, y2), y2 the reverse scan restarted every `chunk`
+    positions, both (B, DIM, L)."""
+    y, y2 = torch.empty_like(inp["u"]), torch.empty_like(inp["u"])
+    v = views(inp, y, False)
+    cuda_probes.scan_combined(*v, gdl(y2, inp["Bm"].shape[1]), chunk=chunk)
+    return y, y2
+
+
+def run_stack(inp, stack, chunk, sub=None, last_bf16=False):
+    """v3 (stack "ab": the bf16 stack over each chunk of `chunk`) and v10
+    (stack "b": over sub-chunks of `sub`): y (B, DIM, L). `last_bf16` as
+    `cuda_probes.scan_stack_ab`'s."""
+    y = torch.empty_like(inp["u"])
+    fn = cuda_probes.scan_stack_ab if stack == "ab" else \
+        cuda_probes.scan_stack_b
+    fn(*views(inp, y, False), chunk=chunk, sub=sub, last_bf16=last_bf16)
+    return y
+
+
+def dl_of(t: torch.Tensor) -> torch.Tensor:
+    """A (b, g, l, d) view -> (B, G*D, L)."""
+    return t.permute(0, 1, 3, 2).reshape(t.shape[0], -1, t.shape[2])
+
+
+def ref_stack(inp, stack, chunk, sub=None):
+    """The plain version of `run_stack` (TPU's rounding points), (B, DIM,
+    L)."""
+    return dl_of(cuda_probes.scan_stack_bf16_ref(
+        *views(inp, inp["u"], False)[:7], stack=stack, sub=sub or chunk))
+
+
+def ref_combined(inp, chunk):
+    """The plain version of `run_combined`: (y, y2)."""
+    return run_reference(inp), run_reference_rev_chunks(inp, chunk)
+
+
+# name -> (call(inputs, chunk) -> y as (B, DIM, L), the kernel it launches
+# by chip_smoke.py's names, its plain version (call(inputs, chunk)) where
+# that is not the plain chunked scan)
 VARIANTS = {
-    "k4": (run_k4, "selective_scan"),
-    "k4_ld": (lambda i: run_k4(i, ld=True), "selective_scan"),
-    "seq": (lambda i: run_seq(i, win=1), "scan_seq"),
-    "seq_win8": (lambda i: run_seq(i, win=8), "scan_seq"),
-    "seq_win16": (lambda i: run_seq(i, win=16), "scan_seq"),
-    "seq_ld": (run_seq_ld, "selective_scan_ld"),
-    "lpar_256": (lambda i: run_lpar(i, seg=256), "scan_lpar"),
-    "lpar_1024": (lambda i: run_lpar(i, seg=1024), "scan_lpar"),
-    "lpar_4096": (lambda i: run_lpar(i, seg=4096), "scan_lpar"),
-    "lpar_ld_1024": (lambda i: run_lpar(i, seg=1024, ld=True), "scan_lpar"),
+    "k4": (lambda i, chunk: run_k4(i), "selective_scan", None),
+    "k4_ld": (lambda i, chunk: run_k4(i, ld=True), "selective_scan", None),
+    "seq": (lambda i, chunk: run_seq(i, win=1), "scan_seq", None),
+    "seq_win8": (lambda i, chunk: run_seq(i, win=8), "scan_seq", None),
+    "seq_win16": (lambda i, chunk: run_seq(i, win=16), "scan_seq", None),
+    "seq_ld": (lambda i, chunk: run_seq_ld(i), "selective_scan_ld", None),
+    "lpar_256": (lambda i, chunk: run_lpar(i, seg=256), "scan_lpar", None),
+    "lpar_1024": (lambda i, chunk: run_lpar(i, seg=1024), "scan_lpar",
+                  None),
+    "lpar_4096": (lambda i, chunk: run_lpar(i, seg=4096), "scan_lpar",
+                  None),
+    "lpar_ld_1024": (lambda i, chunk: run_lpar(i, seg=1024, ld=True),
+                     "scan_lpar", None),
+    # the TPU race's own names; v16's call returns (y, y2)
+    "v16_combined_128": (run_combined, "scan_combined", ref_combined),
+    "v3": (lambda i, chunk: run_stack(i, "ab", chunk), "scan_stack_ab",
+           lambda i, chunk: ref_stack(i, "ab", chunk)),
+    "v10_128": (lambda i, chunk: run_stack(i, "b", chunk, V10_SUB),
+                "scan_stack_b",
+                lambda i, chunk: ref_stack(i, "b", chunk, V10_SUB)),
 }
 
 
@@ -206,9 +278,9 @@ def check_names(names: list) -> None:
         fam = int(m.group(1)) if m else None
         if fam in NOT_CARRIED:
             raise ValueError(
-                f"{name}: the TPU's dual / bf16-stack / cumsum / combined "
-                "variants are not carried yet (ROADMAP.md, Queue 2: "
-                "'kvariants.py::build, the dual and bf16-stack families')")
+                f"{name}: the TPU's dual and cumsum variants are not "
+                "carried yet (ROADMAP.md, Queue 2: 'kvariants' "
+                "separated-exponent families')")
         if fam in EXACT:
             raise ValueError(
                 f"{name}: the TPU's exact families are carried by lpar_256, "
@@ -217,22 +289,42 @@ def check_names(names: list) -> None:
         raise ValueError(f"{name}: unknown variant; known: {list(VARIANTS)}")
 
 
+def off_envelope(got, ref) -> float:
+    """The share of elements of got outside ref's bf16 envelope."""
+    err = (got.float() - ref.float()).abs()
+    return (err > TOL[1] + TOL[0] * ref.float().abs()).float().mean().item()
+
+
+def _check(name, what, got, ref):
+    if off_envelope(got, ref):
+        raise RuntimeError(f"kvariants {name}: {what} off its plain version "
+                           f"by {max_err(got, ref)[0]:.3e} (rtol {TOL[0]}, "
+                           f"atol {TOL[1]})")
+    return max_err(got, ref)
+
+
 def parity(names: list, shape: Shape, device, delta: str) -> dict:
     """Each variant on the first PARITY_L positions of a seeded input set
-    against the plain chunked scan; raises outside the bf16 envelope.
-    Returns name -> (max abs err, relative err)."""
+    against its plain version (`VARIANTS`); raises outside the bf16
+    envelope. Returns name -> (max abs err, relative err) of y; for v16
+    name + ":y2" -> y2's; for the bf16 stacks name + ":exact" -> (max abs
+    err, share of elements off the envelope) of y against the exact
+    scan."""
     inp = sliced(make_inputs(shape, 42, device, delta),
                  min(PARITY_L, shape.L))
-    ref = run_reference(inp)
+    exact = run_reference(inp)
     out = {}
     for name in names:
-        got = VARIANTS[name][0](inp)
-        err = (got.float() - ref.float()).abs()
-        if (err > TOL[1] + TOL[0] * ref.float().abs()).any():
-            raise RuntimeError(f"kvariants {name}: off the plain scan by "
-                               f"{err.max().item():.3e} (rtol {TOL[0]}, "
-                               f"atol {TOL[1]})")
-        out[name] = max_err(got, ref)
+        call, _, plain = VARIANTS[name]
+        got = call(inp, shape.chunk)
+        ref = plain(inp, shape.chunk) if plain else exact
+        if isinstance(got, tuple):
+            (got, y2), (ref, ref2) = got, ref
+            out[name + ":y2"] = _check(name, "y2", y2, ref2)
+        elif plain:
+            out[name + ":exact"] = (max_err(got, exact)[0],
+                                    off_envelope(got, exact))
+        out[name] = _check(name, "y", got, ref)
     return out
 
 
@@ -242,6 +334,18 @@ def run_reference(inp, reverse=False):
     u, d = inp["u"].transpose(1, 2), inp["delta"].transpose(1, 2)
     return cuda_scan.selective_scan_ref(u, d, *params(inp), True, reverse,
                                         u.dtype).transpose(1, 2)
+
+
+def run_reference_rev_chunks(inp, chunk):
+    """The plain reverse scan of each chunk of `chunk` positions on its
+    own (v16's y2), as (B, DIM, L)."""
+    parts = []
+    for c0 in range(0, inp["u"].shape[2], chunk):
+        part = dict(inp)
+        for k in ("u", "delta", "Bm", "Cm"):
+            part[k] = inp[k][..., c0:c0 + chunk]
+        parts.append(run_reference(part, True))
+    return torch.cat(parts, 2)
 
 
 # kernel launches `run` makes for each variant: the parity check, the
@@ -258,22 +362,31 @@ def run(names: list, device, shape: Shape = None,
     errs = parity(names, shape, device, delta)
     rows = [dict(variant=n, max_abs_err=errs[n][0], rel_err=errs[n][1])
             for n in names]
+    for row in rows:
+        name = row["variant"]
+        if name + ":y2" in errs:
+            row["y2_max_abs_err"], row["y2_rel_err"] = errs[name + ":y2"]
+        if name + ":exact" in errs:
+            row["exact_max_abs_err"], row["exact_off_envelope"] = errs[
+                name + ":exact"]
     if cpu:
         return rows
     pool = [make_inputs(shape, seed, device, delta)
             for seed in range(1, POOL + 1)]
-    times = race({n: VARIANTS[n][0] for n in names}, pool, REPEATS)
+    times = race({n: (lambda i, n=n: VARIANTS[n][0](i, shape.chunk))
+                  for n in names}, pool, REPEATS)
     del pool
     elems = shape.B * shape.L * shape.dim * shape.N
-    k4 = statistics.median(times["k4"]) if "k4" in times else None
+    base = {b: statistics.median(times[b]) for b in ("k4", "lpar_1024")
+            if b in times}
     for row in rows:
         ms = statistics.median(times[row["variant"]])
         row.update(ms=ms, gelem_per_s=elems / ms / 1e6,
                    all_ms=times[row["variant"]],
                    kernel=VARIANTS[row["variant"]][1],
                    launches=LAUNCHES_PER_VARIANT)
-        if k4:
-            row["ms_over_k4"] = ms / k4
+        for b, t in base.items():
+            row[f"ms_over_{b}"] = ms / t
     return rows
 
 

@@ -3,7 +3,8 @@
 Counterpart of `vmambair_tpu/utils/upscaler.py` (the reference's
 `RealESRGANer`): reflect pre-pad and pad-to-window, overlapping
 `tile_process` with a `tile_pad` halo and a seam-free merge, optional half
-precision, and the alpha path in `enhance`. Tiles keep one fixed shape and
+precision, and the alpha path and the `outscale` resize (Lanczos-4,
+`utils/resize.py`) in `enhance`. Tiles keep one fixed shape and
 run in fixed-size batches. Images are HWC numpy on the host; the model
 sees NCHW tensors on `device`.
 """
@@ -14,6 +15,8 @@ import math
 
 import numpy as np
 import torch
+
+from .resize import resize_lanczos4
 
 
 class RestorationUpscaler:
@@ -96,9 +99,14 @@ class RestorationUpscaler:
         return out
 
     # -- public API --------------------------------------------------------
-    def enhance(self, img: np.ndarray) -> tuple[np.ndarray, str]:
+    def enhance(self, img: np.ndarray, outscale: float | None = None
+                ) -> tuple[np.ndarray, str]:
         """img: HWC BGR uint8/uint16 (or HW gray / HWCA with alpha).
-        Returns (output BGR uint8/16, img_mode)."""
+        Returns (output BGR uint8/16, img_mode). With `outscale` set and
+        not the model's scale, the float output is resized (Lanczos-4, on
+        this upscaler's device) to int(w * outscale) x int(h * outscale)
+        before it is clipped and rounded."""
+        h_input, w_input = img.shape[:2]
         max_range = 65535.0 if img.dtype == np.uint16 else 255.0
         imgf = img.astype(np.float32) / max_range
         alpha = None
@@ -120,6 +128,10 @@ class RestorationUpscaler:
             out = np.dstack([out, self._run(a3)[:, :, 0]])
         if img_mode == "L":  # BGR -> gray with cv2's weights
             out = out @ np.array([0.114, 0.587, 0.299], np.float32)
+        if outscale is not None and outscale != self.scale:
+            size = (int(h_input * outscale), int(w_input * outscale))
+            out = resize_lanczos4(torch.from_numpy(np.ascontiguousarray(
+                out)).to(self.device), size).cpu().numpy()
         if max_range == 65535.0:
             return (np.clip(out, 0, 1) * 65535.0).round().astype(
                 np.uint16), img_mode
