@@ -70,6 +70,16 @@ non-zero, and without a CUDA device the script stops before any result:
    its exp2 term (one SFU exp2 per (b, l, d, n)), phase 3's rows included,
    at the larger of the SFU's nominal rate and the measured exp rate, both
    printed.
+9. keffn and kprobe - keffn's fused GDFN (`gdfn_tanh_nhwc`, K2's kernel
+   with a tanh gate on NHWC images) at the TPU probe's five level shapes
+   (8 x 128x128x48, 128x128x96, 64x64x96, 32x32x192, 16x16x384) and
+   kprobe's transpose pair and projections at (8, 16384, 96), bf16 and
+   fp32, against their plain versions (the forward envelope; the
+   transpose pair bit-equal, as is the library call `u * 1.000001` timed
+   beside it); then, counts reset, the two tools' entry points: keffn's
+   race against the cuDNN composite and K2 on NCHW copies, kprobe's
+   against its bound, each kernel's launches against what the tools
+   scheduled.
 
 The OSS switches (`VMAMBAIR_OSS_FRONT`, `VMAMBAIR_OSS_TAIL`) are off except
 where a phase turns them on: phase 3 holds K5 and K6 against their plain
@@ -79,11 +89,12 @@ and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
 (for K1-K6 the launches in the serve, train and pipeline phases, for the
-probe kernels those of the probe path, which must be at least one each; a
+probe kernels those of the probe paths of phases 8 and 9, which must be at
+least one each; a
 launch is one call of the kernel's wrapper, which for `scan_lpar`,
 `scan_combined` and the stacks is three grids, `grids_per_launch` in its
 entry;
-max error, times and bound from phases 3 and 8) and the card's name and
+max error, times and bound from phases 3, 8 and 9) and the card's name and
 power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -106,7 +117,8 @@ import torch.nn.functional as F
 from vmambair_torch import _build
 from vmambair_torch.models import MamberBlock, build_network
 from vmambair_torch.ops import cuda_effn, cuda_probes, cuda_scan
-from vmambair_torch.tools import FP32_FLOPS, HBM_BPS, kpeak, kseq, kvariants
+from vmambair_torch.tools import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS, hold,
+                                  keffn, kpeak, kprobe, kseq, kvariants)
 from vmambair_torch.train import build_model
 from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
 from vmambair_torch.utils.img_util import imread, imwrite
@@ -192,18 +204,28 @@ KERNELS = {
         fn=cuda_probes.peak_shift, source="vmambair_torch/csrc/peak.cu",
         replaces="tools/kpeak.py:83", probe="concatshift+add_fp32",
         path="probe"),
+    # phase 9's kernels: keffn's fused GDFN and kprobe's relayout probes
+    "gdfn_tanh_nhwc": dict(
+        fn=cuda_probes.gdfn_tanh_nhwc, source="vmambair_torch/csrc/gdfn.cu",
+        replaces="tools/keffn.py:46", path="probe"),
+    "probe_transpose": dict(
+        fn=cuda_probes.probe_transpose,
+        source="vmambair_torch/csrc/probe_io.cu",
+        replaces="tools/kprobe.py:45", path="probe"),
+    "probe_proj": dict(
+        fn=cuda_probes.probe_proj, source="vmambair_torch/csrc/probe_io.cu",
+        replaces="tools/kprobe.py:79", path="probe"),
 }
 # `path`: where a kernel's launches are counted, the model's paths (serve,
-# train, pipeline) or phase 8's probe path
+# train, pipeline) or the probe paths of phases 8 and 9
 MODEL_KERNELS = tuple(n for n, k in KERNELS.items() if k["path"] == "model")
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
 OUT_DIR = "chiprun_out"
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and fp32 FLOP/s outside
-# the tensor cores (HBM_BPS, FP32_FLOPS, shared with the probes); bf16 dense
-# tensor-core FLOP/s
-BF16_TC_FLOPS = 989e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores and bf16 dense tensor-core FLOP/s (HBM_BPS, FP32_FLOPS,
+# BF16_TC_FLOPS, shared with the probes)
 # rates no data sheet gives: bf16x2 FMA on the CUDA cores at twice the fp32
 # rate; the SFU's nominal 16 exp2 per clock per SM (compute capability 9.0)
 # at 132 SMs and 1.98 GHz. The exp2 term of every bound divides by the
@@ -298,13 +320,16 @@ def launches() -> dict:
 
 
 def time_ms(fn, reps=5) -> float:
-    """Median over `reps` of CUDA-event time, after one warm-up call."""
+    """Median over `reps` of CUDA-event time, after one warm-up call; each
+    call queued behind a device sleep (`tools.hold`), so that a call
+    shorter than its host-side launch path is timed on the card alone."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        hold()
         e0.record()
         fn()
         e1.record()
@@ -527,16 +552,11 @@ def _bwd_bound(args, dy):
 
 
 def _gdfn_bound(args):
-    x, _, _, w_in, _, w_out = args
+    """K2's count, keffn's (`keffn.work`): x read and y written once, the
+    weights once; the projections on the tensor cores for bf16."""
+    x, w_out = args[0], args[5]
     b, c, h, w = x.shape
-    hid = w_out.shape[1]
-    px = b * h * w
-    mma = 2 * px * (2 * hid * c + hid * c)
-    other = px * (2 * hid * 18 + hid * 20 + 10 * c)
-    by = 2 * nbytes(x) + nbytes(*args[1:])
-    if x.dtype == torch.bfloat16:
-        return bound(by, other, mma)
-    return bound(by, other + mma)
+    return bound(*keffn.work((b, h, w, c), x.dtype, w_out.shape[1]))
 
 
 def kernels_vs_plain() -> dict:
@@ -1558,6 +1578,124 @@ def probe_race() -> tuple[dict, float]:
     return counts, ex2_rate
 
 
+# -- phase 9: keffn and kprobe -------------------------------------------------
+
+def keffn_kprobe_vs_plain(stats):
+    """Phase 9a: keffn's kernel at the TPU probe's five level shapes and
+    kprobe's two at (8, 16384, 96), bf16 and fp32, against their plain
+    versions on the card (the forward envelope; the transpose pair bit for
+    bit). The first case of each (bf16: 128x128x48, the probe shape) is
+    timed beside its plain version and, for the transpose pair, the
+    library call `u * 1.000001`, checked bit-equal to it first."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in keffn.SHAPES:
+            B, H, W, C = shape
+            params = keffn.make_params(C + H, C, "cuda")
+            x = keffn.make_x(shape, dtype, 1, "cuda")
+
+            def call(x=x, p=params):
+                return cuda_probes.gdfn_tanh_nhwc(x, **p)
+
+            def plain(x=x, p=params):
+                return cuda_probes.gdfn_tanh_ref(x, **p)
+
+            got = call()
+            torch.cuda.synchronize()
+            tag = f"gdfn_tanh_nhwc {shape} {str(dtype)[6:]}"
+            err = check_close(tag, got, plain(), *TOL[dtype])
+            st = stats["gdfn_tanh_nhwc"]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            line = f"[keffn] {tag}: max abs err {err:.3e}"
+            if st["ms"] is None:
+                st["ms"], st["plain_ms"] = time_ms(call), time_ms(plain,
+                                                                  reps=3)
+                st["terms"] = bound(*keffn.work(shape, dtype))
+                line += (f"; kernel {st['ms']:.3f} ms, plain "
+                         f"{st['plain_ms']:.3f} ms")
+            print(line)
+            del x, got
+        inp = kprobe.make_inputs(kprobe.SHAPE, 0, "cuda")
+        inp["u"] = inp["u"].to(dtype)
+        for name, probe in (("probe_transpose", "transpose_pair_in_kernel"),
+                            ("probe_proj", "proj_in_kernel")):
+            kern, plain = kprobe.calls(probe)
+            got = kern(inp)
+            torch.cuda.synchronize()
+            ref = plain(inp)
+            tag = (f"{name} {tuple(kprobe.SHAPE.values())} "
+                   f"{str(dtype)[6:]}")
+            if name == "probe_transpose":
+                if not torch.equal(got, ref):
+                    raise SystemExit(f"FAIL {tag}: not bit-equal to its "
+                                     "plain version")
+                err = 0.0
+            else:
+                err = check_close(tag, got, ref, *TOL[dtype])
+            st = stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            line = f"[kprobe] {tag}: max abs err {err:.3e}"
+            if st["ms"] is None:
+                st["ms"] = time_ms(lambda: kern(inp))
+                st["plain_ms"] = time_ms(lambda: plain(inp), reps=3)
+                st["terms"] = bound(*kprobe.work(probe, kprobe.SHAPE, dtype))
+                line += (f"; kernel {st['ms']:.4f} ms, plain "
+                         f"{st['plain_ms']:.4f} ms")
+                if name == "probe_transpose":
+                    if not torch.equal(kprobe.library(inp), ref):
+                        raise SystemExit(f"FAIL {tag}: u * 1.000001 is not "
+                                         "bit-equal to the function")
+                    st["library_ms"] = time_ms(lambda: kprobe.library(inp))
+                    line += (f", library u * 1.000001 (bit-equal) "
+                             f"{st['library_ms']:.4f} ms")
+            print(line)
+            del got, ref
+        del inp
+    torch.cuda.empty_cache()
+
+
+def keffn_kprobe_race() -> dict:
+    """Phase 9b, the probe path of keffn and kprobe: their entry points on
+    the card (parity at every shape, then the interleaved races), the
+    launches reset before and read after, checked against what the tools
+    report they scheduled. Returns the launches."""
+    dev = torch.device("cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    ke = keffn.run(dev)
+    kp = kprobe.run(list(kprobe.PROBES), dev)
+    counts = launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want["gdfn_tanh_nhwc"] = sum(r["launches"] for r in ke)
+    want["gdfn_residual_fused"] = sum(r["k2_launches"] for r in ke)
+    want["probe_transpose"], want["probe_proj"] = (r["launches"] for r in kp)
+    if counts != want:
+        raise SystemExit(f"FAIL keffn/kprobe: launches {counts}, scheduled "
+                         f"{want}")
+    card = nvidia_smi_line()
+    for r in ke:
+        key = "x".join(str(v) for v in r["shape"][1:])
+        t = {n: r[f"{key}_{n}_ms"] for n in keffn.RACE}
+        print(f"[race] keffn {key} bf16: fused {t['fused']:.3f} ms, cuDNN "
+              f"composite {t['composite']:.3f} ms "
+              f"({t['fused'] / t['composite']:.2f}x), K2 on NCHW "
+              f"{t['k2']:.3f} ms; bound {r[key + '_bound_ms']:.4f} ms "
+              f"({r[key + '_bound_by']}); relerr {r[key + '_relerr']:.2e} "
+              f"(composite {r[key + '_composite_relerr']:.2e}); card {card}")
+    for r in kp:
+        lib = r.get("library_ms")
+        print(f"[race] kprobe {r['probe']}: {r['ms_per_call']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms_per_call']:.3f} of the time"
+              + (f"; library u * 1.000001 {lib:.4f} ms" if lib else "")
+              + (f"; all 38 rows' fp32 ops {r['rows38_ops_ms']:.4f} ms"
+                 if "rows38_ops_ms" in r else "")
+              + f"; max abs err {r['max_abs_err']:.3e}; card {card}")
+    print(f"[race] keffn/kprobe launches "
+          f"{({k: v for k, v in counts.items() if v})}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     t0 = time.perf_counter()
     os.environ.update({k: "0" for k in SWITCHES})
@@ -1576,6 +1714,11 @@ def main():
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
     print(f"[probes] phase 8 {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    keffn_kprobe_vs_plain(stats)
+    counts9 = keffn_kprobe_race()
+    print(f"[keffn/kprobe] phase 9 {time.perf_counter() - t9:.1f} s")
+    probe_counts = {k: probe_counts[k] + counts9[k] for k in KERNELS}
     kernels = []
     for name, k in KERNELS.items():
         terms = stats[name].pop("terms")

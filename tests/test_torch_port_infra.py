@@ -44,12 +44,39 @@ def test_imports_with_jax_and_cv2_blocked():
             "vmambair_torch.utils.img_util", "vmambair_torch.metrics",
             "vmambair_torch.utils.options", "vmambair_torch.tools.kseq",
             "vmambair_torch.tools.kvariants",
-            "vmambair_torch.tools.kpeak"} <= set(mods)
+            "vmambair_torch.tools.kpeak", "vmambair_torch.tools.keffn",
+            "vmambair_torch.tools.kprobe",
+            "vmambair_torch.tools.ab"} <= set(mods)
     code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
         "import chip_smoke, inference_torch, train_torch, test_torch\n"
         "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"
         "               and sys.modules[k] for k in sys.modules)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+def test_ab_runs_the_trees_in_turns(monkeypatch, capsys, tmp_path):
+    """`tools.ab` runs each tree's process in its own checkout (other,
+    this, this, other per round) and reports each tree's medians."""
+    from vmambair_torch.tools import ab
+    ran = []
+
+    def fake_run(cmd, cwd, env, **kw):
+        assert cmd[1:] == [ab.__file__, "--child"]
+        assert env["PYTHONPATH"] == cwd
+        ran.append(cwd)
+        ms = 1.0 if cwd == str(tmp_path) else 2.0
+        row = dict(k2_ms=ms * len(ran), serve_ms=ms, serve_each=[ms])
+        return subprocess.CompletedProcess(cmd, 0, json.dumps(row) + "\n", "")
+
+    monkeypatch.setattr(ab.subprocess, "run", fake_run)
+    ab.main(["--other", str(tmp_path), "--rounds", "2"])
+    other = str(tmp_path)
+    assert ran == [other, ROOT, ROOT, other] * 2
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [r["tree"] for r in lines[:-1]] == ["other", "this", "this",
+                                               "other"] * 2
+    assert lines[-1] == {"other": {"k2_ms": 4.5, "serve_ms": 1.0},
+                         "this": {"k2_ms": 9.0, "serve_ms": 2.0}}
 
 
 def test_inference_cli_on_cpu_without_cv2(tmp_path):
@@ -85,7 +112,7 @@ def test_nvcc_command_targets_sm90a():
     assert {os.path.basename(s) for s in srcs} == {
         "gdfn.cu", "oss_front.cu", "oss_scan_fused.cu", "oss_tail.cu",
         "selective_scan.cu", "selective_scan_bwd.cu", "scan_seq.cu",
-        "scan_lpar.cu", "scan_stack_bf16.cu", "peak.cu"}
+        "scan_lpar.cu", "scan_stack_bf16.cu", "peak.cu", "probe_io.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert link[link.index("-o") + 1] == "/tmp/lib.so" and "-shared" in link
     assert link[-len(objs):] == objs
@@ -191,10 +218,11 @@ def test_signatures_match_the_exported_c_functions():
 
 
 def test_probe_wrappers_pass_their_signatures(monkeypatch):
-    """Each view-addressed probe wrapper's launch path, driven here with
-    the CPU routing and the launch stubbed: it names an exported function
-    and passes exactly its signature's arguments (a pointer as an int or
-    None, an int or long long as an int), the stream added by `launch`."""
+    """Each probe wrapper's launch path (the view-addressed scans, keffn's
+    GDFN, kprobe's two), driven here with the CPU routing and the launch
+    stubbed: it names an exported function and passes exactly its
+    signature's arguments (a pointer as an int or None, an int or long
+    long as an int, a float as a float), the stream added by `launch`."""
     from vmambair_torch.ops import cuda_probes
 
     calls = []
@@ -211,14 +239,24 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
     cuda_probes.scan_stack_ab(*args, chunk=16)
     cuda_probes.scan_stack_b(*args, chunk=32, sub=8)
     cuda_probes.scan_stack_ab(*args, chunk=16, last_bf16=True)
+    x = torch.zeros(1, 5, 7, 8)
+    cuda_probes.gdfn_tanh_nhwc(x, torch.ones(8), torch.zeros(8),
+                               torch.zeros(8, 42), torch.zeros(3, 3, 42),
+                               torch.zeros(21, 8))
+    u = torch.zeros(2, 70, 96)
+    cuda_probes.probe_transpose(u)
+    cuda_probes.probe_proj(u, torch.zeros(38, 96), torch.zeros(96, 6))
     assert [c[0] for c in calls] == [
         "vmt_scan_seq_fwd", "vmt_scan_lpar_fwd", "vmt_scan_combined_fwd",
-        "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd"]
+        "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd",
+        "vmt_gdfn_tanh_nhwc_fwd", "vmt_probe_transpose", "vmt_probe_proj"]
     for name, a in calls:
         kinds = _build.SIGNATURES[name][:-1]  # the stream: added by launch
         assert len(a) == len(kinds), name
         for k, v in zip(kinds, a):
-            assert isinstance(v, int) or (k is _build._P and v is None), name
+            assert (isinstance(v, int) and k is not _build._F) or (
+                k is _build._P and v is None) or (
+                k is _build._F and isinstance(v, float)), name
 
 
 @pytest.mark.parametrize("path", ["vmambair_torch/ops/cuda_scan.py",

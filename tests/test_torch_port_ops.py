@@ -18,7 +18,8 @@ from vmambair_tpu.ops.pallas_scan import oss_scan_fused as jax_oss_scan
 from vmambair_tpu.ops.pallas_scan import selective_scan as jax_scan
 from vmambair_tpu.ops.selective_scan import selective_scan_seq as jax_seq
 from vmambair_torch.ops import cuda_effn, cuda_scan
-from vmambair_torch.ops.selective_scan import selective_scan_chunked
+from vmambair_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                               selective_scan_chunked)
 
 torch.set_num_threads(1)
 
@@ -106,6 +107,41 @@ def test_selective_scan_chunked_matches_jax_seq(chunk_size):
                                  delta_softplus=True, chunk_size=chunk_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                rtol=1e-4, atol=1e-4)
+
+
+def _f2_inputs(grow):
+    """The inputs of the CUDA tests' K3 case without D and bias (drawn as
+    `test_torch_port_cuda._scan_args` draws them, on the CPU) and the dy of
+    seed 47; grow: the raw delta ~ N(0, 1), else |N(0, 1)|."""
+    g = torch.Generator().manual_seed(1)
+    u = torch.randn(2, 16, 40, generator=g).transpose(1, 2)
+    delta = torch.randn(2, 40, 16, generator=g)
+    A = -torch.exp(torch.rand(16, 16, generator=g))
+    B = torch.randn(2, 40, 2, 16, generator=g)
+    C = torch.randn(2, 40, 2, 16, generator=g)
+    args = [u, delta if grow else delta.abs(), A, B, C, None, None]
+    return args, torch.randn(2, 40, 16,
+                             generator=torch.Generator().manual_seed(47))
+
+
+@pytest.mark.parametrize("grow", [True, False])
+def test_scan_backward_fp32_against_the_fp64_oracle(grow):
+    """ROADMAP F2: where the raw delta lets the state grow (to ~7e11 over
+    L = 40), the gradients are sums that cancel, and the fp32 plain
+    backward itself misses the exact (fp64) gradients by more than the
+    CUDA tests' GRAD_TOL (rtol 3e-3, atol 1e-2); with the state decaying
+    it holds that bar. So the CUDA tests hold K3 on a growing state to a
+    multiple of the plain version's own distance, and to the bar on a
+    decaying one."""
+    args, dy = _f2_inputs(grow)
+    ref = selective_scan_bwd_ref(*args, dy)
+    orc = selective_scan_bwd_ref(
+        *[None if t is None else t.double() for t in args], dy.double())
+    assert all(t.dtype == torch.float64 for t in orc[:5])
+    assert orc[5] is None and orc[6] is None
+    ratio = max(((a.double() - b).abs() / (1e-2 + 3e-3 * b.abs())).max()
+                .item() for a, b in zip(ref[:5], orc[:5]))
+    assert (ratio > 1) if grow else (ratio < 1e-2), ratio
 
 
 @pytest.mark.parametrize("shape,hid", [((1, 8, 8, 8), 21),

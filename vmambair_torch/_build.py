@@ -131,6 +131,17 @@ SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
         _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
     ],
+    "vmt_gdfn_tanh_nhwc_fwd": [
+        _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
+        _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
+    ],
+    "vmt_probe_transpose": [
+        _P, _I, _P, _LL, _I, _P,                 # u dt y rows D stream
+    ],
+    "vmt_probe_proj": [
+        _P, _I, _P, _P, _P,                      # u dt y wxp wdt
+        _LL, _I, _I, _I, _P,                     # rows D RN R stream
+    ],
     "vmt_oss_front_fwd": [
         _P, _I, _P, _P,                          # x, dt, xs, z
         _P, _P, _P, _P, _P, _P,                  # lnw lnb win_t bin wdw bdw

@@ -28,6 +28,10 @@
 // through shared memory in slices that all 8 warps share, loaded
 // coalesced. Odd hidden widths are handled by masking the last tile; no
 // lane padding. C <= 384.
+//
+// The same kernel, with a tanh gate and channels-last images, is keffn's
+// (vmt_gdfn_tanh_nhwc_fwd, below): the gate and the layout are template
+// policies, so K2's instantiation is the code above unchanged.
 #include "ln_halo.cuh"
 
 namespace vmt {
@@ -39,13 +43,26 @@ constexpr int QG = 4;                    // output: pixels per thread
 constexpr int KMAX = 12;                 // output: channels per lane, C <= 384
 constexpr int JC = 16;                   // W_out rows staged per step
 
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
+// Gate policies: K2's exact erf GELU; keffn's tanh GELU (jax.nn.gelu with
+// approximate=True), by tanhf: tanh.approx.f32's error would show in the
+// fp32 parity check.
+struct GeluErf {
+  __device__ static __forceinline__ float f(float v) {
+    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  }
+};
+
+struct GeluTanh {
+  __device__ static __forceinline__ float f(float v) {
+    return v * (0.5f * (1.f + tanhf(0.79788456080286536f *
+                                    (v + 0.044715f * (v * v * v)))));
+  }
+};
 
 // NK: output channels per lane (ceil(C / 32) rounded up to 2, 3, 6 or 12),
-// a template argument so that no accumulator slot sits idle
-template <int NK>
+// a template argument so that no accumulator slot sits idle. Lay: the
+// images' layout (ln_halo.cuh); Gelu: the gate.
+template <int NK, class Lay, class Gelu>
 __global__ void __launch_bounds__(NTH, 2) gdfn_kernel(
     const void* __restrict__ x, int dt, void* __restrict__ y,
     const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -62,13 +79,12 @@ __global__ void __launch_bounds__(NTH, 2) gdfn_kernel(
 
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const long long HW = (long long)H * W;
-  const long long xb = (long long)b * C * HW;
+  const long long xb = (long long)b * C * H * W;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
 
   // 1-2. LN(x) over the halo (ln_halo.cuh)
-  ln_halo(x, dt, xb, lnw, lnb, C, H, W, y0, x0, eps, zn, s_mu, s_rs);
+  ln_halo<Lay>(x, dt, xb, lnw, lnb, C, H, W, y0, x0, eps, zn, s_mu, s_rs);
 
   // output accumulators: lane owns channels lane + 32k, warp owns pixels
   // warp*QG .. warp*QG + QG - 1
@@ -112,7 +128,7 @@ __global__ void __launch_bounds__(NTH, 2) gdfn_kernel(
             a1 += w1[dy * 3 + dx] * h1[p];
             a2 += w2[dy * 3 + dx] * h2[p];
           }
-        g = round_act(gelu_erf(a1) * a2, dt);
+        g = round_act(Gelu::f(a1) * a2, dt);
       }
       gb[j * Q + q] = g;
     }
@@ -143,37 +159,62 @@ __global__ void __launch_bounds__(NTH, 2) gdfn_kernel(
     }
   }
   __syncthreads();  // every reader of zn is done: reuse it for the output
-  float* out = zn;  // [C][Q]
+  float* out = zn;  // [C][OQ]
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int c = lane + 32 * k;
     if (c < C) {
 #pragma unroll
-      for (int i = 0; i < QG; ++i) out[c * Q + warp * QG + i] = acc[i][k];
+      for (int i = 0; i < QG; ++i)
+        out[c * Lay::OQ + warp * QG + i] = acc[i][k];
     }
   }
   __syncthreads();
   for (int i = tid; i < C * Q; i += NTH) {
-    const int c = i / Q, q = i % Q;
+    int c, q;
+    Lay::split(i, C, c, q);
     const int gy = y0 + q / TW, gx = x0 + q % TW;
     if (gy < H && gx < W) {
-      const long long o = xb + c * HW + (long long)gy * W + gx;
-      st_act(y, o, dt, ld_act(x, o, dt) + out[i]);
+      const long long o = xb + Lay::at(c, gy, gx, C, H, W);
+      st_act(y, o, dt, ld_act(x, o, dt) + out[c * Lay::OQ + q]);
     }
   }
 }
 
-template <int NK>
+template <int NK, class Lay, class Gelu>
 static int launch(const void* x, int dt, void* y, const float* lnw,
                   const float* lnb, const float* win_t, const float* wdw,
                   const float* wout_t, int B, int C, int H, int W, int hid,
                   float eps, size_t smem, cudaStream_t stream) {
-  int err = set_smem((const void*)gdfn_kernel<NK>, smem);
+  int err = set_smem((const void*)gdfn_kernel<NK, Lay, Gelu>, smem);
   if (err) return err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  gdfn_kernel<NK><<<grid, NTH, smem, stream>>>(
+  gdfn_kernel<NK, Lay, Gelu><<<grid, NTH, smem, stream>>>(
       x, dt, y, lnw, lnb, win_t, wdw, wout_t, C, H, W, hid, eps);
   return (int)cudaGetLastError();
+}
+
+template <class Lay, class Gelu>
+static int gdfn_fwd(const void* x, int dt, void* y, const float* lnw,
+                    const float* lnb, const float* win_t, const float* wdw,
+                    const float* wout_t, int B, int C, int H, int W, int hid,
+                    float eps, void* stream) {
+  if (C > 32 * KMAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) *
+      ((size_t)C * PP + 2 * HT * PP + HT * Q + KC * 2 * HT + (size_t)JC * C);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nk = (C + 31) / 32;
+  if (nk <= 2)
+    return launch<2, Lay, Gelu>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
+                                H, W, hid, eps, smem, st);
+  if (nk == 3)
+    return launch<3, Lay, Gelu>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
+                                H, W, hid, eps, smem, st);
+  if (nk <= 6)
+    return launch<6, Lay, Gelu>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
+                                H, W, hid, eps, smem, st);
+  return launch<12, Lay, Gelu>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
+                               H, W, hid, eps, smem, st);
 }
 
 }  // namespace vmt
@@ -182,18 +223,20 @@ extern "C" int vmt_gdfn_residual_fwd(
     const void* x, int dt, void* y, const float* lnw, const float* lnb,
     const float* win_t, const float* wdw, const float* wout_t, int B, int C,
     int H, int W, int hid, float eps, void* stream) {
-  using namespace vmt;
-  if (C > 32 * KMAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) *
-      ((size_t)C * PP + 2 * HT * PP + HT * Q + KC * 2 * HT + (size_t)JC * C);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nk = (C + 31) / 32;
-  if (nk <= 2) return launch<2>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
-                                H, W, hid, eps, smem, st);
-  if (nk == 3) return launch<3>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
-                                H, W, hid, eps, smem, st);
-  if (nk <= 6) return launch<6>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C,
-                                H, W, hid, eps, smem, st);
-  return launch<12>(x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C, H, W, hid,
-                    eps, smem, st);
+  return vmt::gdfn_fwd<vmt::halo::Nchw, vmt::GeluErf>(
+      x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C, H, W, hid, eps, stream);
+}
+
+// keffn's fused GDFN (replaces tools/keffn.py::_gdfn_kernel, built by
+// gdfn_fused): x, y (B, H, W, C) channels-last, the gate gelu_tanh(x1) * x2;
+// the weights as K2's (win_t (C, 2*hid) is keffn's w_in as it stands,
+// wout_t (hid, C) its w_out, wdw (2*hid, 9) its w_dw transposed). Every
+// row is computed: the TPU kernel's grid drops the rows past (H // 16) * 16
+// when H > 16 and H is not a multiple of 16, which this port does not copy.
+extern "C" int vmt_gdfn_tanh_nhwc_fwd(
+    const void* x, int dt, void* y, const float* lnw, const float* lnb,
+    const float* win_t, const float* wdw, const float* wout_t, int B, int C,
+    int H, int W, int hid, float eps, void* stream) {
+  return vmt::gdfn_fwd<vmt::halo::Nhwc, vmt::GeluTanh>(
+      x, dt, y, lnw, lnb, win_t, wdw, wout_t, B, C, H, W, hid, eps, stream);
 }

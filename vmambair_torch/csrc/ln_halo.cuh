@@ -7,7 +7,9 @@
 // in the pad slots). project_tile then multiplies it by one tile of a
 // (C, 2n) weight (the two halves of a 1x1 conv side by side, transposed):
 // RT columns of each half, staged through shared memory KC input channels
-// at a time in slices that all warps share, loaded coalesced.
+// at a time in slices that all warps share, loaded coalesced. The image's
+// layout is a policy (Nchw, the model's; Nhwc, keffn's): it only places
+// channel c of pixel (gy, gx) relative to the image's first element.
 #pragma once
 
 #include "common.cuh"
@@ -27,6 +29,38 @@ constexpr int PIX_W = PP / NWARP;        // projection: pixels per warp (8)
 constexpr int ROWS_L = 2 * RT / 32;      // projection: rows per lane (4)
 constexpr int KC = 32;                   // weight rows staged per step
 
+// Layout policies. at(): the offset of channel c of pixel (gy, gx) from
+// the image's first element (B images of C x H x W elements lie one after
+// another in both). The output side stages a [C][OQ] tile in shared memory
+// and writes it back in the order split() gives: pixels fastest for NCHW,
+// channels fastest for NHWC (coalesced either way; the NHWC pitch OQ = Q+1
+// keeps a warp's channel-strided reads off one bank).
+struct Nchw {
+  static constexpr int OQ = Q;
+  __device__ static __forceinline__ long long at(int c, int gy, int gx,
+                                                 int C, int H, int W) {
+    return (long long)c * H * W + (long long)gy * W + gx;
+  }
+  __device__ static __forceinline__ void split(int i, int C, int& c,
+                                               int& q) {
+    c = i / Q;
+    q = i % Q;
+  }
+};
+
+struct Nhwc {
+  static constexpr int OQ = Q + 1;
+  __device__ static __forceinline__ long long at(int c, int gy, int gx,
+                                                 int C, int H, int W) {
+    return ((long long)gy * W + gx) * C + c;
+  }
+  __device__ static __forceinline__ void split(int i, int C, int& c,
+                                               int& q) {
+    c = i % C;
+    q = i / C;
+  }
+};
+
 // Whether halo slot p of the tile at (y0, x0) lies inside the H x W image.
 __device__ __forceinline__ bool in_image(int p, int y0, int x0, int H,
                                          int W) {
@@ -35,20 +69,20 @@ __device__ __forceinline__ bool in_image(int p, int y0, int x0, int H,
 }
 
 // zn [C][PP] <- LN(x) over the halo of the tile at (y0, x0); x's image
-// starts at element xb. s_mu, s_rs: [PP] shared scratch. The caller syncs
-// before reading zn.
+// starts at element xb and is laid out as Lay says. s_mu, s_rs: [PP]
+// shared scratch. The caller syncs before reading zn.
+template <class Lay = Nchw>
 __device__ __forceinline__ void ln_halo(
     const void* __restrict__ x, int dt, long long xb,
     const float* __restrict__ lnw, const float* __restrict__ lnb, int C,
     int H, int W, int y0, int x0, float eps, float* zn, float* s_mu,
     float* s_rs) {
   const int tid = threadIdx.x;
-  const long long HW = (long long)H * W;
   for (int i = tid; i < C * PP; i += NTH) {
     const int c = i / PP, p = i % PP;
     zn[i] = in_image(p, y0, x0, H, W)
-                ? ld_act(x, xb + c * HW + (long long)(y0 - 1 + p / PW) * W
-                                + x0 - 1 + p % PW, dt)
+                ? ld_act(x, xb + Lay::at(c, y0 - 1 + p / PW, x0 - 1 + p % PW,
+                                         C, H, W), dt)
                 : 0.f;
   }
   __syncthreads();

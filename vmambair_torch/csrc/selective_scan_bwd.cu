@@ -27,7 +27,7 @@
 //
 // What bounds it on the H100: like the forwards, the sequential walk over
 // L: per chunk two dependent passes over its positions (recompute, then
-// the adjoint), each an exp2 and an FMA chain per state, and barriers
+// the adjoint), each an exp and an FMA chain per state, and barriers
 // around the cross-thread sums. Its bytes (inputs read once, du/ddelta and
 // the partials written once) take a fraction of that time.
 //
@@ -40,6 +40,12 @@
 // the chunk, storing dh and w beside them; the block then sums over states
 // (du, ddelta) and over channels (dB, dC partials) from shared memory. The
 // dh carry and the dA sums stay in shared memory across chunks.
+//
+// a_t is CUDA's expf of delta A, not the SFU's ex2.approx of delta A log2(e)
+// that the forwards use: where the state grows (a_t > 1), each factor's
+// rounding reaches the gradients undamped, and the SFU's exp put K3 up to
+// 10x further from the exact gradients than the fp32 plain version
+// (tests/test_torch_port_cuda.py, the growing recipe).
 #include "common.cuh"
 
 namespace vmt {
@@ -79,14 +85,14 @@ __global__ void __launch_bounds__(K3_NB * K3_TMAX) selective_scan_bwd_kernel(
   float* h_s = C_s + N * LDS;            // [T*NB][LDS] h
   float* w_s = h_s + T * K3_NB * LDS;    // [T*NB][LDS] a h_prev, then w
   float* dh_s = w_s + T * K3_NB * LDS;   // [T*NB][LDS] dh
-  float* A2_s = dh_s + T * K3_NB * LDS;  // [T][N] A log2(e)
-  float* dhc_s = A2_s + T * N;           // [T][N] dh carried between chunks
+  float* A_s = dh_s + T * K3_NB * LDS;   // [T][N] A
+  float* dhc_s = A_s + T * N;            // [T][N] dh carried between chunks
   float* dA_s = dhc_s + T * N;           // [T][N] dA sums
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
   for (int i = tid; i < T * N; i += nth) {
-    A2_s[i] = A[(long long)c0 * N + i] * LOG2E;
+    A_s[i] = A[(long long)c0 * N + i];
     dhc_s[i] = 0.f;
     dA_s[i] = 0.f;
   }
@@ -151,7 +157,7 @@ __global__ void __launch_bounds__(K3_NB * K3_TMAX) selective_scan_bwd_kernel(
       const int nb = min(K3_NB, N - n0);
       const bool active = j < nb;
       const int n = active ? n0 + j : 0;  // an idle slot reads row 0
-      const float a2 = A2_s[c * N + n];
+      const float an = A_s[c * N + n];
       const float* dc = d_s + c * LDS;
       const float* uc = u_s + c * LDS;
       const float* yc = dy_s + c * LDS;
@@ -164,7 +170,7 @@ __global__ void __launch_bounds__(K3_NB * K3_TMAX) selective_scan_bwd_kernel(
       float h = carries[(((long long)b * D + c0 + c) * nchunks + ck) * N + n];
       for (int i = 0; i < len; ++i) {
         const int t = reverse ? len - 1 - i : i;
-        const float ah = exp2_ftz(dc[t] * a2) * h;
+        const float ah = expf(dc[t] * an) * h;
         h = ah + dc[t] * uc[t] * bn[t];
         hrow[t] = h;
         wrow[t] = ah;
@@ -175,7 +181,7 @@ __global__ void __launch_bounds__(K3_NB * K3_TMAX) selective_scan_bwd_kernel(
       for (int i = len - 1; i >= 0; --i) {
         const int t = reverse ? len - 1 - i : i;
         const float dht = cn[t] * yc[t] + nxt;
-        nxt = exp2_ftz(dc[t] * a2) * dht;
+        nxt = expf(dc[t] * an) * dht;
         const float w = dht * wrow[t];
         dhrow[t] = dht;
         wrow[t] = w;

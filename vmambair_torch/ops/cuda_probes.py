@@ -21,6 +21,12 @@ Counterparts of the TPU probes `tools/kseq.py`, `tools/kvariants.py` and
   one call is `SCAN_LPAR_GRIDS` grids.
 - `peak_fma_fp32`, `peak_fma_bf16`, `peak_exp`, `peak_roll`, `peak_shift`
   (csrc/peak.cu): kpeak's primitive chains on a (GRID, ROWS, LANES) array.
+- `gdfn_tanh_nhwc` (csrc/gdfn.cu, K2's kernel with a tanh gate and the
+  NHWC layout as policies): keffn's `_gdfn_kernel`, the fused GDFN
+  residual `x + W_out (gelu_tanh(x1) x2)`, `[x1 | x2] = dw3x3(W_in LN(x))`;
+  `gdfn_tanh_composite` is keffn's `gdfn_xla`, its race partner.
+- `probe_transpose`, `probe_proj` (csrc/probe_io.cu): kprobe's in-kernel
+  transpose pair and in-kernel projections on (B, L, D) chunks.
 
 The scans take (b, g, l, d) views of u, delta and y and (b, g, l, n) views
 of B and C, of any strides, and write y in place: the caller chooses every
@@ -35,11 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .._build import no_grad_needed, on_cpu
+from .._build import dtype_code, f32, no_grad_needed, on_cpu
+from .cuda_effn import MAX_C
 from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, launch_views,
                         scan_views_ref, view_shapes)
 from .selective_scan import _hillis_scan, _prep, selective_scan_chunked
 
+PROBE_MAX_D = 256                # kprobe: the tile in shared memory
+PROBE_MAX_RN = 64                # kprobe: rows of W_xp (csrc/probe_io.cu)
 PEAK_REP = 64                    # kpeak's REP: its parity point
 PEAK_LANES = (128, 256, 512, 1024)  # rows the roll and shift probes take
 SCAN_LPAR_GRIDS = 3              # grids one scan_lpar call launches
@@ -354,3 +363,174 @@ PEAK_PROBES = {
     "roll+add_fp32": (peak_roll, "roll", torch.float32, 2),
     "concatshift+add_fp32": (peak_shift, "shift", torch.float32, 2),
 }
+
+
+# -- keffn: the fused GDFN, channels-last, tanh gate -----------------------------
+
+def _gdfn_shapes(name, x, ln_w, ln_b, w_in, w_dw, w_out):
+    b, h, w, c = x.shape
+    hid = w_out.shape[0]
+    if w_in.shape != (c, 2 * hid) or w_dw.shape != (3, 3, 2 * hid) \
+            or w_out.shape != (hid, c) or ln_w.shape != (c,) \
+            or ln_b.shape != (c,):
+        raise ValueError(f"{name}: weight shapes do not agree with x "
+                         f"{tuple(x.shape)}: w_in {tuple(w_in.shape)}, "
+                         f"w_dw {tuple(w_dw.shape)}, w_out "
+                         f"{tuple(w_out.shape)}")
+    return b, h, w, c, hid
+
+
+def gdfn_tanh_ref(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
+    """Plain version of keffn's `_gdfn_kernel` (tools/keffn.py:46), in its
+    layouts: x (B, H, W, C); ln_w, ln_b (C,); w_in (C, 2h); w_dw (3, 3,
+    2h); w_out (h, C). Rounds where the TPU kernel rounds: LN(x) (fp32
+    statistics) and the weights to x's dtype; the hidden map and the
+    depthwise conv (zero padding, taps summed row by row) in fp32; the gate
+    gelu_tanh(x1) * x2 to x's dtype; the residual added in fp32. Every row
+    is computed (the TPU kernel drops rows past (H // 16) * 16)."""
+    _, h, w, c, hid = _gdfn_shapes("gdfn_tanh_ref", x, ln_w, ln_b, w_in,
+                                   w_dw, w_out)
+    cdt = x.dtype
+    zn = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(),
+                      eps).to(cdt).float()
+    y1 = F.pad(zn @ w_in.to(cdt).float(), (0, 0, 1, 1, 1, 1))
+    wdw = w_dw.to(cdt).float()
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            term = y1[:, dy:dy + h, dx:dx + w] * wdw[dy, dx]
+            acc = term if acc is None else acc + term
+    g = (F.gelu(acc[..., :hid], approximate="tanh") * acc[..., hid:]).to(cdt)
+    return (x.float() + g.float() @ w_out.to(cdt).float()).to(cdt)
+
+
+def gdfn_tanh_composite(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
+    """keffn's `gdfn_xla` (tools/keffn.py:141), its race partner:
+    LayerNorm, then the three convolutions on channels-last tensors
+    (cuDNN), each rounding its output to x's dtype as XLA's do, the gate
+    and the residual in x's dtype. Arguments as `gdfn_tanh_ref`."""
+    *_, c, hid = _gdfn_shapes("gdfn_tanh_composite", x, ln_w, ln_b, w_in,
+                              w_dw, w_out)
+    cdt = x.dtype
+    cl = torch.channels_last
+    # NCHW views of channels-last memory: no copy
+    zn = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(),
+                      eps).to(cdt).permute(0, 3, 1, 2)
+    y = F.conv2d(zn, w_in.to(cdt).t()[:, :, None, None].contiguous(
+        memory_format=cl))
+    y = F.conv2d(y, w_dw.to(cdt).permute(2, 0, 1)[:, None].contiguous(
+        memory_format=cl), padding=1, groups=2 * hid)
+    g = (F.gelu(y[:, :hid], approximate="tanh") * y[:, hid:]).contiguous(
+        memory_format=cl)
+    out = F.conv2d(g, w_out.to(cdt).t()[:, :, None, None].contiguous(
+        memory_format=cl))
+    return x + out.permute(0, 2, 3, 1)
+
+
+def gdfn_tanh_nhwc(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
+    """keffn's fused GDFN residual in one kernel (csrc/gdfn.cu,
+    `vmt_gdfn_tanh_nhwc_fwd`); arguments as `gdfn_tanh_ref`, C <= 384, any
+    H and W. Returns (B, H, W, C) in x's dtype."""
+    args = (x, ln_w, ln_b, w_in, w_dw, w_out)
+    if on_cpu(*args):
+        return gdfn_tanh_ref(*args, eps=eps)
+    no_grad_needed("gdfn_tanh_nhwc", *args)
+    b, h, w, c, hid = _gdfn_shapes("gdfn_tanh_nhwc", *args)
+    if c > MAX_C:
+        raise ValueError(f"gdfn_tanh_nhwc: C={c} > {MAX_C}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    # weights rounded to the activation dtype, as the TPU kernel takes
+    # them; K2's argument layouts: w_in is win_t as it stands, w_out is
+    # wout_t, w_dw goes to (2h, 9)
+    cdt = x.dtype
+    win_t = f32(w_in.to(cdt))
+    wdw = f32(w_dw.to(cdt).reshape(9, 2 * hid).t())
+    wout_t = f32(w_out.to(cdt))
+    lnw, lnb = f32(ln_w), f32(ln_b)
+    _build.launch(
+        "vmt_gdfn_tanh_nhwc_fwd", x.device,
+        x.data_ptr(), dtype_code(x, "x"), y.data_ptr(), lnw.data_ptr(),
+        lnb.data_ptr(), win_t.data_ptr(), wdw.data_ptr(), wout_t.data_ptr(),
+        b, c, h, w, hid, float(eps),
+    )
+    gdfn_tanh_nhwc.launches += 1
+    return y
+
+
+gdfn_tanh_nhwc.launches = 0
+
+
+# -- kprobe: the in-kernel transpose pair and projections ------------------------
+
+PROBE_SCALE = 1.000001           # probe_transpose's op (tools/kprobe.py:48)
+
+
+def probe_transpose_ref(u):
+    """Plain version of kprobe's `probe_transpose` kernel (tools/kprobe.py:
+    45): y = u * 1.000001 in fp32, rounded to u's dtype (the transposes
+    around it change no value)."""
+    return (u.float() * PROBE_SCALE).to(u.dtype)
+
+
+def probe_proj_ref(u, wxp, wdt):
+    """Plain version of kprobe's `probe_proj` kernel (tools/kprobe.py:79),
+    per position of u (..., D): xdbl = W_xp u (RN,), fp32; y = W_dt
+    xdbl[:R] + 0.5 xdbl[R], rounded to u's dtype. wxp (RN, D), wdt (D, R),
+    fp32."""
+    R = wdt.shape[1]
+    xdbl = u.float() @ wxp.float().t()
+    return (xdbl[..., :R] @ wdt.float().t()
+            + 0.5 * xdbl[..., R:R + 1]).to(u.dtype)
+
+
+def _probe_rows(name, u):
+    D = u.shape[-1]
+    if not 1 <= D <= PROBE_MAX_D or u.numel() == 0:
+        raise ValueError(f"{name}: D={D} outside 1..{PROBE_MAX_D} or an "
+                         "empty u")
+    return u.numel() // D, D
+
+
+def probe_transpose(u):
+    """kprobe's transpose pair (csrc/probe_io.cu): u (..., D), D <= 256,
+    staged per tile of positions through shared memory as (D, positions)
+    and back. Returns y of u's shape and dtype."""
+    if on_cpu(u):
+        return probe_transpose_ref(u)
+    no_grad_needed("probe_transpose", u)
+    rows, D = _probe_rows("probe_transpose", u)
+    u = u.contiguous()
+    y = torch.empty_like(u)
+    _build.launch("vmt_probe_transpose", u.device, u.data_ptr(),
+                  dtype_code(u, "u"), y.data_ptr(), rows, D)
+    probe_transpose.launches += 1
+    return y
+
+
+def probe_proj(u, wxp, wdt):
+    """kprobe's in-kernel projections (csrc/probe_io.cu): u (..., D), D <=
+    256; wxp (RN, D), RN <= 64; wdt (D, R), R < RN; every row of xdbl in
+    fp32 on the CUDA cores. Returns y of u's shape and dtype."""
+    if on_cpu(u, wxp, wdt):
+        return probe_proj_ref(u, wxp, wdt)
+    no_grad_needed("probe_proj", u, wxp, wdt)
+    rows, D = _probe_rows("probe_proj", u)
+    RN, R = wxp.shape[0], wdt.shape[1]
+    if wxp.shape != (RN, D) or wdt.shape != (D, R) or not 0 <= R < RN \
+            or RN > PROBE_MAX_RN:
+        raise ValueError(f"probe_proj: wxp {tuple(wxp.shape)}, wdt "
+                         f"{tuple(wdt.shape)} with D={D}: needs (RN, D), "
+                         f"(D, R), R < RN <= {PROBE_MAX_RN}")
+    u = u.contiguous()
+    y = torch.empty_like(u)
+    wx, wd = f32(wxp), f32(wdt)
+    _build.launch("vmt_probe_proj", u.device, u.data_ptr(),
+                  dtype_code(u, "u"), y.data_ptr(), wx.data_ptr(),
+                  wd.data_ptr(), rows, D, RN, R)
+    probe_proj.launches += 1
+    return y
+
+
+probe_transpose.launches = 0
+probe_proj.launches = 0

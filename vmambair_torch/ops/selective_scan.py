@@ -15,7 +15,7 @@ Layouts as in the JAX package (channels last):
     D, delta_bias : (D,)
 
 ``selective_scan_chunked`` keeps the state in fp32 whatever the input
-dtype; it is sequential over chunks of L, with a Hillis-Steele scan over
+dtype (in fp64 for fp64 inputs, an oracle); it is sequential over chunks of L, with a Hillis-Steele scan over
 (decay, input) pairs inside each chunk, and can return the state entering
 each chunk. ``selective_scan_bwd_ref`` is its gradient. These are the plain
 versions the CUDA kernels (forward, carry-saving forward, backward) are
@@ -40,13 +40,19 @@ def _prep(u, delta, A, B, C, D, delta_bias, delta_softplus):
     G = B.shape[2]
     if dim % G != 0:
         raise ValueError(f"dim {dim} not divisible by groups {G}")
-    df = delta.float()
+    wt = _work_dtype(u)
+    df = delta.to(wt)
     if delta_bias is not None:
-        df = df + delta_bias.float()
+        df = df + delta_bias.to(wt)
     if delta_softplus:
         df = F.softplus(df)  # linear above 20, like the TPU kernel
-    return (u.float(), df, A.float(), B.float(), C.float(),
-            None if D is None else D.float(), G)
+    return (u.to(wt), df, A.to(wt), B.to(wt), C.to(wt),
+            None if D is None else D.to(wt), G)
+
+
+def _work_dtype(u):
+    """fp32, the kernels' arithmetic; fp64 for fp64 inputs (an oracle)."""
+    return torch.float64 if u.dtype == torch.float64 else torch.float32
 
 
 def _hillis_scan(a, b, dim=1):
@@ -84,7 +90,7 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
     batch, L, dim = uf.shape
     N = Af.shape[1]
     dg = dim // G
-    h = torch.zeros(batch, dim, N, device=u.device)
+    h = torch.zeros(batch, dim, N, device=u.device, dtype=uf.dtype)
     n_chunks = -(-L // chunk_size)
     ys, carries = [None] * n_chunks, [None] * n_chunks
     for k in (range(n_chunks - 1, -1, -1) if reverse else range(n_chunks)):
@@ -124,12 +130,14 @@ def selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, dy, *,
     by autograd through the chunked scan in fp32. Returns (du, ddelta, dA,
     dB, dC, dD, dbias) in fp32, shaped as the inputs; ddelta is the
     gradient of the raw delta (before bias and softplus); dD and dbias are
-    None where D and delta_bias are."""
+    None where D and delta_bias are. fp64 inputs give an fp64 oracle of
+    the same gradients."""
+    wt = _work_dtype(u)
     with torch.enable_grad():
-        ins = [None if t is None else t.detach().float().requires_grad_()
+        ins = [None if t is None else t.detach().to(wt).requires_grad_()
                for t in (u, delta, A, B, C, D, delta_bias)]
         y = selective_scan_chunked(*ins, delta_softplus=delta_softplus,
                                    reverse=reverse)
         given = [t for t in ins if t is not None]
-        grads = iter(torch.autograd.grad(y, given, dy.float()))
+        grads = iter(torch.autograd.grad(y, given, dy.to(wt)))
     return tuple(None if t is None else next(grads) for t in ins)

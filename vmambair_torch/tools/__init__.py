@@ -1,13 +1,16 @@
-"""The scan-design probes, on an NVIDIA GPU: counterparts of the TPU probes
-in the repository's `tools/` (`kseq.py`, `kvariants.py`, `kpeak.py`), with
-hand-written sm_90a kernels (`ops/cuda_probes.py`, `ops/cuda_scan.py`'s K7).
+"""The kernel-design probes, on an NVIDIA GPU: counterparts of the TPU
+probes in the repository's `tools/` (`kseq.py`, `kvariants.py`, `kpeak.py`,
+`keffn.py`, `kprobe.py`), with hand-written sm_90a kernels
+(`ops/cuda_probes.py`, `ops/cuda_scan.py`'s K7).
 
     python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
     python -m vmambair_torch.tools.kseq [names] [--device cuda|cpu]
     python -m vmambair_torch.tools.kpeak [--device cuda|cpu]
+    python -m vmambair_torch.tools.keffn [--device cuda|cpu]
+    python -m vmambair_torch.tools.kprobe [probes] [--device cuda|cpu]
 
 Each checks every variant against its plain version before timing it and
-prints one JSON row per variant. On `cuda` (the default) the times are
+prints one JSON row per variant (keffn: per shape). On `cuda` (the default) the times are
 CUDA-event medians, every timed call on another input set than the call
 before it, all variants interleaved in one process. On `cpu` the shapes
 shrink (as the TPU probes' interpret modes shrink them) and the rows carry
@@ -23,9 +26,11 @@ from __future__ import annotations
 import torch
 
 # H100 SXM rates from NVIDIA's data sheet: HBM bytes/s, fp32 FLOP/s outside
-# the tensor cores (chip_smoke.py's bounds use them too)
+# the tensor cores, bf16 dense tensor-core FLOP/s (chip_smoke.py's bounds
+# use them too)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 
 def device_of(name: str) -> torch.device:
@@ -45,15 +50,51 @@ def max_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / (ref.abs().max().item() + 1e-30)
 
 
+# the bf16 envelope of a kernel's output around its plain version: rtol, atol
+TOL = (3e-2, 5e-2)
+
+
+def outside(got: torch.Tensor, ref: torch.Tensor, tol=TOL) -> torch.Tensor:
+    """Where got is not finite or further from ref than atol + rtol |ref|."""
+    rtol, atol = tol
+    got, ref = got.float(), ref.float()
+    return ~torch.isfinite(got) | ((got - ref).abs() > atol + rtol * ref.abs())
+
+
+def check_envelope(name: str, got: torch.Tensor, ref: torch.Tensor,
+                   tol=TOL) -> tuple[float, float]:
+    """Raises, naming `name`, where got leaves ref's envelope (`outside`);
+    else returns `max_err(got, ref)`."""
+    bad = outside(got, ref, tol)
+    if bad.any():
+        raise RuntimeError(
+            f"{name} off its plain version on {int(bad.sum())} of "
+            f"{bad.numel()} elements (max abs err {max_err(got, ref)[0]:.3e},"
+            f" rtol {tol[0]}, atol {tol[1]})")
+    return max_err(got, ref)
+
+
+# device cycles the card sleeps before each timed call (about 0.5 ms at
+# 1.98 GHz): longer than any call's host-side launch path, so the call is
+# queued before the card reaches it and its events time the card alone
+HOLD_CYCLES = 1_000_000
+
+
+def hold() -> None:
+    """Keeps the card busy while the host queues what follows."""
+    torch.cuda._sleep(HOLD_CYCLES)
+
+
 def race(calls: dict, inputs: list, repeats: int) -> dict:
     """CUDA-event times (ms) of every call in `calls` (name -> fn(inputs)),
     interleaved: `repeats` rounds, each over all names, forward order in
     even rounds and backward in odd ones, one warm-up call each first.
     Consecutive calls take consecutive entries of `inputs` (a pool of input
     sets, rotated), so no call finds its inputs left in L2 by the call
-    before it. Nothing synchronises between the timed calls, so the host
-    runs ahead of the card and no call waits for its own launch. Returns
-    name -> list of ms."""
+    before it. Nothing synchronises between the timed calls, and each is
+    queued behind a device sleep (`hold`), so the host runs ahead of the
+    card and no call waits for its own launch, however short the call.
+    Returns name -> list of ms."""
     names = list(calls)
     k = 0
     for name in names:
@@ -66,6 +107,7 @@ def race(calls: dict, inputs: list, repeats: int) -> dict:
             e1 = torch.cuda.Event(enable_timing=True)
             inp = inputs[k % len(inputs)]
             k += 1
+            hold()
             e0.record()
             calls[name](inp)
             e1.record()

@@ -26,7 +26,7 @@ import statistics
 import torch
 
 from ..ops.cuda_probes import PEAK_PROBES, PEAK_REP, peak_ref
-from . import FP32_FLOPS, HBM_BPS, device_of, race
+from . import FP32_FLOPS, HBM_BPS, check_envelope, device_of, race
 
 GRID, ROWS, LANES = 16, 1024, 1024
 CPU_SHAPE = (2, 8, 128)
@@ -52,13 +52,8 @@ def parity(name: str, shape, device) -> tuple[float, float]:
     fn, probe, dtype, _ = PEAK_PROBES[name]
     x = make_x(shape, dtype, 0, device)
     got, ref = fn(x, PEAK_REP).float(), peak_ref(probe, x, PEAK_REP).float()
-    rtol, atol = TOL[dtype]
-    err = (got - ref).abs()
-    if not torch.isfinite(got).all() or (err > atol + rtol * ref.abs()).any():
-        raise RuntimeError(f"kpeak {name}: off its plain version by "
-                           f"{err.max().item():.3e} (rtol {rtol}, atol {atol})")
-    e = err.max().item()
-    return e, (err / ref.abs().clamp_min(1e-30)).max().item()
+    e = check_envelope(f"kpeak {name}:", got, ref, TOL[dtype])[0]
+    return e, ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
 
 
 def rate(name: str, device) -> dict:

@@ -35,7 +35,7 @@ import torch
 
 from ..ops import cuda_probes
 from ..ops.cuda_scan import scan_views_ref
-from . import device_of, max_err, race
+from . import check_envelope, device_of, race
 
 B, L, D, G, N = 8, 16384, 96, 2, 16  # hot level-1 decoder shape
 DIM = G * D
@@ -43,7 +43,6 @@ CPU_L = 512                          # the TPU probe's interpret size
 PARITY_L = 2048
 REPEATS = 5
 POOL = 3
-TOL = (3e-2, 5e-2)  # bf16 envelope: rtol, atol
 BF16 = torch.bfloat16
 
 VARIANTS = {  # name -> (win, reverse)
@@ -127,11 +126,7 @@ def parity(names: list, device, seq: int) -> dict:
         ref = refs[rev]
         got = views(inp["u"], inp["delta"], inp["Bm"], inp["Cm"],
                     run_seq(inp, win, rev))[4]
-        err = (got.float() - ref.float()).abs()
-        if (err > TOL[1] + TOL[0] * ref.float().abs()).any():
-            raise RuntimeError(f"kseq {name}: off the plain scan by "
-                               f"{err.max().item():.3e}")
-        out[name] = max_err(got, ref)
+        out[name] = check_envelope(f"kseq {name}:", got, ref)
     return out
 
 

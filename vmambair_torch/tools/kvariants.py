@@ -67,7 +67,7 @@ import statistics
 import torch
 
 from ..ops import cuda_probes, cuda_scan
-from . import device_of, max_err, race
+from . import check_envelope, device_of, max_err, outside, race
 
 # hot level-1 decoder shape, with the TPU race's grid chunk
 SHAPE = dict(B=8, L=16384, D=96, G=2, N=16, chunk=1024)
@@ -75,7 +75,6 @@ CPU_SHAPE = dict(SHAPE, B=2, L=512, chunk=256)  # the TPU race's interpret size
 PARITY_L = 2048
 REPEATS = 5
 POOL = 3
-TOL = (3e-2, 5e-2)  # bf16 envelope: rtol, atol
 BF16 = torch.bfloat16
 
 V10_SUB = 128
@@ -291,16 +290,11 @@ def check_names(names: list) -> None:
 
 def off_envelope(got, ref) -> float:
     """The share of elements of got outside ref's bf16 envelope."""
-    err = (got.float() - ref.float()).abs()
-    return (err > TOL[1] + TOL[0] * ref.float().abs()).float().mean().item()
+    return outside(got, ref).float().mean().item()
 
 
 def _check(name, what, got, ref):
-    if off_envelope(got, ref):
-        raise RuntimeError(f"kvariants {name}: {what} off its plain version "
-                           f"by {max_err(got, ref)[0]:.3e} (rtol {TOL[0]}, "
-                           f"atol {TOL[1]})")
-    return max_err(got, ref)
+    return check_envelope(f"kvariants {name}: {what}", got, ref)
 
 
 def parity(names: list, shape: Shape, device, delta: str) -> dict:
