@@ -80,6 +80,17 @@ non-zero, and without a CUDA device the script stops before any result:
    race against the cuDNN composite and K2 on NCHW copies, kprobe's
    against its bound, each kernel's launches against what the tools
    scheduled.
+10. kldio and kdualnum - kldio's kernel (`ld_fused`, K1 with its
+   channels-last layout policy) at the TPU probe's shape (8, 2, 16384, 96)
+   against its plain version, forward and reverse, bf16 and fp32 (the
+   forward envelope), and K1's own (channels-first) policy bit-identical
+   to the build before the policy on 48 seeded cases of K1 and K1c
+   (`vmambair_torch/tools/k1_digests.json`); then, counts reset, kldio's
+   race (the production op with its two copies, the kernel, K1 alone on
+   a channels-first copy, the bound and each row's share of it) with its
+   launches against what the tool scheduled, and kdualnum's rows on the
+   full-width MambaSISR6 at 48x48, its forward's launches against the
+   dispatch's prediction.
 
 The OSS switches (`VMAMBAIR_OSS_FRONT`, `VMAMBAIR_OSS_TAIL`) are off except
 where a phase turns them on: phase 3 holds K5 and K6 against their plain
@@ -89,12 +100,12 @@ and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
 (for K1-K6 the launches in the serve, train and pipeline phases, for the
-probe kernels those of the probe paths of phases 8 and 9, which must be at
+probe kernels those of the probe paths of phases 8 to 10, which must be at
 least one each; a
 launch is one call of the kernel's wrapper, which for `scan_lpar`,
 `scan_combined` and the stacks is three grids, `grids_per_launch` in its
 entry;
-max error, times and bound from phases 3, 8 and 9) and the card's name and
+max error, times and bound from phases 3 and 8-10) and the card's name and
 power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -117,8 +128,9 @@ import torch.nn.functional as F
 from vmambair_torch import _build
 from vmambair_torch.models import MamberBlock, build_network
 from vmambair_torch.ops import cuda_effn, cuda_probes, cuda_scan
-from vmambair_torch.tools import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS, hold,
-                                  keffn, kpeak, kprobe, kseq, kvariants)
+from vmambair_torch.tools import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS,
+                                  SFU_NOMINAL, ab, hold, kdualnum, keffn,
+                                  kldio, kpeak, kprobe, kseq, kvariants)
 from vmambair_torch.train import build_model
 from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
 from vmambair_torch.utils.img_util import imread, imwrite
@@ -215,9 +227,14 @@ KERNELS = {
     "probe_proj": dict(
         fn=cuda_probes.probe_proj, source="vmambair_torch/csrc/probe_io.cu",
         replaces="tools/kprobe.py:79", path="probe"),
+    # phase 10's kernel: kldio's channels-last fused scan
+    "ld_fused": dict(
+        fn=cuda_probes.ld_fused,
+        source="vmambair_torch/csrc/oss_scan_fused.cu",
+        replaces="tools/kldio.py:62", path="probe"),
 }
 # `path`: where a kernel's launches are counted, the model's paths (serve,
-# train, pipeline) or the probe paths of phases 8 and 9
+# train, pipeline) or the probe paths of phases 8 to 10
 MODEL_KERNELS = tuple(n for n, k in KERNELS.items() if k["path"] == "model")
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
@@ -227,12 +244,10 @@ OUT_DIR = "chiprun_out"
 # the tensor cores and bf16 dense tensor-core FLOP/s (HBM_BPS, FP32_FLOPS,
 # BF16_TC_FLOPS, shared with the probes)
 # rates no data sheet gives: bf16x2 FMA on the CUDA cores at twice the fp32
-# rate; the SFU's nominal 16 exp2 per clock per SM (compute capability 9.0)
-# at 132 SMs and 1.98 GHz. The exp2 term of every bound divides by the
-# larger of that and the ex2 rate phase 8 measures, so that no bound rests
-# on a rate below the card's.
+# rate; the SFU's nominal exp2 rate (SFU_NOMINAL, shared with the probes).
+# The exp2 term of every bound divides by the larger of that and the ex2
+# rate phase 8 measures, so that no bound rests on a rate below the card's.
 BF16X2_FLOPS = 2 * FP32_FLOPS
-SFU_NOMINAL = 16 * 132 * 1.98e9
 # the S1 recipe of options/MambaSISR15_x4.yml (the script reads no YAML:
 # the card's machine need not have a YAML parser)
 RECIPE = {
@@ -1696,6 +1711,114 @@ def keffn_kprobe_race() -> dict:
     return counts
 
 
+# -- phase 10: kldio and kdualnum ----------------------------------------------
+
+def kldio_vs_plain(stats):
+    """Phase 10a: kldio's kernel at the TPU probe's shape against its plain
+    version, forward and reverse, bf16 (the probe's dtype) and fp32, the
+    forward envelope; the first case timed beside its plain version. Then
+    K1 and K1c (the channels-first policy) on the seeded digest cases of
+    `tools.ab`, held to the digests of the build before the layout
+    policy."""
+    st = stats["ld_fused"]
+    for dtype in (torch.bfloat16, torch.float32):
+        u2, *w = kldio.make_inputs(0, "cuda")
+        u = u2.movedim(2, 1).contiguous().to(dtype)
+        for rev in (False, True):
+            def call(u=u, rev=rev):
+                return cuda_probes.ld_fused(u, *w, reverse=rev)
+
+            def plain(u=u, rev=rev):
+                return cuda_probes.ld_fused_plain(u, *w, reverse=rev)
+
+            got = call()
+            torch.cuda.synchronize()
+            tag = (f"ld_fused {tuple(u.shape)} rev={rev} "
+                   f"{str(dtype)[6:]}")
+            err = check_close(tag, got, plain(), *TOL[dtype])
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            line = f"[kldio] {tag}: max abs err {err:.3e}"
+            if st["ms"] is None:
+                st["ms"], st["plain_ms"] = time_ms(call), time_ms(plain,
+                                                                  reps=3)
+                by, ops, ex2 = kldio.work(dtype=dtype)
+                st["terms"] = bound(by, ops, exp2=ex2)
+                line += (f"; kernel {st['ms']:.3f} ms, plain "
+                         f"{st['plain_ms']:.3f} ms")
+            print(line)
+            del got
+        del u2, u
+    with open(ab.DIGESTS_FILE) as f:
+        want = json.load(f)
+    got = ab.digests()
+    differ = sorted(k for k in want["digests"]
+                    if got.get(k) != want["digests"][k])
+    if differ or got.keys() != want["digests"].keys():
+        raise SystemExit(f"FAIL K1's channels-first policy: {len(differ)} "
+                         f"of {len(want['digests'])} digests differ from "
+                         f"the build before the layout policy: {differ}")
+    print(f"[kldio] K1 and K1c (channels-first policy): all {len(got)} "
+          f"seeded outputs bit-identical to the build before the layout "
+          f"policy ({want['made_on']})")
+    torch.cuda.empty_cache()
+
+
+def kldio_kdualnum_run(ex2_rate) -> dict:
+    """Phase 10b/c, the probe path of kldio and kdualnum: kldio's entry
+    point on the card (parity forward and reverse, then the race), its
+    launches against what the tool reports it scheduled; kdualnum's rows
+    on the full-width MambaSISR6 at 48x48, the forward's launches against
+    the dispatch's prediction. Returns the launches of kldio."""
+    dev = torch.device("cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = kldio.run(dev, ex2_rate)
+    counts = launches()
+    want = dict.fromkeys(KERNELS, 0)
+    for r in rows:
+        if "kernel" in r:
+            want[r["kernel"]] += r["launches"]
+    if counts != want:
+        raise SystemExit(f"FAIL kldio: launches {counts}, scheduled {want}")
+    card = nvidia_smi_line()
+    bnd = rows[-1]
+    for r in rows:
+        if "rel_err" in r:
+            print(f"[kldio] {r['piece']}: rel err {r['rel_err']:.3e} (the "
+                  f"TPU probe's bar {kldio.PARITY_BAR})")
+        elif r["piece"] != "bound":
+            print(f"[race] kldio {r['piece']}: {r['ms']:.3f} ms, "
+                  f"{r['bound_share']:.4f} of it the bound"
+                  + (f"; speedup_vs_prod {r['speedup_vs_prod']:.3f}"
+                     if "speedup_vs_prod" in r else "")
+                  + f"; all {[round(t, 3) for t in r['all_ms']]}")
+    print(f"[race] kldio bound at {tuple(bnd['shape'])} bf16: "
+          f"{bnd['ms']:.4f} ms ({bnd['bound_by']}; exp2 at "
+          f"{ex2_rate:.4g}/s); card {card}")
+    net, x = kdualnum.make_net_and_input(dev, 48)
+    reset_launches()
+    stats = kdualnum.collect(net, x)
+    fwd = launches()
+    if fwd != expected_launches(net):
+        raise SystemExit(f"FAIL kdualnum: forward launches {fwd}, the "
+                         f"dispatch predicts {expected_launches(net)}")
+    kinds = {s["kind"] for s in stats}
+    if kinds != {"spatial", "channel"} or not all(
+            np.isfinite(s["delta"]).all() for s in stats):
+        raise SystemExit(f"FAIL kdualnum: captured kinds {kinds} or a "
+                         "non-finite delta")
+    for line in [kdualnum.capture_line(stats),
+                 f"captured {len(stats)} spatial scan calls (input 48x48)"
+                 ] + kdualnum.summarize(stats):
+        print(f"[kdualnum] {line}")
+    del net, x
+    torch.cuda.empty_cache()
+    print(f"[kldio/kdualnum] launches "
+          f"{({k: v for k, v in counts.items() if v})}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     t0 = time.perf_counter()
     os.environ.update({k: "0" for k in SWITCHES})
@@ -1718,7 +1841,12 @@ def main():
     keffn_kprobe_vs_plain(stats)
     counts9 = keffn_kprobe_race()
     print(f"[keffn/kprobe] phase 9 {time.perf_counter() - t9:.1f} s")
-    probe_counts = {k: probe_counts[k] + counts9[k] for k in KERNELS}
+    t10 = time.perf_counter()
+    kldio_vs_plain(stats)
+    counts10 = kldio_kdualnum_run(ex2_rate)
+    print(f"[kldio/kdualnum] phase 10 {time.perf_counter() - t10:.1f} s")
+    probe_counts = {k: probe_counts[k] + counts9[k] + counts10[k]
+                    for k in KERNELS}
     kernels = []
     for name, k in KERNELS.items():
         terms = stats[name].pop("terms")

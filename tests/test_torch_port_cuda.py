@@ -14,6 +14,7 @@ the fp32 envelope (rtol 3e-3, atol 1e-2). No JAX here.
 
 import pytest
 import torch
+from k3_order import k3_order_bwd
 
 from vmambair_torch.models import build_network, init_weights
 from vmambair_torch.models.unet import MamberBlock
@@ -206,10 +207,14 @@ def test_scan_carries_and_backward_kernels_match_plain(cuda, N, G, D,
 # dy whose gradients missed GRAD_TOL on the growing recipe (ROADMAP F2)
 F2_SEEDS = (0, 1, 2, 3, 47, 81, 358, 371)
 # on the growing recipe no fp32 order holds GRAD_TOL against the exact
-# gradients: K3 (a sequential walk) may be this many times further from
-# them than the fp32 plain version (a Hillis-Steele tree) is, in units of
-# GRAD_TOL's bar, where the plain version itself is off it (ROADMAP F2)
-F2_FACTOR = 8
+# gradients: K3 (a Hillis-Steele tree over each chunk of 32 positions, as
+# the TPU kernel walks its windows, its sums over states and channels in
+# fp64) may be this many times further from them than the fp32 plain
+# version (a Hillis-Steele tree over the chunk of 64 it scans,
+# differentiated by autograd) is, in units of GRAD_TOL's bar, where the
+# plain version itself is off it. It holds 2x at every seed but 47, whose
+# ddelta it misses by 2.95x (ROADMAP F2)
+F2_FACTOR = 3
 
 
 def _f2_case(cuda, seed, grow):
@@ -253,9 +258,20 @@ def test_scan_backward_without_skip_and_bias(cuda, seed):
     ref = cuda_scan.selective_scan_bwd_ref(*args, dy)
     k3 = [_bar_ratio(a, b) for a, b in zip(got[:5], orc[:5])]
     r32 = [_bar_ratio(a, b) for a, b in zip(ref[:5], orc[:5])]
+    # K3 again from the exact carries (the fp64 plain forward's, rounded to
+    # fp32) in place of K4c's: what the carries add to K3's distance; and
+    # K3's order in torch ops on the card (tests/k3_order.py)
+    exact = cuda_scan.selective_scan_carries_ref(
+        *[None if t is None else t.double() for t in args])[1].float()
+    k3x = [_bar_ratio(a, b) for a, b in zip(
+        cuda_scan.selective_scan_bwd(*args, dy, exact)[:5], orc[:5])]
+    order = [_bar_ratio(a, b) for a, b in zip(
+        k3_order_bwd(*args[:5], dy, exact), orc[:5])]
     print(f"F2 seed {seed}: state max {car.abs().max().item():.4g}; x bar "
-          f"from the fp64 oracle: K3 {[round(r, 3) for r in k3]}, fp32 "
-          f"reference {[round(r, 3) for r in r32]}")
+          f"from the fp64 oracle: K3 {[round(r, 3) for r in k3]}, K3 from "
+          f"exact carries {[round(r, 3) for r in k3x]}, K3's order in torch "
+          f"{[round(r, 3) for r in order]}, fp32 reference "
+          f"{[round(r, 3) for r in r32]}")
     for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC"), k3, r32):
         assert a <= max(1.0, F2_FACTOR * b), (name, a, b)
 
@@ -806,3 +822,78 @@ def test_keffn_and_kprobe_kernels_refuse_what_they_cannot_take(cuda):
     u.requires_grad_()
     with pytest.raises(RuntimeError, match="has no backward"):
         cuda_probes.probe_transpose(u)
+
+
+def _ld_args(cuda, b, d, L, dtype, seed):
+    """kldio's recipe at (b, 2, L, d): u (B, G, L, D) and K1's weights."""
+    g = torch.Generator().manual_seed(seed)
+    N, R = 16, -(-d // 16)
+    args = [torch.randn(b, 2, L, d, generator=g).to(cuda, dtype),
+            torch.randn(2, R + 2 * N, d, generator=g) * 0.2,
+            torch.randn(2, d, R, generator=g) * 0.2,
+            0.1 * torch.randn(2, d, generator=g),
+            -0.5 - torch.exp(torch.randn(2, d, N, generator=g) * 0.5),
+            torch.randn(2, d, generator=g)]
+    args[1:] = [a.to(cuda) for a in args[1:]]
+    return args
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,d,L", [(2, 96, 300), (1, 202, 64), (2, 256, 33),
+                                   (1, 45, 97)])
+def test_ld_fused_kernel_matches_plain(cuda, b, d, L, reverse, dtype):
+    """kldio's kernel (K1's Ld policy) on (B, G, L, D) against its plain
+    version: kldio's width, a width no multiple of 4 or of 16, the widest,
+    ragged L."""
+    from vmambair_torch.ops import cuda_probes
+
+    args = _ld_args(cuda, b, d, L, dtype, d + L)
+    n0 = cuda_probes.ld_fused.launches
+    got = cuda_probes.ld_fused(*args, reverse=reverse)
+    assert cuda_probes.ld_fused.launches == n0 + 1
+    assert got.shape == args[0].shape and got.dtype == dtype
+    _close(got, cuda_probes.ld_fused_plain(*args, reverse=reverse), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_ld_and_dl_policies_give_the_same_bits(cuda, reverse, dtype):
+    """K1's two layout policies on the same values: y bit for bit (the
+    policies change only where u is read and y written)."""
+    from vmambair_torch.ops import cuda_probes
+
+    args = _ld_args(cuda, 2, 96, 1000, dtype, 5)
+    got = cuda_probes.ld_fused(*args, reverse=reverse)
+    dl = cuda_scan.oss_scan_fused_fwd(args[0].movedim(2, 3).contiguous(),
+                                      *args[1:], reverse=reverse)
+    assert torch.equal(got, dl.movedim(3, 2))
+
+
+def test_dl_policy_keeps_the_recorded_k1_bits(cuda):
+    """K1 and K1c (the Dl policy) give the bits recorded from the build
+    before the layout policy (`tools/k1_digests.json`, made by `python -m
+    vmambair_torch.tools.ab --other DIR --digests`)."""
+    import json
+
+    from vmambair_torch.tools import ab
+
+    with open(ab.DIGESTS_FILE) as f:
+        want = json.load(f)["digests"]
+    got = ab.digests()
+    assert got.keys() == want.keys()
+    assert [k for k in got if got[k] != want[k]] == []
+
+
+def test_ld_fused_refuses_what_it_cannot_take(cuda):
+    from vmambair_torch.ops import cuda_probes
+
+    args = _ld_args(cuda, 1, 264, 40, torch.float32, 0)
+    with pytest.raises(ValueError, match="D=264"):
+        cuda_probes.ld_fused(*args)
+    args = _ld_args(cuda, 1, 16, 40, torch.float32, 0)
+    with pytest.raises(ValueError, match="parameter shapes"):
+        cuda_probes.ld_fused(args[0], args[1].transpose(1, 2), *args[2:])
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        cuda_probes.ld_fused(*args)

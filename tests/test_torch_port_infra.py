@@ -45,7 +45,8 @@ def test_imports_with_jax_and_cv2_blocked():
             "vmambair_torch.utils.options", "vmambair_torch.tools.kseq",
             "vmambair_torch.tools.kvariants",
             "vmambair_torch.tools.kpeak", "vmambair_torch.tools.keffn",
-            "vmambair_torch.tools.kprobe",
+            "vmambair_torch.tools.kprobe", "vmambair_torch.tools.kldio",
+            "vmambair_torch.tools.kdualnum",
             "vmambair_torch.tools.ab"} <= set(mods)
     code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
         "import chip_smoke, inference_torch, train_torch, test_torch\n"
@@ -219,7 +220,7 @@ def test_signatures_match_the_exported_c_functions():
 
 def test_probe_wrappers_pass_their_signatures(monkeypatch):
     """Each probe wrapper's launch path (the view-addressed scans, keffn's
-    GDFN, kprobe's two), driven here with the CPU routing and the launch
+    GDFN, kprobe's two, kldio's fused scan), driven here with the CPU routing and the launch
     stubbed: it names an exported function and passes exactly its
     signature's arguments (a pointer as an int or None, an int or long
     long as an int, a float as a float), the stream added by `launch`."""
@@ -246,10 +247,14 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
     u = torch.zeros(2, 70, 96)
     cuda_probes.probe_transpose(u)
     cuda_probes.probe_proj(u, torch.zeros(38, 96), torch.zeros(96, 6))
+    cuda_probes.ld_fused(torch.zeros(1, 2, 40, 16), torch.zeros(2, 34, 16),
+                         torch.zeros(2, 16, 2), torch.zeros(2, 16),
+                         torch.zeros(2, 16, 16), torch.zeros(2, 16))
     assert [c[0] for c in calls] == [
         "vmt_scan_seq_fwd", "vmt_scan_lpar_fwd", "vmt_scan_combined_fwd",
         "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd",
-        "vmt_gdfn_tanh_nhwc_fwd", "vmt_probe_transpose", "vmt_probe_proj"]
+        "vmt_gdfn_tanh_nhwc_fwd", "vmt_probe_transpose", "vmt_probe_proj",
+        "vmt_oss_scan_fused_ld_fwd"]
     for name, a in calls:
         kinds = _build.SIGNATURES[name][:-1]  # the stream: added by launch
         assert len(a) == len(kinds), name

@@ -4,8 +4,9 @@ the JAX package on CPU, with weights carried across by `jax_to_torch`.
 The JAX side runs its CPU path (`scan_impl="xla"`), as `test_models.py`
 does; the port's CPU path is its plain versions. Inputs come from
 `numpy.random.RandomState`. Tolerance 2e-4 for the nets (the bar
-`test_models.py` uses for the fused-vs-XLA model check), 1e-5 for single
-layers; the weight round trip is exact.
+`test_models.py` uses for the fused-vs-XLA model check), 3e-5 for
+MambaSISR6 at its full width on JAX's own init, 1e-5 for single layers;
+the weight round trip is exact.
 """
 
 import os
@@ -145,6 +146,29 @@ def test_ossnet_matches_flax(tiny, hw):
     assert got.shape == (1, 3, 4 * hw[0], 4 * hw[1])
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("net_kw", [
+    dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1),
+    pytest.param({}, marks=pytest.mark.slow)], ids=["reduced", "full"])
+def test_mambasisr6_full_width_matches_flax(net_kw):
+    """MambaSISR6 at its full width (dim 48, d_state 16: every level width,
+    48, 96, 192 and 384, with the fused and the wide spatial routes) at
+    reduced depth (one block per level, one refinement block) and, marked
+    slow, at the preset's depth: JAX's weights carried across, the forward
+    within 3e-5 in fp32."""
+    jm = jax_build_network(dict(type="MambaSISR6", scan_impl="xla",
+                                **net_kw))
+    x = np.random.RandomState(48).rand(1, 16, 24, 3).astype(np.float32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(3), x)["params"]
+    net = build_network(dict(type="MambaSISR6", **net_kw), device="cpu")
+    net.load_state_dict(jax_to_torch(params))
+    ref = jax.jit(jm.apply)({"params": params}, x)
+    with torch.inference_mode():
+        got = net.eval()(_nchw(x))
+    assert got.shape == (1, 3, 64, 96)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref),
+                               rtol=3e-5, atol=3e-5)
 
 
 def test_tile_process_matches_jax(tiny):

@@ -144,6 +144,44 @@ def test_scan_backward_fp32_against_the_fp64_oracle(grow):
     assert (ratio > 1) if grow else (ratio < 1e-2), ratio
 
 
+# the dy seeds of tests/test_torch_port_cuda.py's F2 tests
+F2_SEEDS = (0, 1, 2, 3, 47, 81, 358, 371)
+
+
+@pytest.mark.parametrize("seed", F2_SEEDS)
+def test_k3_order_against_the_fp64_oracle(seed):
+    """ROADMAP F2 on the CPU: K3's order of operations (a Hillis-Steele
+    tree over each chunk of 32 positions, fp64 sums over states and
+    channels; `tests/k3_order.py`) on the growing recipe, from the exact
+    carries, within GRAD_TOL of the exact gradients where the fp32 plain
+    version is and else within 3x that version's own distance, as the
+    CUDA test holds K3 (F2_FACTOR); on the decaying recipe within
+    GRAD_TOL. Prints both distances (run with -s)."""
+    from k3_order import k3_order_bwd
+
+    def bar(got, ref):
+        return ((got.double() - ref).abs() / (1e-2 + 3e-3 * ref.abs())) \
+            .max().item()
+
+    for grow in (True, False):
+        args, _ = _f2_inputs(grow)
+        dy = torch.randn(2, 40, 16,
+                         generator=torch.Generator().manual_seed(seed))
+        a64 = [None if t is None else t.double() for t in args]
+        orc = selective_scan_bwd_ref(*a64, dy.double())
+        carries = selective_scan_chunked(
+            *a64, chunk_size=32, return_carries=True)[1].float()
+        got = [bar(a, b) for a, b in zip(
+            k3_order_bwd(*args[:5], dy, carries), orc[:5])]
+        ref = [bar(a, b) for a, b in zip(
+            selective_scan_bwd_ref(*args, dy)[:5], orc[:5])]
+        print(f"F2 seed {seed} grow={grow}: x bar from the fp64 oracle: "
+              f"K3's order {[round(r, 3) for r in got]}, fp32 plain "
+              f"{[round(r, 3) for r in ref]}")
+        for a, b in zip(got, ref):
+            assert a <= (max(1.0, 3 * b) if grow else 1.0), (a, b)
+
+
 @pytest.mark.parametrize("shape,hid", [((1, 8, 8, 8), 21),
                                        ((2, 8, 16, 16), 43)])
 def test_gdfn_plain_matches_jax(shape, hid):

@@ -57,6 +57,10 @@ SIGNATURES = {
         _P,                                      # carries (K1c) or None
         _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G D L N R rev sp stream
     ],
+    "vmt_oss_scan_fused_ld_fwd": [
+        _P, _I, _P, _P, _P, _P, _P, _P,          # u, dt, y, wxp..Ds
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G D L N R rev sp stream
+    ],
     "vmt_selective_scan_fwd": [
         _P, _I, _LL, _LL, _LL,                   # u (B, L, D)
         _P, _I, _LL, _LL, _LL,                   # delta (B, L, D)

@@ -9,9 +9,10 @@
 //   h_t   = exp(delta_t A) h_{t-1} + delta_t B_t u_t,  y_t = C_t h_t + D u_t
 // with the state in fp32, carried from chunk to chunk.
 //
-// Layout: u, y (B, G, D, L) contiguous, fp32 or bf16; Wxp (G, R+2N, D),
-// Wdt (G, D, R), bias (G, D), A (G, D, N) (already -exp(A_log)), Ds (G, D),
-// all fp32.
+// Layout: u, y (B, G, D, L) contiguous (the Dl policy), or (B, G, L, D)
+// contiguous (the Ld policy, below), fp32 or bf16; Wxp (G, R+2N, D), Wdt
+// (G, D, R), bias (G, D), A (G, D, N) (already -exp(A_log)), Ds (G, D), all
+// fp32.
 //
 // What bounds it on the H100: the recurrence is sequential in L, so each
 // block walks all L / CH chunks in turn, and every chunk passes through u
@@ -40,15 +41,106 @@
 // the fp32 state entering it to carries (B, G*D, n_chunks, N), indexed by
 // the chunk's position in L: the layout of K4c, so the one backward kernel
 // (K3, selective_scan_bwd.cu) serves both.
+//
+// kldio's kernel (replaces tools/kldio.py::_ld_kernel, the TPU probe that
+// reads u and writes y channels-last) is this kernel with the Ld layout
+// policy, exported as vmt_oss_scan_fused_ld_fwd. The TPU kernel folded the
+// relayouts into MXU products (an identity block under the projection
+// weight, an identity contraction for y); here the policy only changes the
+// addressing. A chunk's (CH, D) slab of u is contiguous in (B, G, L, D):
+// the prefetch reads it in memory order, thread by thread, and the store
+// into u_all (D, CH) transposes it in shared memory (pitch LDS, so a warp's
+// 32 channels of one position hit 32 banks). y is read out of the scan's
+// partial sums in (CH, T) order, so that neighbouring threads write the T
+// neighbouring channels of one position: rows of T contiguous elements.
+// Every sum is the Dl kernel's, in its order: the two policies give the
+// same bits.
 #include "common.cuh"
 
 namespace vmt {
 
 constexpr int K1_THREADS = 256;
+
+// Layout policies. A chunk's elements are loaded in memory order: runs of
+// run(D) elements, the minor index running along a run (ct() names the
+// channel c and position t of (major, minor)); ld_off() is the offset of
+// the chunk's element i, at (c, t), in the (b, g) slab of D x L elements.
+// split_y gives (c, t) of element i of the T x len output in store order;
+// at() the offset of (c, t) in the slab.
+struct Dl {  // (B, G, D, L): positions fastest
+  __device__ static __forceinline__ int run(int D) { return CH; }
+  __device__ static __forceinline__ void ct(int major, int minor, int& c,
+                                            int& t) {
+    c = major;
+    t = minor;
+  }
+  __device__ static __forceinline__ long long ld_off(int i, int c, int t,
+                                                     int t0, int D, int L) {
+    return at(c, t0 + t, D, L);
+  }
+  __device__ static __forceinline__ void split_y(int i, int T, int len,
+                                                 int& c, int& t) {
+    c = i / len;
+    t = i % len;
+  }
+  __device__ static __forceinline__ long long at(int c, int t, int D,
+                                                 int L) {
+    return (long long)c * L + t;
+  }
+};
+
+struct Ld {  // (B, G, L, D): channels fastest; a chunk is one (CH, D) run
+  __device__ static __forceinline__ int run(int D) { return D; }
+  __device__ static __forceinline__ void ct(int major, int minor, int& c,
+                                            int& t) {
+    c = minor;
+    t = major;
+  }
+  __device__ static __forceinline__ long long ld_off(int i, int c, int t,
+                                                     int t0, int D, int L) {
+    return (long long)t0 * D + i;
+  }
+  __device__ static __forceinline__ void split_y(int i, int T, int len,
+                                                 int& c, int& t) {
+    c = i % T;
+    t = i / T;
+  }
+  __device__ static __forceinline__ long long at(int c, int t, int D,
+                                                 int L) {
+    return (long long)t * D + c;
+  }
+};
+
+// (c, t) of a thread's slots j = 0, 1, ...: element tid + j K1_THREADS of a
+// chunk in load order, stepped without a division per slot (Ld's run is
+// the runtime D).
+template <class Lay>
+struct Slots {
+  int mj, mn;
+  const int run, dmj, dmn;
+  __device__ __forceinline__ Slots(int tid, int D)
+      : run(Lay::run(D)), dmj(K1_THREADS / Lay::run(D)),
+        dmn(K1_THREADS % Lay::run(D)) {
+    mj = tid / run;
+    mn = tid % run;
+  }
+  __device__ __forceinline__ void get(int& c, int& t) const {
+    Lay::ct(mj, mn, c, t);
+  }
+  __device__ __forceinline__ void next() {
+    mj += dmj;
+    mn += dmn;
+    if (mn >= run) {
+      mn -= run;
+      ++mj;
+    }
+  }
+};
+
 constexpr int K1_PF = 32;     // prefetch registers: D * CH / K1_THREADS <= 32
 constexpr int K1_RB = 6;      // projection rows a thread sums at once
 
-template <int NS>
+template <int NS, class Lay>
 __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
     const void* __restrict__ u, int dt, void* __restrict__ y,
     const float* __restrict__ wxp, const float* __restrict__ wdt,
@@ -92,32 +184,37 @@ __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
   }
 
   // the next chunk of u is loaded into registers while this one is worked;
-  // slot j of thread tid holds element tid + j * nth of the (D, CH) chunk
-  // The registers hold raw bits (bf16 in the low half), so no instruction
-  // waits on a load until the store to shared memory.
+  // slot j of thread tid holds element tid + j * K1_THREADS of the chunk,
+  // in the layout's load order. The registers hold raw bits (bf16 in the
+  // low half), so no instruction waits on a load until the store to
+  // shared memory.
   const int nchunks = (L + CH - 1) / CH;
   unsigned int pf[K1_PF];
   auto prefetch = [&](int k) {
     const int ck = reverse ? nchunks - 1 - k : k;
     const int t0 = ck * CH;
+    Slots<Lay> sl(tid, D);
     if (dt == DT_BF16) {
       const unsigned short* src = reinterpret_cast<const unsigned short*>(u);
 #pragma unroll
-      for (int j = 0; j < K1_PF; ++j) {
-        const int i = tid + j * nth;
-        const int c = i / CH, t = i % CH;
-        pf[j] = (c < D && t0 + t < L)
-                    ? (unsigned int)src[ubase + (long long)c * L + t0 + t]
+      for (int j = 0; j < K1_PF; ++j, sl.next()) {
+        const int i = tid + j * K1_THREADS;
+        int c, t;
+        sl.get(c, t);
+        pf[j] = (i < D * CH && t0 + t < L)
+                    ? (unsigned int)
+                          src[ubase + Lay::ld_off(i, c, t, t0, D, L)]
                     : 0u;
       }
     } else {
       const unsigned int* src = reinterpret_cast<const unsigned int*>(u);
 #pragma unroll
-      for (int j = 0; j < K1_PF; ++j) {
-        const int i = tid + j * nth;
-        const int c = i / CH, t = i % CH;
-        pf[j] = (c < D && t0 + t < L)
-                    ? src[ubase + (long long)c * L + t0 + t]
+      for (int j = 0; j < K1_PF; ++j, sl.next()) {
+        const int i = tid + j * K1_THREADS;
+        int c, t;
+        sl.get(c, t);
+        pf[j] = (i < D * CH && t0 + t < L)
+                    ? src[ubase + Lay::ld_off(i, c, t, t0, D, L)]
                     : 0u;
       }
     }
@@ -143,12 +240,16 @@ __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
                 i % N] = h[i];
       }
     }
+    {
+      Slots<Lay> sl(tid, D);
 #pragma unroll
-    for (int j = 0; j < K1_PF; ++j) {
-      const int i = tid + j * nth;
-      if (i < D * CH) {
-        u_all[(i / CH) * LDS + i % CH] = __uint_as_float(
-            dt == DT_BF16 ? pf[j] << 16 : pf[j]);
+      for (int j = 0; j < K1_PF; ++j, sl.next()) {
+        if (tid + j * K1_THREADS < D * CH) {
+          int c, t;
+          sl.get(c, t);
+          u_all[c * LDS + t] = __uint_as_float(
+              dt == DT_BF16 ? pf[j] << 16 : pf[j]);
+        }
       }
     }
     __syncthreads();
@@ -197,36 +298,36 @@ __global__ void __launch_bounds__(K1_THREADS) oss_scan_fused_kernel(
                LDS, A2, h, ypart, T, S, N, len, reverse != 0);
     __syncthreads();
     for (int i = tid; i < T * len; i += nth) {
-      const int c = i / len, t = i % len;
+      int c, t;
+      Lay::split_y(i, T, len, c, t);
       float acc = ds_s[c] * u_all[(c0 + c) * LDS + t];
       for (int s = 0; s < S; ++s) acc += ypart[(s * T + c) * LDS + t];
-      st_act(y, ubase + (long long)(c0 + c) * L + t0 + t, dt, acc);
+      st_act(y, ubase + Lay::at(c0 + c, t0 + t, D, L), dt, acc);
     }
   }
 }
 
-template <int NS>
+template <int NS, class Lay>
 static int launch(const void* u, int dt, void* y, const float* wxp,
                   const float* wdt, const float* bias, const float* A,
                   const float* Ds, float* carries, int B, int G, int D, int L,
                   int N, int R, int T, int S, int reverse, int softplus,
                   size_t smem, cudaStream_t stream) {
-  int err = set_smem((const void*)oss_scan_fused_kernel<NS>, smem);
+  int err = set_smem((const void*)oss_scan_fused_kernel<NS, Lay>, smem);
   if (err) return err;
-  oss_scan_fused_kernel<NS><<<B * G * (D / T), K1_THREADS, smem, stream>>>(
-      u, dt, y, wxp, wdt, bias, A, Ds, carries, G, D, L, N, R, T, S,
-      reverse, softplus);
+  oss_scan_fused_kernel<NS, Lay>
+      <<<B * G * (D / T), K1_THREADS, smem, stream>>>(
+          u, dt, y, wxp, wdt, bias, A, Ds, carries, G, D, L, N, R, T, S,
+          reverse, softplus);
   return (int)cudaGetLastError();
 }
 
-}  // namespace vmt
-
-extern "C" int vmt_oss_scan_fused_fwd(
-    const void* u, int dt, void* y, const float* wxp, const float* wdt,
-    const float* bias, const float* A, const float* Ds, float* carries, int B,
-    int G, int D, int L, int N, int R, int reverse, int softplus,
-    void* stream) {
-  using namespace vmt;
+template <class Lay>
+static int fused_fwd(const void* u, int dt, void* y, const float* wxp,
+                     const float* wdt, const float* bias, const float* A,
+                     const float* Ds, float* carries, int B, int G, int D,
+                     int L, int N, int R, int reverse, int softplus,
+                     void* stream) {
   // channel tiles of at most 12, 16 threads to a channel: the fastest of
   // the tile sizes 8-48 and 4-16 threads per channel tried at the model's
   // shapes (more blocks against more recomputed projection)
@@ -238,9 +339,9 @@ extern "C" int vmt_oss_scan_fused_fwd(
       ((size_t)(D + M + T + S * T) * LDS + 2 * (size_t)T * N +
        (size_t)M * D + (size_t)T * R + 2 * (size_t)T);
   cudaStream_t st = (cudaStream_t)stream;
-#define VMT_K1_LAUNCH(NS_)                                                  \
-  launch<NS_>(u, dt, y, wxp, wdt, bias, A, Ds, carries, B, G, D, L, N, R, T, \
-              S, reverse, softplus, smem, st)
+#define VMT_K1_LAUNCH(NS_)                                                 \
+  launch<NS_, Lay>(u, dt, y, wxp, wdt, bias, A, Ds, carries, B, G, D, L, N, \
+                   R, T, S, reverse, softplus, smem, st)
   switch (states_per_thread(N, S)) {
     case 1: return VMT_K1_LAUNCH(1);
     case 2: return VMT_K1_LAUNCH(2);
@@ -249,4 +350,24 @@ extern "C" int vmt_oss_scan_fused_fwd(
     default: return VMT_K1_LAUNCH(16);
   }
 #undef VMT_K1_LAUNCH
+}
+
+}  // namespace vmt
+
+extern "C" int vmt_oss_scan_fused_fwd(
+    const void* u, int dt, void* y, const float* wxp, const float* wdt,
+    const float* bias, const float* A, const float* Ds, float* carries, int B,
+    int G, int D, int L, int N, int R, int reverse, int softplus,
+    void* stream) {
+  return vmt::fused_fwd<vmt::Dl>(u, dt, y, wxp, wdt, bias, A, Ds, carries, B,
+                                 G, D, L, N, R, reverse, softplus, stream);
+}
+
+// kldio: u, y (B, G, L, D); the rest as vmt_oss_scan_fused_fwd (no carries)
+extern "C" int vmt_oss_scan_fused_ld_fwd(
+    const void* u, int dt, void* y, const float* wxp, const float* wdt,
+    const float* bias, const float* A, const float* Ds, int B, int G, int D,
+    int L, int N, int R, int reverse, int softplus, void* stream) {
+  return vmt::fused_fwd<vmt::Ld>(u, dt, y, wxp, wdt, bias, A, Ds, nullptr, B,
+                                 G, D, L, N, R, reverse, softplus, stream);
 }

@@ -27,6 +27,9 @@ Counterparts of the TPU probes `tools/kseq.py`, `tools/kvariants.py` and
   `gdfn_tanh_composite` is keffn's `gdfn_xla`, its race partner.
 - `probe_transpose`, `probe_proj` (csrc/probe_io.cu): kprobe's in-kernel
   transpose pair and in-kernel projections on (B, L, D) chunks.
+- `ld_fused` (csrc/oss_scan_fused.cu, K1 with the Ld layout policy):
+  kldio's `_ld_kernel`, the projection-fused scan read and written
+  channels-last, (B, G, L, D).
 
 The scans take (b, g, l, d) views of u, delta and y and (b, g, l, n) views
 of B and C, of any strides, and write y in place: the caller chooses every
@@ -43,8 +46,8 @@ import torch.nn.functional as F
 from .. import _build
 from .._build import dtype_code, f32, no_grad_needed, on_cpu
 from .cuda_effn import MAX_C
-from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, launch_views,
-                        scan_views_ref, view_shapes)
+from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, k1_sizes, launch_views,
+                        oss_scan_fused_ref, scan_views_ref, view_shapes)
 from .selective_scan import _hillis_scan, _prep, selective_scan_chunked
 
 PROBE_MAX_D = 256                # kprobe: the tile in shared memory
@@ -534,3 +537,41 @@ def probe_proj(u, wxp, wdt):
 
 probe_transpose.launches = 0
 probe_proj.launches = 0
+
+
+# -- kldio: the fused scan, channels-last ----------------------------------------
+
+def ld_fused_plain(u_gld, xw, dw, db, A, Ds, *, softplus=True, reverse=False):
+    """Plain version of `ld_fused`: the plain `oss_scan_fused` on u moved
+    to (B, G, D, L), and y moved back."""
+    y = oss_scan_fused_ref(u_gld.movedim(2, 3), xw, dw, db, A, Ds,
+                           softplus=softplus, reverse=reverse)
+    return y.movedim(3, 2).contiguous()
+
+
+def ld_fused(u_gld, xw, dw, db, A, Ds, *, softplus=True, reverse=False):
+    """kldio's fused scan (tools/kldio.py:143): u_gld (B, G, L, D) -> y
+    (B, G, L, D) in u's dtype, D <= 256; weights as `oss_scan_fused`: xw
+    (G, R+2N, D), dw (G, D, R), db (G, D), A (G, D, N) (already
+    -exp(A_log)), Ds (G, D). On CUDA: K1 with the Ld layout policy
+    (csrc/oss_scan_fused.cu), which reads u and writes y in this layout."""
+    args = (u_gld, xw, dw, db, A, Ds)
+    if on_cpu(*args):
+        return ld_fused_plain(*args, softplus=softplus, reverse=reverse)
+    no_grad_needed("ld_fused", *args)
+    b, g, l, d = u_gld.shape
+    N, R = k1_sizes("ld_fused", u_gld, g, d, xw, dw, db, A, Ds)
+    u = u_gld.contiguous()
+    y = torch.empty_like(u)
+    ws = [f32(t) for t in (xw, dw, db, A, Ds)]
+    _build.launch(
+        "vmt_oss_scan_fused_ld_fwd", u.device,
+        u.data_ptr(), dtype_code(u, "u_gld"), y.data_ptr(),
+        *(w.data_ptr() for w in ws),
+        b, g, d, l, N, R, int(bool(reverse)), int(bool(softplus)),
+    )
+    ld_fused.launches += 1
+    return y
+
+
+ld_fused.launches = 0

@@ -352,18 +352,26 @@ def oss_scan_fused_carries_ref(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
     return y.reshape(b, l, g, d).permute(0, 2, 3, 1).to(u2.dtype), carries
 
 
-def _launch_k1(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, softplus, reverse,
-               with_carries):
-    b, g, d, l = u2.shape
+def k1_sizes(name, u, g, d, x_proj_w, dt_proj_w, dt_bias, A, Ds):
+    """(N, R) of K1's parameters for G = g groups of d channels; raises
+    where they disagree or K1 does not take them."""
     N, R = A.shape[2], dt_proj_w.shape[2]
     if x_proj_w.shape != (g, R + 2 * N, d) or dt_proj_w.shape != (g, d, R) \
             or dt_bias.shape != (g, d) or A.shape != (g, d, N) \
             or Ds.shape != (g, d):
-        raise ValueError("oss_scan_fused: parameter shapes do not agree "
-                         f"with u2 {tuple(u2.shape)}")
+        raise ValueError(f"{name}: parameter shapes do not agree with u "
+                         f"{tuple(u.shape)}")
     if not fused_scan_supported(d, N):
-        raise ValueError(f"oss_scan_fused: D={d} N={N} not taken by the "
-                         f"kernel (D <= {MAX_FUSED_D}, N <= {MAX_FUSED_N})")
+        raise ValueError(f"{name}: D={d} N={N} not taken by the kernel "
+                         f"(D <= {MAX_FUSED_D}, N <= {MAX_FUSED_N})")
+    return N, R
+
+
+def _launch_k1(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, softplus, reverse,
+               with_carries):
+    b, g, d, l = u2.shape
+    N, R = k1_sizes("oss_scan_fused", u2, g, d, x_proj_w, dt_proj_w,
+                    dt_bias, A, Ds)
     u2 = u2.contiguous()
     y = torch.empty_like(u2)
     carries = torch.empty(b, g * d, n_chunks(l), N, dtype=torch.float32,

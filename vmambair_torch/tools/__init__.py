@@ -1,16 +1,21 @@
 """The kernel-design probes, on an NVIDIA GPU: counterparts of the TPU
 probes in the repository's `tools/` (`kseq.py`, `kvariants.py`, `kpeak.py`,
-`keffn.py`, `kprobe.py`), with hand-written sm_90a kernels
-(`ops/cuda_probes.py`, `ops/cuda_scan.py`'s K7).
+`keffn.py`, `kprobe.py`, `kldio.py`), with hand-written sm_90a kernels
+(`ops/cuda_probes.py`, `ops/cuda_scan.py`'s K7), and of its range study
+`kdualnum.py`.
 
     python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
     python -m vmambair_torch.tools.kseq [names] [--device cuda|cpu]
     python -m vmambair_torch.tools.kpeak [--device cuda|cpu]
     python -m vmambair_torch.tools.keffn [--device cuda|cpu]
     python -m vmambair_torch.tools.kprobe [probes] [--device cuda|cpu]
+    python -m vmambair_torch.tools.kldio [--device cuda|cpu]
+    python -m vmambair_torch.tools.kdualnum [--device cuda|cpu]
 
-Each checks every variant against its plain version before timing it and
-prints one JSON row per variant (keffn: per shape). On `cuda` (the default) the times are
+Each probe checks every variant against its plain version before timing
+it and prints one JSON row per variant (keffn: per shape; kldio: per
+race piece). kdualnum prints the TPU tool's rows of the dual scan's
+exponent range over one forward of the model. On `cuda` (the default) the times are
 CUDA-event medians, every timed call on another input set than the call
 before it, all variants interleaved in one process. On `cpu` the shapes
 shrink (as the TPU probes' interpret modes shrink them) and the rows carry
@@ -31,6 +36,9 @@ import torch
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+# a rate no data sheet gives: the SFU's nominal 16 exp2 per clock per SM
+# (compute capability 9.0) at 132 SMs and 1.98 GHz
+SFU_NOMINAL = 16 * 132 * 1.98e9
 
 
 def device_of(name: str) -> torch.device:
