@@ -69,7 +69,15 @@ non-zero, and without a CUDA device the script stops before any result:
    launches against what the tools scheduled. Every scan's bound gains
    its exp2 term (one SFU exp2 per (b, l, d, n)), phase 3's rows included,
    at the larger of the SFU's nominal rate and the measured exp rate, both
-   printed.
+   printed. 8c: kvariants' 15 separated-exponent names (the matmul dual
+   v22-v26 and the cumsum form v4, csrc/scan_dual.cu) once each at the
+   probe shape, their first 2048 positions against their plain versions
+   (the bf16 envelope) under the model-realistic recipe, where each must
+   also sit inside the exact scan's envelope, and under the hot default
+   one, where their distance from the exact scan is printed (v4, which
+   overflows there, compared where it and its plain version are finite);
+   one name per kernel timed beside its plain version. The race of 8b
+   runs the 15 names too.
 9. keffn and kprobe - keffn's fused GDFN (`gdfn_tanh_nhwc`, K2's kernel
    with a tanh gate on NHWC images) at the TPU probe's five level shapes
    (8 x 128x128x48, 128x128x96, 64x64x96, 32x32x192, 16x16x384) and
@@ -216,6 +224,23 @@ KERNELS = {
         fn=cuda_probes.peak_shift, source="vmambair_torch/csrc/peak.cu",
         replaces="tools/kpeak.py:83", probe="concatshift+add_fp32",
         path="probe"),
+    # phase 8c's kernels: kvariants' separated-exponent scans
+    "scan_dual_v22": dict(
+        fn=cuda_probes.scan_dual_v22,
+        source="vmambair_torch/csrc/scan_dual.cu",
+        replaces="tools/kvariants.py:784", path="probe"),
+    "scan_dual_v24": dict(
+        fn=cuda_probes.scan_dual_v24,
+        source="vmambair_torch/csrc/scan_dual.cu",
+        replaces="tools/kvariants.py:863", path="probe"),
+    "scan_dual_v26": dict(
+        fn=cuda_probes.scan_dual_v26,
+        source="vmambair_torch/csrc/scan_dual.cu",
+        replaces="tools/kvariants.py:955", path="probe"),
+    "scan_cumsum": dict(
+        fn=cuda_probes.scan_cumsum,
+        source="vmambair_torch/csrc/scan_dual.cu",
+        replaces="tools/kvariants.py:151", path="probe"),
     # phase 9's kernels: keffn's fused GDFN and kprobe's relayout probes
     "gdfn_tanh_nhwc": dict(
         fn=cuda_probes.gdfn_tanh_nhwc, source="vmambair_torch/csrc/gdfn.cu",
@@ -1526,6 +1551,91 @@ def probe_kernels_vs_plain(stats):
         del x, got, ref
 
 
+# one race name timed per TPU kernel function of csrc/scan_dual.cu
+SEPARATED_TIMED = {"scan_dual_v22": "v22_dual_128_32",
+                   "scan_dual_v24": "v25_mid_128_64",
+                   "scan_dual_v26": "v26_midopt_128_64",
+                   "scan_cumsum": "v4_128"}
+
+
+def separated_vs_plain(stats, ex2_rate):
+    """Phase 8c: each of kvariants' 15 separated-exponent names once at the
+    probe shape (B 8, L 16384, 2 x 96 channels, N 16, bf16), its first
+    PARITY_L positions held against its plain version on them (the scan is
+    causal: they depend on nothing after), under the model-realistic
+    recipe, where each must also sit inside the exact scan's envelope, and
+    under the hot default one, where the clamps bind and the distance from
+    the exact scan is printed as a finding (v4 overflows there: compared
+    where the kernel and the plain version are both finite, both
+    non-finite shares printed). Then one name per kernel is timed on the
+    realistic recipe beside its plain version (full L), with the bound of
+    every scan (one exp2 per (b, l, d, n), at `ex2_rate`) and beside it the
+    design's own exp2 count (two: E and Z). Times and bounds go into
+    `stats`."""
+    kv = kvariants
+    rtol, atol = TOL[torch.bfloat16]
+    t0 = time.perf_counter()
+    for recipe in ("real", "default"):
+        inp = kv.make_inputs(PROBE_SHAPE, 7, "cuda", recipe)
+        part = kv.sliced(inp, kv.PARITY_L)
+        exact = kv.run_reference(part).float()
+        for name in kv.SEPARATED:
+            kernel = kv.sep_kernel(name)
+            got = kv.run_sep(inp, name)[..., :kv.PARITY_L].float()
+            torch.cuda.synchronize()
+            ref = kv.ref_sep(part, name).float()
+            tag = f"{name} ({kernel}) {recipe} recipe"
+            line = f"[probes] {tag}: "
+            g, r, e = got, ref, exact
+            if name in kv.MAY_OVERFLOW:
+                fin, fin_ref = torch.isfinite(got), torch.isfinite(ref)
+                both = fin & fin_ref
+                line += (f"non-finite {1 - fin.float().mean().item():.4%} "
+                         f"(plain {1 - fin_ref.float().mean().item():.4%}), "
+                         "compared where both are finite; ")
+                if not both.any():
+                    raise SystemExit(f"FAIL {tag}: no element where the "
+                                     "kernel and the plain version are "
+                                     "both finite")
+                g, r, e = got[both], ref[both], exact[both]
+            err = check_close(tag, g, r, rtol, atol)
+            st = stats[kernel]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            line += f"max abs err {err:.3e} against the plain version"
+            if recipe == "real":
+                ex = check_close(f"{tag} against the exact scan", got,
+                                 exact, rtol, atol)
+                line += f"; inside the exact scan's envelope ({ex:.3e})"
+            else:
+                d = (g - e).abs()
+                off = (~torch.isfinite(got) | ((got - exact).abs() > atol
+                                               + rtol * exact.abs()))
+                line += (f"; against the exact scan {d.max().item():.3e}, "
+                         f"{off.float().mean().item():.4%} off its envelope")
+            print(line)
+            del got, ref
+        del inp, part, exact
+        torch.cuda.empty_cache()
+    inp = kv.make_inputs(PROBE_SHAPE, 7, "cuda", "real")
+    terms = _probe_scan_bound(torch.bfloat16)
+    bnd = finish_bound(terms, ex2_rate)["bound_ms"]
+    two = finish_bound(dict(terms, exp2=2 * terms["exp2"]),
+                       ex2_rate)["bound_ms"]
+    for kernel, name in SEPARATED_TIMED.items():
+        st = stats[kernel]
+        st["ms"] = time_ms(lambda: kv.run_sep(inp, name))
+        st["plain_ms"] = time_ms(lambda: kv.ref_sep(inp, name), reps=3)
+        st["terms"] = terms
+        st["timed"] = name
+        print(f"[probes] {kernel} {name} at (8,16384,192,N=16) bf16: kernel "
+              f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms; bound "
+              f"{bnd:.4f} ms (one exp2 per element), {two:.4f} ms at the "
+              f"design's two; card {nvidia_smi_line()}")
+    del inp
+    torch.cuda.empty_cache()
+    print(f"[probes] phase 8c {time.perf_counter() - t0:.1f} s")
+
+
 def probe_race() -> tuple[dict, float]:
     """Phase 8b, the probe path: kvariants' race (every variant, the
     model-realistic recipe), kseq's variants with and without the
@@ -1567,12 +1677,18 @@ def probe_race() -> tuple[dict, float]:
               + (f" (the exact scan {r['exact_max_abs_err']:.3e}, "
                  f"{r['exact_off_envelope']:.3%} off the envelope)"
                  if "exact_max_abs_err" in r else "")
+              + (f" (non-finite {r['nonfinite_share']:.3%}, plain "
+                 f"{r['plain_nonfinite_share']:.3%})"
+                 if "nonfinite_share" in r else "")
               + f"; all {[round(t, 3) for t in r['all_ms']]}")
     rel = {r["variant"]: r["ms_over_lpar_1024"] for r in kv}
     print(f"[race] v16 over lpar_1024: {rel['v16_combined_128']:.3f} (a "
           f"combined pass can win below 2); v3, v10_128 over lpar_1024: "
           f"{rel['v3']:.3f}, {rel['v10_128']:.3f} (the bf16 stacks win "
           f"below 1); card {card}")
+    print("[race] the separated-exponent scans over lpar_1024: "
+          + ", ".join(f"{n} {rel[n]:.3f}" for n in kvariants.SEPARATED)
+          + f" (the dual pays on the card below 1); card {card}")
     for r in ks:
         print(f"[race] kseq {r['variant']}: {r['ms']:.3f} ms, with the "
               f"relayout {r['ms_with_relayout']:.3f} ms, "
@@ -1836,6 +1952,7 @@ def main():
     t8 = time.perf_counter()
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
+    separated_vs_plain(stats, ex2_rate)
     print(f"[probes] phase 8 {time.perf_counter() - t8:.1f} s")
     t9 = time.perf_counter()
     keffn_kprobe_vs_plain(stats)

@@ -290,6 +290,28 @@ def test_scan_backward_on_a_decaying_state(cuda, seed):
 
 
 @pytest.mark.parametrize("seed", F2_SEEDS)
+def test_scan_backward_within_the_conditioned_bound(cuda, seed):
+    """ROADMAP F2, order-independent: on the growing recipe K3 and the
+    fp32 plain version on the card each hold every gradient (du, ddelta,
+    dA, dB, dC) within C_BOUND n u32 kappa of the fp64 oracle, kappa the
+    gradients on the magnitudes of their terms, n = L (derived in
+    `tests/f2_bound.py`). Prints each gradient's largest error over its
+    bound (run with -s)."""
+    from f2_bound import bound_ratios
+
+    args, dy, car = _f2_case(cuda, seed, grow=True)
+    orc = _bwd_oracle(args, dy)
+    k3 = bound_ratios(cuda_scan.selective_scan_bwd(*args, dy, car)[:5],
+                      orc[:5], args, dy)
+    r32 = bound_ratios(cuda_scan.selective_scan_bwd_ref(*args, dy)[:5],
+                       orc[:5], args, dy)
+    print(f"F2 seed {seed}: error over the conditioned bound (du, ddelta, "
+          f"dA, dB, dC): K3 {[f'{r:.3g}' for r in k3]}, fp32 reference "
+          f"{[f'{r:.3g}' for r in r32]}")
+    assert max(k3) <= 1.0 and max(r32) <= 1.0, (k3, r32)
+
+
+@pytest.mark.parametrize("seed", F2_SEEDS)
 def test_scan_backward_is_deterministic_on_the_growing_recipe(cuda, seed):
     """K3 twice on the same inputs of the growing recipe: bit-identical (it
     has no atomics)."""
@@ -705,6 +727,91 @@ def test_probe_kernels_refuse_what_they_cannot_take(cuda):
         cuda_probes.scan_lpar(*args)
     with pytest.raises(RuntimeError, match="has no backward"):
         cuda_probes.scan_stack_ab(*args)
+
+
+# -- kvariants' separated-exponent scans (csrc/scan_dual.cu) --------------------
+
+def _sep_inputs(cuda, recipe, dtype, L=768, D=6):
+    """kvariants' inputs at B 2, G 2, D channels (a tile of 4 and a ragged
+    one), N 16, L = 6 windows of 128; recipe 'default' (hot) or 'real'."""
+    from vmambair_torch.tools import kvariants
+
+    shape = kvariants.Shape(B=2, L=L, D=D, G=2, N=16, chunk=256)
+    inp = kvariants.make_inputs(shape, 3, cuda, recipe)
+    for k in ("u", "delta", "Bm", "Cm"):
+        inp[k] = inp[k].to(dtype)
+    return inp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("recipe", ["default", "real"])
+def test_scan_dual_kernels_match_plain(cuda, recipe, reverse, dtype):
+    """Every separated-exponent name of the race (v22-v26, v4) against its
+    plain version, forward and reverse, on the hot default recipe (the
+    clamps bind; v4 is compared where both are finite) and the realistic
+    one: fp32 inputs within the fp32 envelope, bf16 within 3e-2 / 5e-2
+    (v23 within 3e-2 / 5e-2 on either: its Z is rounded to bf16, where
+    the kernel's exp2 and the plain version's, an ulp or two apart, can
+    round to neighbours 2^-8 apart); one launch each of its form's
+    wrapper."""
+    from vmambair_torch.ops import cuda_probes
+    from vmambair_torch.tools import kvariants
+
+    inp = _sep_inputs(cuda, recipe, dtype)
+    for name in kvariants.SEPARATED:
+        fn = getattr(cuda_probes, kvariants.sep_kernel(name))
+        n0 = fn.launches
+        got = kvariants.run_sep(inp, name, reverse=reverse).float()
+        assert fn.launches == n0 + 1, name
+        ref = kvariants.ref_sep(inp, name, reverse=reverse).float()
+        if name in kvariants.MAY_OVERFLOW:
+            both = torch.isfinite(got) & torch.isfinite(ref)
+            assert both.any(), name
+            if recipe == "real":
+                assert both.all(), name
+            got, ref = got[both], ref[both]
+        zbf16 = "zdt" in kvariants.SEPARATED[name][3]
+        torch.testing.assert_close(
+            got, ref, **TOL[torch.bfloat16 if zbf16 else dtype], msg=name)
+
+
+@pytest.mark.parametrize("form,sub,blk,opts", [
+    ("v22", 256, 32, {}), ("v24", 128, 16, {"mid": True}),
+    ("v26", 256, 128, {})])
+def test_scan_dual_kernel_takes_strided_views(cuda, form, sub, blk, opts):
+    """The channels-last and kseq layouts (strided views of u, delta, B, C
+    and y), Dg = 37 (9 tiles of 4 channels, the last ragged), N = 5."""
+    from vmambair_torch.ops import cuda_probes
+
+    for layout in ("ld", "kseq"):
+        args = _view_args(cuda, layout, 2, 2, 37, 512, 5, torch.float32, 7)
+        got = cuda_probes.scan_dual(*args, form=form, sub=sub, blk=blk,
+                                    **opts)
+        ref = cuda_probes.DUAL_REFS[form](*args[:7], sub=sub, blk=blk,
+                                          **opts)
+        _close(got, ref, torch.float32)
+
+
+def test_scan_dual_kernels_refuse_what_they_cannot_take(cuda):
+    from vmambair_torch.ops import cuda_probes
+
+    args = _view_args(cuda, "dl", 1, 2, 8, 256, 16, torch.float32, 1)
+    with pytest.raises(ValueError, match=r"\(sub, blk\) = \(128, 48\)"):
+        cuda_probes.scan_dual(*args, form="v22", sub=128, blk=48)
+    with pytest.raises(ValueError, match=r"\(sub, blk\) = \(64, 64\)"):
+        cuda_probes.scan_cumsum(*args, sub=64)
+    with pytest.raises(ValueError, match="form='v23'"):
+        cuda_probes.scan_dual(*args, form="v23", sub=128, blk=32)
+    ragged = _view_args(cuda, "dl", 1, 2, 8, 200, 16, torch.float32, 1)
+    with pytest.raises(ValueError, match="L=200"):
+        cuda_probes.scan_dual(*ragged, form="v26", sub=128, blk=64)
+    wide = _view_args(cuda, "dl", 1, 2, 8, 256, 17, torch.float32, 1)
+    with pytest.raises(ValueError, match="N=17 over"):
+        cuda_probes.scan_dual(*wide, form="v24", sub=128, blk=32)
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        cuda_probes.scan_cumsum(*args)
 
 
 # -- keffn and kprobe --------------------------------------------------------------

@@ -113,7 +113,8 @@ def test_nvcc_command_targets_sm90a():
     assert {os.path.basename(s) for s in srcs} == {
         "gdfn.cu", "oss_front.cu", "oss_scan_fused.cu", "oss_tail.cu",
         "selective_scan.cu", "selective_scan_bwd.cu", "scan_seq.cu",
-        "scan_lpar.cu", "scan_stack_bf16.cu", "peak.cu", "probe_io.cu"}
+        "scan_lpar.cu", "scan_stack_bf16.cu", "scan_dual.cu", "peak.cu",
+        "probe_io.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert link[link.index("-o") + 1] == "/tmp/lib.so" and "-shared" in link
     assert link[-len(objs):] == objs
@@ -240,6 +241,15 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
     cuda_probes.scan_stack_ab(*args, chunk=16)
     cuda_probes.scan_stack_b(*args, chunk=32, sub=8)
     cuda_probes.scan_stack_ab(*args, chunk=16, last_bf16=True)
+    u = torch.zeros(1, 2, 256, 4)
+    bc = torch.zeros(1, 2, 256, 16)
+    dual = (u, u, torch.zeros(8, 16), bc, bc, torch.ones(8), torch.zeros(8),
+            u.clone())
+    cuda_probes.scan_dual(*dual, form="v22", sub=128, blk=32,
+                          zdt=torch.bfloat16)
+    cuda_probes.scan_dual(*dual, form="v24", sub=256, blk=64, mid=True)
+    cuda_probes.scan_dual(*dual, form="v26", sub=128, blk=64, reverse=True)
+    cuda_probes.scan_cumsum(*dual, sub=128)
     x = torch.zeros(1, 5, 7, 8)
     cuda_probes.gdfn_tanh_nhwc(x, torch.ones(8), torch.zeros(8),
                                torch.zeros(8, 42), torch.zeros(3, 3, 42),
@@ -253,6 +263,8 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
     assert [c[0] for c in calls] == [
         "vmt_scan_seq_fwd", "vmt_scan_lpar_fwd", "vmt_scan_combined_fwd",
         "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd",
+        "vmt_scan_dual_fwd", "vmt_scan_dual_fwd", "vmt_scan_dual_fwd",
+        "vmt_scan_dual_fwd",
         "vmt_gdfn_tanh_nhwc_fwd", "vmt_probe_transpose", "vmt_probe_proj",
         "vmt_oss_scan_fused_ld_fwd"]
     for name, a in calls:

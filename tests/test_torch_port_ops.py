@@ -182,6 +182,35 @@ def test_k3_order_against_the_fp64_oracle(seed):
             assert a <= (max(1.0, 3 * b) if grow else 1.0), (a, b)
 
 
+@pytest.mark.parametrize("seed", F2_SEEDS)
+def test_scan_backward_within_the_conditioned_bound(seed):
+    """ROADMAP F2, order-independent: on the growing recipe the fp32 plain
+    backward (autograd through its Hillis-Steele chunks) and K3's order
+    (`tests/k3_order.py`, from the exact carries) each hold every gradient
+    within C_BOUND n u32 kappa of the fp64 oracle, kappa the gradients on
+    the magnitudes of their terms, n = L (the bound is derived in
+    `tests/f2_bound.py`). Prints each gradient's largest error over its
+    bound (run with -s)."""
+    from f2_bound import bound_ratios
+    from k3_order import k3_order_bwd
+
+    args, _ = _f2_inputs(True)
+    dy = torch.randn(2, 40, 16,
+                     generator=torch.Generator().manual_seed(seed))
+    a64 = [None if t is None else t.double() for t in args]
+    orc = selective_scan_bwd_ref(*a64, dy.double())
+    carries = selective_scan_chunked(
+        *a64, chunk_size=32, return_carries=True)[1].float()
+    plain = bound_ratios(selective_scan_bwd_ref(*args, dy)[:5], orc[:5],
+                         args, dy)
+    order = bound_ratios(k3_order_bwd(*args[:5], dy, carries), orc[:5],
+                         args, dy)
+    print(f"F2 seed {seed}: error over the conditioned bound (du, ddelta, "
+          f"dA, dB, dC): fp32 plain {[f'{r:.3g}' for r in plain]}, K3's "
+          f"order {[f'{r:.3g}' for r in order]}")
+    assert max(plain) <= 1.0 and max(order) <= 1.0, (plain, order)
+
+
 @pytest.mark.parametrize("shape,hid", [((1, 8, 8, 8), 21),
                                        ((2, 8, 16, 16), 43)])
 def test_gdfn_plain_matches_jax(shape, hid):

@@ -231,10 +231,14 @@ def test_kvariants_race_variants_all_match_jax(kv_case):
     its v12_ld_128 to the bf16 envelope), at the TPU race's interpret
     chunk of 256; the bf16 stacks v3 and v10_128 against the TPU race's
     kernel of the same name (off v1_128 on this hot recipe, as the TPU's
-    are), and v16's y2 against the TPU's."""
+    are), and v16's y2 against the TPU's. The separated-exponent variants
+    pass their clamp on this recipe (v4 overflows): each is held to its
+    own TPU kernel in tests/test_torch_port_dual.py."""
     inp, out = kv_case
     np.testing.assert_allclose(out["v12_ld_128"], out["v1_128"], **BF16_TOL)
     for name, (call, _, _) in port_kv.VARIANTS.items():
+        if name in port_kv.SEPARATED:
+            continue
         got = call(inp, 256)
         if isinstance(got, tuple):
             got, y2 = got
@@ -382,10 +386,10 @@ def test_probe_entry_points_on_cpu(capsys, tool, args):
 
 
 def test_probes_refuse_what_they_do_not_carry():
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
-        port_kv.check_names(["v22_dual_128_32"])
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
-        port_kv.check_names(["v4_128"])
+    with pytest.raises(ValueError, match="unsupported \\(sub, blk\\)"):
+        port_kv.check_names(["v22_dual_128_48"])
+    with pytest.raises(ValueError, match="unsupported \\(sub, blk\\)"):
+        port_kv.check_names(["v4_64"])
     with pytest.raises(ValueError, match="carried by lpar_256"):
         port_kv.check_names(["v8s_128"])
     with pytest.raises(ValueError, match="unknown variant"):

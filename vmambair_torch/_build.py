@@ -128,6 +128,18 @@ SIGNATURES = {
         _I, _I, _I, _I,                          # seg sub a_bf16 last_bf16
         _I, _I, _P,                              # rev sp stream
     ],
+    "vmt_scan_dual_fwd": [
+        _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)
+        _P, _I, _LL, _LL, _LL, _LL,              # delta (b, g, l, d)
+        _P,                                      # A
+        _P, _I, _LL, _LL, _LL, _LL,              # B (b, g, l, n)
+        _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
+        _P, _P,                                  # Dskip, bias
+        _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
+        _I, _I, _I, _I, _I,                      # B G L Dg N
+        _I, _I, _I, _I, _I,                      # sub blk form mid zbf16
+        _I, _I, _P,                              # rev sp stream
+    ],
     "vmt_peak": [
         _I, _P, _I, _P, _LL, _I, _I, _P,         # probe x dt y rows lanes rep st
     ],

@@ -30,6 +30,12 @@ Counterparts of the TPU probes `tools/kseq.py`, `tools/kvariants.py` and
 - `ld_fused` (csrc/oss_scan_fused.cu, K1 with the Ld layout policy):
   kldio's `_ld_kernel`, the projection-fused scan read and written
   channels-last, (B, G, L, D).
+- `scan_dual_v22`, `scan_dual_v24`, `scan_dual_v26` (`scan_dual(form=)`
+  dispatches to them) and `scan_cumsum` (csrc/scan_dual.cu): kvariants'
+  separated-exponent scans, the matmul dual `kernel_v22` (v23: Z in
+  bf16), `kernel_v24` (v25: mid-referenced), `kernel_v26` and the cumsum
+  form `kernel_v4`, each with its plain version (`scan_dual_v22_ref`,
+  ...), a transcription of the TPU body.
 
 The scans take (b, g, l, d) views of u, delta and y and (b, g, l, n) views
 of B and C, of any strides, and write y in place: the caller chooses every
@@ -292,6 +298,376 @@ def _stack_wrapper(stack: str):
 
 scan_stack_ab = _stack_wrapper("ab")   # kvariants' v3
 scan_stack_b = _stack_wrapper("b")     # kvariants' v10
+
+
+# -- v22-v26, v4: the separated-exponent scans ---------------------------------
+#
+# Within each window of `sub` positions these scans split the decay from t
+# back to p, exp2(s_t - s_p), into exp2(s_t) and exp2(-s_p), with s = A
+# log2(e) sigma and sigma a cumulative sum of delta: Z_p = exp2(-s_p) b_p,
+# H = Z T (T the block-triangular 0/1 matrix), h_t = exp2(s_t) H_t. The
+# plain versions are literal transcriptions of the TPU bodies (the same
+# clamps, the same rounding points, `torch.matmul` with T in fp32 for each
+# product), one window after another, the state entering a window folded
+# into its first b. They lay the state out as the TPU kernels do, (b, dim,
+# N, L), L last. Reverse runs the forward body on inputs flipped along L
+# and flips y back: that flips causality (T[p, t] = p >= t), the block-end
+# and mid lanes (the first lane and lane blk/2 of a block), the carry's
+# edge and the window order, as `_scan_block_dual` does
+# (vmambair_tpu/ops/pallas_scan.py:311-323, 362-373). Subnormals are
+# flushed to zero where a later factor up to 2^120 would make them count:
+# every exp and exp2, Z, H and the mid-scaled block states c. The TPU has
+# no subnormals and XLA on the CPU flushes them; the kernel flushes at the
+# same points (its exp2 is ex2.approx.ftz). A subnormal kept there changes
+# h by O(1).
+
+LOG2E = 1.4426950408889634    # tools/kvariants.py:451
+DUAL_CLAMP = 120.0            # the separated exponents' clamp, in bits
+DUAL_SUBS = (128, 256)        # windows csrc/scan_dual.cu takes
+DUAL_BLKS = (16, 32, 64, 128)  # blocks it takes (at most the window)
+FP32_TINY = torch.finfo(torch.float32).tiny
+
+
+def _ftz(t):
+    """t with its subnormal entries flushed to zero."""
+    return torch.where(t.abs() < FP32_TINY, torch.zeros_like(t), t)
+
+
+def _exp2(t):
+    return _ftz(torch.exp2(t))
+
+
+def _sep_prologue(u, delta, A, B, C, D, delta_bias, softplus, reverse):
+    """kvariants' `_prologue` (tools/kvariants.py:42) on the views: the
+    post-softplus delta d, du = d u and y0 = D u as (b, dim, L) fp32, B and
+    C per channel as (b, dim, N, L) fp32, A fp32; flipped along L when
+    reverse."""
+    bsz, G, L, dg = u.shape
+
+    def chan(t):  # (b, g, l, x) -> (b, g x, l)
+        return t.float().permute(0, 1, 3, 2).reshape(bsz, -1, L)
+
+    d = chan(delta)
+    if delta_bias is not None:
+        d = d + delta_bias.float()[:, None]
+    if softplus:
+        d = torch.where(d > 20.0, d,
+                        torch.log1p(torch.exp(torch.clamp(d, max=20.0))))
+    uf = chan(u)
+    du = d * uf
+    y0 = torch.zeros_like(uf) if D is None else D.float()[:, None] * uf
+    gi = torch.arange(G * dg, device=u.device) // dg
+    Bx = B.float().permute(0, 1, 3, 2)[:, gi]
+    Cx = C.float().permute(0, 1, 3, 2)[:, gi]
+    out = (d, du, y0, Bx, Cx)
+    if reverse:
+        out = tuple(t.flip(-1) for t in out)
+    return (*out, A.float())
+
+
+def _sep_epilogue(y0, Cx, h, u, reverse):
+    """y = y0 + sum_n C h, flipped back when reverse, as a (b, g, l, d)
+    view in u's dtype."""
+    y = y0 + (Cx * h).sum(2)
+    if reverse:
+        y = y.flip(-1)
+    bsz, G, L, dg = u.shape
+    return y.to(u.dtype).view(bsz, G, dg, L).permute(0, 1, 3, 2)
+
+
+def _sep_sizes(name, sub, blk, L):
+    if sub < 2 or sub & (sub - 1) or blk < 2 or sub % blk or L % sub:
+        raise ValueError(f"{name}: sub={sub} must be a power of two that "
+                         f"blk={blk} divides and that divides L={L}")
+
+
+def _tril_blocks(sub, blk, device):
+    """The TPU kernels' T: T[p, t] = 1 where p <= t within one block of
+    blk positions, fp32."""
+    i = torch.arange(sub, device=device)
+    return ((i[:, None] <= i[None, :]) &
+            (i[:, None] // blk == i[None, :] // blk)).float()
+
+
+def _pickers(sub, blk, device):
+    """Pend (sub, m): each block's last lane; Pmid (sub, m): its lane
+    blk/2 - 1; S (m, sub): each block's lanes (tools/kvariants.py:889-894)."""
+    li = torch.arange(sub, device=device)[:, None]
+    bi = torch.arange(sub // blk, device=device)[None, :]
+    return ((li == bi * blk + blk - 1).float(),
+            (li == bi * blk + blk // 2 - 1).float(),
+            (li // blk == bi).float().t())
+
+
+def _fold(b_win, sd, A2, carry):
+    """The window's b with the entering state folded into its first
+    position: b_0 + exp2(A2 d_0) carry."""
+    b = b_win.clone()
+    b[..., :1] = b_win[..., :1] + _exp2(A2 * sd[:, :, None, :1]) * carry
+    return b
+
+
+def _sep_scan(name, u, delta, A, B, C, D, delta_bias, softplus, reverse, sub,
+              blk, window):
+    """The window walk the separated-exponent plain versions share:
+    `window(sd, b_win, carry)` -> h of one window (b, dim, N, sub), sd its
+    delta (b, dim, sub), b_win its du B, carry the state entering it."""
+    d, du, y0, Bx, Cx, Af = _sep_prologue(u, delta, A, B, C, D, delta_bias,
+                                          softplus, reverse)
+    L = d.shape[-1]
+    _sep_sizes(name, sub, blk, L)
+    b_full = du[:, :, None] * Bx
+    carry = torch.zeros_like(b_full[..., :1])
+    hs = []
+    for lo in range(0, L, sub):
+        h = window(d[..., lo:lo + sub], b_full[..., lo:lo + sub], carry,
+                   Af)
+        carry = h[..., -1:]
+        hs.append(h)
+    return _sep_epilogue(y0, Cx, torch.cat(hs, -1), u, reverse)
+
+
+def scan_dual_v22_ref(u, delta, A, B, C, D, delta_bias, *, sub, blk,
+                      zdt=torch.float32, reverse=False, delta_softplus=True):
+    """Plain version of `scan_dual_v22` (kvariants' kernel_v22,
+    tools/kvariants.py:784): the matmul dual referenced at each block's
+    start. s = A log2(e) sigma, sigma = delta's block-local inclusive
+    cumsum (sd @ T); E = exp2(s); Z = exp2(min(-s, 120)) b, rounded to
+    `zdt` (bfloat16: v23); H = Z @ T; the blocks chained one after another,
+    h = E (H + h at the previous block's end). Views as `scan_views_ref`'s;
+    returns y in u's dtype."""
+    T = _tril_blocks(sub, blk, u.device)
+    m = sub // blk
+
+    def window(sd, b_win, carry, Af):
+        A2 = (Af * LOG2E)[:, :, None]
+        s = A2 * (sd @ T)[:, :, None]
+        b = _fold(b_win, sd, A2, carry)
+        E = _exp2(s)
+        Z = _ftz(_exp2(torch.clamp(-s, max=DUAL_CLAMP)) * b)
+        H = _ftz(Z.to(zdt).float() @ T)
+        if m == 1:
+            return E * H
+        pieces, hprev = [], None
+        for j in range(m):
+            Hj = H[..., j * blk:(j + 1) * blk]
+            if j:
+                Hj = Hj + hprev
+            hj = E[..., j * blk:(j + 1) * blk] * Hj
+            hprev = hj[..., blk - 1:blk]
+            pieces.append(hj)
+        return torch.cat(pieces, -1)
+
+    return _sep_scan("scan_dual_v22_ref", u, delta, A, B, C, D, delta_bias,
+                     delta_softplus, reverse, sub, blk, window)
+
+
+def _chain(ends_h, dec, m):
+    """The blocks' entering states: c_0 = 0, c_1 = ends_h_0, c_j = ends_h_
+    {j-1} + dec_{j-1} c_{j-1} (tools/kvariants.py:932-937)."""
+    cs = [torch.zeros_like(ends_h[..., :1]), ends_h[..., 0:1]]
+    for j in range(2, m):
+        cs.append(ends_h[..., j - 1:j] + dec[..., j - 1:j] * cs[-1])
+    return torch.cat(cs, -1)
+
+
+def scan_dual_v24_ref(u, delta, A, B, C, D, delta_bias, *, sub, blk,
+                      mid=False, reverse=False, delta_softplus=True):
+    """Plain version of `scan_dual_v24` (kvariants' kernel_v24,
+    tools/kvariants.py:863): v22's function with both exponents clamped,
+    E = exp2(min(s, 120)), and the block fix-ups from block-end pickers:
+    h = E H, then h + E (c @ S) with c the chained block-end states. mid
+    (v25): sigma referenced at each block's lane blk/2 - 1, the block-end
+    decays E_end exp2(A2 sigma_mid), c scaled by exp2(A2 sigma_mid). Views
+    as `scan_views_ref`'s; returns y in u's dtype."""
+    T = _tril_blocks(sub, blk, u.device)
+    Pend, Pmid, S = _pickers(sub, blk, u.device)
+    m = sub // blk
+
+    def window(sd, b_win, carry, Af):
+        A2 = (Af * LOG2E)[:, :, None]
+        sig = sd @ T
+        b = _fold(b_win, sd, A2, carry)
+        if mid:
+            mids = sig @ Pmid
+            sig = sig - mids @ S
+            Emid = _exp2(A2 * mids[:, :, None])
+        s = A2 * sig[:, :, None]
+        E = _exp2(torch.clamp(s, max=DUAL_CLAMP))
+        Z = _ftz(_exp2(torch.clamp(-s, max=DUAL_CLAMP)) * b)
+        h = E * _ftz(Z @ T)
+        if m > 1:
+            ends_E = E @ Pend
+            cvec = _chain(h @ Pend, ends_E * Emid if mid else ends_E, m)
+            if mid:
+                cvec = _ftz(cvec * Emid)
+            h = h + E * (cvec @ S)
+        return h
+
+    return _sep_scan("scan_dual_v24_ref", u, delta, A, B, C, D, delta_bias,
+                     delta_softplus, reverse, sub, blk, window)
+
+
+def scan_dual_v26_ref(u, delta, A, B, C, D, delta_bias, *, sub, blk,
+                      reverse=False, delta_softplus=True):
+    """Plain version of `scan_dual_v26` (kvariants' kernel_v26,
+    tools/kvariants.py:955): v25 with the block-end decays recomputed
+    unclamped from sigma's block ends, exp2(A2 sigma_end), and one h = E (H
+    + c @ S). The TPU's production dual (`_scan_block_dual`) computes this
+    function. Views as `scan_views_ref`'s; returns y in u's dtype."""
+    T = _tril_blocks(sub, blk, u.device)
+    Pend, Pmid, S = _pickers(sub, blk, u.device)
+    m = sub // blk
+
+    def window(sd, b_win, carry, Af):
+        A2 = (Af * LOG2E)[:, :, None]
+        sig = sd @ T
+        b = _fold(b_win, sd, A2, carry)
+        mids = sig @ Pmid
+        sig_ends = sig @ Pend
+        sig = sig - mids @ S
+        Emid = _exp2(A2 * mids[:, :, None])
+        s = A2 * sig[:, :, None]
+        E = _exp2(torch.clamp(s, max=DUAL_CLAMP))
+        Z = _ftz(_exp2(torch.clamp(-s, max=DUAL_CLAMP)) * b)
+        H = _ftz(Z @ T)
+        if m == 1:
+            return E * H
+        E_ends = _exp2(A2 * (sig_ends - mids)[:, :, None])
+        cvec = _ftz(_chain(E_ends * (H @ Pend),
+                           _exp2(A2 * sig_ends[:, :, None]), m) * Emid)
+        return E * (H + cvec @ S)
+
+    return _sep_scan("scan_dual_v26_ref", u, delta, A, B, C, D, delta_bias,
+                     delta_softplus, reverse, sub, blk, window)
+
+
+def scan_cumsum_v4_ref(u, delta, A, B, C, D, delta_bias, *, sub,
+                       reverse=False, delta_softplus=True):
+    """Plain version of `scan_cumsum` (kvariants' kernel_v4,
+    tools/kvariants.py:151): in each window, sd = delta's inclusive cumsum
+    and w = the inclusive cumsum of du B exp(-A sd), both by Hillis-Steele
+    in fp32; h = exp(A sd) (w + carry). Natural exp, no clamp: where |A|
+    sum delta passes ~88.7 nats over a window exp(-A sd) overflows fp32 and
+    h is not finite. Views as `scan_views_ref`'s; returns y in u's dtype."""
+    def cumsum(t):
+        k = 1
+        while k < sub:
+            t = t + _shift(t, k, t.dim() - 1)
+            k *= 2
+        return t
+
+    def window(sd, b_win, carry, Af):
+        E = Af[:, :, None] * cumsum(sd)[:, :, None]
+        return _ftz(torch.exp(E)) * (cumsum(b_win * torch.exp(-E)) + carry)
+
+    return _sep_scan("scan_cumsum_v4_ref", u, delta, A, B, C, D, delta_bias,
+                     delta_softplus, reverse, sub, sub, window)
+
+
+DUAL_REFS = {"v22": scan_dual_v22_ref, "v24": scan_dual_v24_ref,
+             "v26": scan_dual_v26_ref}
+
+
+def _launch_sep(name, args, softplus, reverse, sub, blk, form, mid=False,
+                zbf16=False):
+    """Launches csrc/scan_dual.cu's `vmt_scan_dual_fwd` (form 22, 24, 26
+    or 4) on CUDA views; raises for what the kernel does not take."""
+    no_grad_needed(name, *args)
+    u, _, A, B, C, *_, y = args
+    bsz, G, L, dg, N = view_shapes(name, u, args[1], A, B, C, y)
+    if sub not in DUAL_SUBS or blk not in DUAL_BLKS or blk > sub or L % sub:
+        raise ValueError(f"{name}: (sub, blk) = ({sub}, {blk}) with L={L} "
+                         f"not taken: sub in {DUAL_SUBS}, blk in "
+                         f"{DUAL_BLKS} at most sub, L a multiple of sub")
+    launch_views("vmt_scan_dual_fwd", *args, softplus, reverse,
+                 (sub, blk, form, int(bool(mid)), int(bool(zbf16))))
+
+
+def scan_dual_v22(u, delta, A, B, C, D, delta_bias, y, *, sub, blk,
+                  zdt=torch.float32, reverse=False, delta_softplus=True):
+    """kvariants' kernel_v22 (zdt bfloat16: v23) into the view y
+    (csrc/scan_dual.cu); N <= 16, L a multiple of sub. Returns y."""
+    args = (u, delta, A, B, C, D, delta_bias, y)
+    if on_cpu(*args):
+        view_shapes("scan_dual_v22", u, delta, A, B, C, y)
+        return y.copy_(scan_dual_v22_ref(
+            *args[:7], sub=sub, blk=blk, zdt=zdt, reverse=reverse,
+            delta_softplus=delta_softplus))
+    if zdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"scan_dual_v22: zdt={zdt}")
+    _launch_sep("scan_dual_v22", args, delta_softplus, reverse, sub, blk, 22,
+                zbf16=zdt == torch.bfloat16)
+    scan_dual_v22.launches += 1
+    return y
+
+
+def scan_dual_v24(u, delta, A, B, C, D, delta_bias, y, *, sub, blk,
+                  mid=False, reverse=False, delta_softplus=True):
+    """kvariants' kernel_v24 (mid: v25) into the view y
+    (csrc/scan_dual.cu); N <= 16, L a multiple of sub. Returns y."""
+    args = (u, delta, A, B, C, D, delta_bias, y)
+    if on_cpu(*args):
+        view_shapes("scan_dual_v24", u, delta, A, B, C, y)
+        return y.copy_(scan_dual_v24_ref(
+            *args[:7], sub=sub, blk=blk, mid=mid, reverse=reverse,
+            delta_softplus=delta_softplus))
+    _launch_sep("scan_dual_v24", args, delta_softplus, reverse, sub, blk, 24,
+                mid=mid)
+    scan_dual_v24.launches += 1
+    return y
+
+
+def scan_dual_v26(u, delta, A, B, C, D, delta_bias, y, *, sub, blk,
+                  reverse=False, delta_softplus=True):
+    """kvariants' kernel_v26 into the view y (csrc/scan_dual.cu); N <= 16,
+    L a multiple of sub. Returns y."""
+    args = (u, delta, A, B, C, D, delta_bias, y)
+    if on_cpu(*args):
+        view_shapes("scan_dual_v26", u, delta, A, B, C, y)
+        return y.copy_(scan_dual_v26_ref(
+            *args[:7], sub=sub, blk=blk, reverse=reverse,
+            delta_softplus=delta_softplus))
+    _launch_sep("scan_dual_v26", args, delta_softplus, reverse, sub, blk, 26)
+    scan_dual_v26.launches += 1
+    return y
+
+
+def scan_cumsum(u, delta, A, B, C, D, delta_bias, y, *, sub=128,
+                reverse=False, delta_softplus=True):
+    """kvariants' kernel_v4 into the view y (csrc/scan_dual.cu, its cumsum
+    form: natural exp, no clamp); N <= 16, L a multiple of sub. Returns
+    y."""
+    args = (u, delta, A, B, C, D, delta_bias, y)
+    if on_cpu(*args):
+        view_shapes("scan_cumsum", u, delta, A, B, C, y)
+        return y.copy_(scan_cumsum_v4_ref(
+            *args[:7], sub=sub, reverse=reverse,
+            delta_softplus=delta_softplus))
+    _launch_sep("scan_cumsum", args, delta_softplus, reverse, sub, sub, 4)
+    scan_cumsum.launches += 1
+    return y
+
+
+scan_dual_v22.launches = 0
+scan_dual_v24.launches = 0
+scan_dual_v26.launches = 0
+scan_cumsum.launches = 0
+DUAL_WRAPPERS = {"v22": scan_dual_v22, "v24": scan_dual_v24,
+                 "v26": scan_dual_v26}
+
+
+def scan_dual(u, delta, A, B, C, D, delta_bias, y, *, form, sub, blk,
+              reverse=False, delta_softplus=True, **opts):
+    """The matmul-dual scan of kvariants' form `form` into the view y:
+    'v22' (option zdt), 'v24' (option mid) or 'v26'; the launch is counted
+    by that form's wrapper (`scan_dual_v22`, ...). Returns y."""
+    if form not in DUAL_WRAPPERS:
+        raise ValueError(f"scan_dual: form={form!r} not in "
+                         f"{list(DUAL_WRAPPERS)}")
+    return DUAL_WRAPPERS[form](u, delta, A, B, C, D, delta_bias, y, sub=sub,
+                               blk=blk, reverse=reverse,
+                               delta_softplus=delta_softplus, **opts)
 
 
 # -- kpeak's probes --------------------------------------------------------------

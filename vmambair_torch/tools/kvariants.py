@@ -31,8 +31,17 @@ The chunk is the TPU race's grid chunk, part of the function of v3 and of
 v16's y2: 1024 at the race's size, 256 at the interpret size of `--device
 cpu` (the TPU race's interpret CHUNK).
 
-The TPU's matmul-dual families (v22-v26) and its cumsum form v4 are not
-carried: asking for one raises and names its ROADMAP row.
+    v22_dual_128_128 ... v26_midopt_128_32, v4_128
+                  the TPU race's separated-exponent scans under its own 15
+                  names (`SEPARATED`): csrc/scan_dual.cu, one warp per
+                  channel walking L in windows of `sub` positions
+                  (`cuda_probes.scan_dual_v22` / `_v24` / `_v26`,
+                  `scan_cumsum`), each held to its own plain version
+                  (`cuda_probes.scan_dual_v22_ref`, ...). v4 overflows fp32
+                  where |A| sum delta passes ~88.7 nats over a window (the
+                  default recipe): its parity compares the elements where
+                  the kernel and the plain version are both finite, and
+                  its row gives both non-finite shares.
 
     python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
         [--delta default|real]
@@ -44,14 +53,17 @@ positions, within the bf16 envelope (rtol 3e-2, atol 5e-2), before any
 timing; a variant off it raises. The plain version is the plain chunked
 scan; for v16 also the plain reverse scan of each chunk (y2); for the bf16
 stacks v3 and v10 `cuda_probes.scan_stack_bf16_ref`, which rounds where
-the TPU kernels round. The stacks' distance from the exact scan is a
-finding, not a gate, and their rows report it: under the default recipe
-(post-softplus delta near 0.9) they leave the exact scan's envelope, as
-the TPU's kernels do in interpret mode, since their rounding error is a
-bf16 ulp of states several times larger than y. Each row gives its time
-over k4's and, when it is raced, over lpar_1024's: v16 under twice
-lpar_1024's time is the test the TPU kernel_v16's docstring sets for a
-combined pass to be able to win.
+the TPU kernels round; for the separated-exponent scans their own
+transcriptions of the TPU bodies. The distance of the stacks and of the
+separated-exponent scans from the exact scan is a finding, not a gate,
+and their rows report it: under the default recipe (post-softplus delta
+near 0.9) the stacks leave the exact scan's envelope, as the TPU's
+kernels do in interpret mode, since their rounding error is a bf16 ulp of
+states several times larger than y; the separated exponents pass their
+clamp of 120 bits there (v4 overflows). On the card k4 and lpar_1024 are
+raced whatever the names, and each row gives its time over theirs: v16
+under twice lpar_1024's time is the test the TPU kernel_v16's docstring
+sets for a combined pass to be able to win.
 """
 
 from __future__ import annotations
@@ -78,10 +90,33 @@ POOL = 3
 BF16 = torch.bfloat16
 
 V10_SUB = 128
-# TPU variant families by number: not carried yet, or carried by the
+# TPU variant families by number: not carried, or carried by the
 # L-parallel and channels-last variants here
-NOT_CARRIED = {22, 23, 24, 25, 26, 4}
+NOT_CARRIED = set()
 EXACT = {0, 1, 6, 8, 9, 11, 12, 13, 14, 15, 19}
+# the TPU race's separated-exponent names (tools/kvariants.py:1033-1070):
+# name -> (form of csrc/scan_dual.cu, sub, blk, options); v4 is the cumsum
+# form, whose block is its window
+SEPARATED = {
+    "v22_dual_128_128": ("v22", 128, 128, {}),
+    "v22_dual_128_64": ("v22", 128, 64, {}),
+    "v22_dual_128_32": ("v22", 128, 32, {}),
+    "v22_dual_128_16": ("v22", 128, 16, {}),
+    "v22_dual_256_32": ("v22", 256, 32, {}),
+    "v23_dualbf16_128_32": ("v22", 128, 32, {"zdt": torch.bfloat16}),
+    "v24_mmfix_128_32": ("v24", 128, 32, {}),
+    "v24_mmfix_128_16": ("v24", 128, 16, {}),
+    "v25_mid_128_64": ("v24", 128, 64, {"mid": True}),
+    "v25_mid_256_64": ("v24", 256, 64, {"mid": True}),
+    "v25_mid_256_128": ("v24", 256, 128, {"mid": True}),
+    "v25_mid_128_32": ("v24", 128, 32, {"mid": True}),
+    "v26_midopt_128_64": ("v26", 128, 64, {}),
+    "v26_midopt_128_32": ("v26", 128, 32, {}),
+    "v4_128": ("v4", 128, 128, {}),
+}
+# the variants whose output may overflow: parity where both are finite
+MAY_OVERFLOW = {"v4_128"}
+BASES = ("k4", "lpar_1024")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,6 +275,38 @@ def ref_combined(inp, chunk):
     return run_reference(inp), run_reference_rev_chunks(inp, chunk)
 
 
+def sep_kernel(name: str) -> str:
+    """The wrapper (chip_smoke.py's kernel name) that runs a
+    separated-exponent variant."""
+    form = SEPARATED[name][0]
+    return "scan_cumsum" if form == "v4" else f"scan_dual_{form}"
+
+
+def run_sep(inp, name, reverse=False):
+    """A separated-exponent variant (`SEPARATED`) on DL: y (B, DIM, L)."""
+    form, sub, blk, opts = SEPARATED[name]
+    y = torch.empty_like(inp["u"])
+    v = views(inp, y, False)
+    if form == "v4":
+        cuda_probes.scan_cumsum(*v, sub=sub, reverse=reverse)
+    else:
+        cuda_probes.scan_dual(*v, form=form, sub=sub, blk=blk,
+                              reverse=reverse, **opts)
+    return y
+
+
+def ref_sep(inp, name, reverse=False):
+    """The plain version of `run_sep`, (B, DIM, L)."""
+    form, sub, blk, opts = SEPARATED[name]
+    v = views(inp, inp["u"], False)[:7]
+    if form == "v4":
+        y = cuda_probes.scan_cumsum_v4_ref(*v, sub=sub, reverse=reverse)
+    else:
+        y = cuda_probes.DUAL_REFS[form](*v, sub=sub, blk=blk,
+                                        reverse=reverse, **opts)
+    return dl_of(y)
+
+
 # name -> (call(inputs, chunk) -> y as (B, DIM, L), the kernel it launches
 # by chip_smoke.py's names, its plain version (call(inputs, chunk)) where
 # that is not the plain chunked scan)
@@ -265,6 +332,10 @@ VARIANTS = {
                 "scan_stack_b",
                 lambda i, chunk: ref_stack(i, "b", chunk, V10_SUB)),
 }
+VARIANTS.update({
+    name: (lambda i, chunk, n=name: run_sep(i, n), sep_kernel(name),
+           lambda i, chunk, n=name: ref_sep(i, n))
+    for name in SEPARATED})
 
 
 def check_names(names: list) -> None:
@@ -276,10 +347,14 @@ def check_names(names: list) -> None:
         m = re.match(r"v(\d+)", name)
         fam = int(m.group(1)) if m else None
         if fam in NOT_CARRIED:
+            raise ValueError(f"{name}: the TPU's family v{fam} is not "
+                             "carried")
+        if fam in (4, 22, 23, 24, 25, 26):
             raise ValueError(
-                f"{name}: the TPU's dual and cumsum variants are not "
-                "carried yet (ROADMAP.md, Queue 2: 'kvariants' "
-                "separated-exponent families')")
+                f"{name}: an unsupported (sub, blk) of the TPU's "
+                "separated-exponent families; the race carries "
+                f"{list(SEPARATED)} (csrc/scan_dual.cu takes sub in "
+                f"{cuda_probes.DUAL_SUBS}, blk in {cuda_probes.DUAL_BLKS})")
         if fam in EXACT:
             raise ValueError(
                 f"{name}: the TPU's exact families are carried by lpar_256, "
@@ -301,9 +376,13 @@ def parity(names: list, shape: Shape, device, delta: str) -> dict:
     """Each variant on the first PARITY_L positions of a seeded input set
     against its plain version (`VARIANTS`); raises outside the bf16
     envelope. Returns name -> (max abs err, relative err) of y; for v16
-    name + ":y2" -> y2's; for the bf16 stacks name + ":exact" -> (max abs
-    err, share of elements off the envelope) of y against the exact
-    scan."""
+    name + ":y2" -> y2's; for the bf16 stacks and the separated-exponent
+    scans name + ":exact" -> (max abs err, share of elements off the
+    envelope) of y against the exact scan. A variant that may overflow
+    (`MAY_OVERFLOW`) is compared where it and its plain version are both
+    finite (the max abs err against the exact scan too; a non-finite
+    element counts as off the envelope), and name + ":nonfinite" gives the
+    kernel's and the plain version's shares of non-finite elements."""
     inp = sliced(make_inputs(shape, 42, device, delta),
                  min(PARITY_L, shape.L))
     exact = run_reference(inp)
@@ -315,6 +394,17 @@ def parity(names: list, shape: Shape, device, delta: str) -> dict:
         if isinstance(got, tuple):
             (got, y2), (ref, ref2) = got, ref
             out[name + ":y2"] = _check(name, "y2", y2, ref2)
+        elif name in MAY_OVERFLOW:
+            fin, fin_ref = torch.isfinite(got), torch.isfinite(ref)
+            out[name + ":nonfinite"] = (1 - fin.float().mean().item(),
+                                        1 - fin_ref.float().mean().item())
+            both = fin & fin_ref
+            if not both.any():
+                raise RuntimeError(f"kvariants {name}: no element where "
+                                   "it and its plain version are finite")
+            out[name + ":exact"] = (max_err(got[both], exact[both])[0],
+                                    off_envelope(got, exact))
+            got, ref = got[both], ref[both]
         elif plain:
             out[name + ":exact"] = (max_err(got, exact)[0],
                                     off_envelope(got, exact))
@@ -349,9 +439,13 @@ LAUNCHES_PER_VARIANT = 2 + REPEATS
 
 def run(names: list, device, shape: Shape = None,
         delta: str = "default") -> list:
-    """Parity, then (on CUDA) the interleaved race; one row per variant."""
+    """Parity, then (on CUDA) the interleaved race; one row per variant. On
+    CUDA the race takes k4 and lpar_1024 whatever the names (each row's
+    time over theirs)."""
     check_names(names)
     cpu = device.type == "cpu"
+    if not cpu:
+        names = list(names) + [b for b in BASES if b not in names]
     shape = shape or Shape(**(CPU_SHAPE if cpu else SHAPE))
     errs = parity(names, shape, device, delta)
     rows = [dict(variant=n, max_abs_err=errs[n][0], rel_err=errs[n][1])
@@ -363,6 +457,9 @@ def run(names: list, device, shape: Shape = None,
         if name + ":exact" in errs:
             row["exact_max_abs_err"], row["exact_off_envelope"] = errs[
                 name + ":exact"]
+        if name + ":nonfinite" in errs:
+            row["nonfinite_share"], row["plain_nonfinite_share"] = errs[
+                name + ":nonfinite"]
     if cpu:
         return rows
     pool = [make_inputs(shape, seed, device, delta)
@@ -371,8 +468,7 @@ def run(names: list, device, shape: Shape = None,
                   for n in names}, pool, REPEATS)
     del pool
     elems = shape.B * shape.L * shape.dim * shape.N
-    base = {b: statistics.median(times[b]) for b in ("k4", "lpar_1024")
-            if b in times}
+    base = {b: statistics.median(times[b]) for b in BASES}
     for row in rows:
         ms = statistics.median(times[row["variant"]])
         row.update(ms=ms, gelem_per_s=elems / ms / 1e6,
