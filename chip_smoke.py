@@ -16,7 +16,12 @@ non-zero, and without a CUDA device the script stops before any result:
    backward (K3): all seven outputs within 5x the fp32 envelope (rtol
    3e-3, atol 1e-2), on fp32 and on bf16 inputs. Times from CUDA events
    (median of repeats) for the kernel and the plain version, beside the
-   least time the card could take (bound) at the case's shapes;
+   least time the card could take (bound) at the case's shapes. K1 at the
+   four shapes of a served forward ((8,2,96,16384), (8,2,48,16384),
+   (8,2,96,4096), (8,2,192,1024)) and K1c at the S1 step's (8,2,96,4096)
+   and (8,2,48,4096) fp32 are timed in every row, each with its bound and
+   its share of it; two K1 and two K1c calls on the same inputs at
+   (8,2,96,16384) bf16, forward and reverse, must give the same bits;
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
 4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
@@ -92,7 +97,7 @@ non-zero, and without a CUDA device the script stops before any result:
    channels-last layout policy) at the TPU probe's shape (8, 2, 16384, 96)
    against its plain version, forward and reverse, bf16 and fp32 (the
    forward envelope), and K1's own (channels-first) policy bit-identical
-   to the build before the policy on 48 seeded cases of K1 and K1c
+   to the recorded build on 48 seeded cases of K1 and K1c
    (`vmambair_torch/tools/k1_digests.json`); then, counts reset, kldio's
    race (the production op with its two copies, the kernel, K1 alone on
    a channels-first copy, the bound and each row's share of it) with its
@@ -110,9 +115,9 @@ never when off). fp32 matrix products and convolutions run in full fp32
 (for K1-K6 the launches in the serve, train and pipeline phases, for the
 probe kernels those of the probe paths of phases 8 to 10, which must be at
 least one each; a
-launch is one call of the kernel's wrapper, which for `scan_lpar`,
-`scan_combined` and the stacks is three grids, `grids_per_launch` in its
-entry;
+launch is one call of the kernel's wrapper, which for K1, K1c and
+`ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
+stacks three, `grids_per_launch` in its entry;
 max error, times and bound from phases 3 and 8-10) and the card's name and
 power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -150,11 +155,13 @@ KERNELS = {
     "oss_scan_fused": dict(
         fn=cuda_scan.oss_scan_fused_fwd,
         source="vmambair_torch/csrc/oss_scan_fused.cu",
-        replaces=f"{PALLAS}:1112", path="model"),
+        replaces=f"{PALLAS}:1112", path="model",
+        grids_per_launch=cuda_scan.K1_GRIDS),
     "oss_scan_fused_carries": dict(
         fn=cuda_scan.oss_scan_fused_fwd_carries,
         source="vmambair_torch/csrc/oss_scan_fused.cu",
-        replaces=f"{PALLAS}:1161", path="model"),
+        replaces=f"{PALLAS}:1161", path="model",
+        grids_per_launch=cuda_scan.K1_GRIDS),
     "selective_scan": dict(
         fn=cuda_scan.selective_scan_fwd,
         source="vmambair_torch/csrc/selective_scan.cu",
@@ -256,11 +263,16 @@ KERNELS = {
     "ld_fused": dict(
         fn=cuda_probes.ld_fused,
         source="vmambair_torch/csrc/oss_scan_fused.cu",
-        replaces="tools/kldio.py:62", path="probe"),
+        replaces="tools/kldio.py:62", path="probe",
+        grids_per_launch=cuda_scan.K1_GRIDS),
 }
 # `path`: where a kernel's launches are counted, the model's paths (serve,
 # train, pipeline) or the probe paths of phases 8 to 10
 MODEL_KERNELS = tuple(n for n, k in KERNELS.items() if k["path"] == "model")
+# K1's (b, d, L) in a served forward of 8 128x128 tiles: decoder_level1
+# and refinement (60 launches), encoder_level1 (30), levels 2 and 3 (4 each)
+K1_SERVE_SHAPES = ((8, 96, 16384), (8, 48, 16384), (8, 96, 4096),
+                   (8, 192, 1024))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
@@ -634,12 +646,13 @@ def kernels_vs_plain() -> dict:
                        for n, g, r in zip(names, got, ref))
         return cmp
 
-    def add(name, label, dtype, kern, plain, cmp, bnd):
-        cases.append((name, label, dtype, kern, plain, cmp, bnd))
+    def add(name, label, dtype, kern, plain, cmp, bnd, timed=False):
+        cases.append((name, label, dtype, kern, plain, cmp, bnd, timed))
 
-    # serve: K1, K4, K2 (bf16 first: the serve dtype)
+    # serve: K1, K4, K2 (bf16 first: the serve dtype); K1 at the four
+    # shapes of a served forward, each bf16 row timed
     for dtype in (torch.bfloat16, torch.float32):
-        for (b, d, L) in ((8, 48, 16384), (8, 192, 1024)):
+        for (b, d, L) in K1_SERVE_SHAPES:
             for rev in (False, True):
                 a = _fused_case(b, d, L, dtype, gen)
                 lab = f"({b},2,{d},{L}) rev={rev}"
@@ -648,7 +661,8 @@ def kernels_vs_plain() -> dict:
                         *a, reverse=r),
                     lambda a=a, r=rev: cuda_scan.oss_scan_fused_ref(
                         *a, reverse=r),
-                    fwd_cmp(f"K1 {lab} {dtype}", dtype), _fused_bound(a))
+                    fwd_cmp(f"K1 {lab} {dtype}", dtype), _fused_bound(a),
+                    timed=dtype == torch.bfloat16)
         for rev in (False, True):
             a = _scan_case(8, 256, 768, dtype, gen)
             lab = f"latent (8,256,768) G=2 rev={rev}"
@@ -704,7 +718,8 @@ def kernels_vs_plain() -> dict:
                     carries_cmp(f"K1c {lab} {dtype}",
                                 lambda a=a, r=rev: cuda_scan
                                 .oss_scan_fused_fwd(*a, reverse=r)),
-                    _fused_bound(a, carries=True))
+                    _fused_bound(a, carries=True),
+                    timed=dtype == torch.float32 and L == 4096)
                 _, car = cuda_scan.oss_scan_fused_fwd_carries(*a, reverse=rev)
                 s, _ = cuda_scan.fused_scan_inputs(*a)
                 dy = torch.randn(b, 2 * d, L, generator=gen).to(
@@ -742,7 +757,7 @@ def kernels_vs_plain() -> dict:
                     *a, dy, delta_softplus=True, reverse=r),
                 bwd_cmp(f"K3 {lab} {dtype}"), _bwd_bound(a, dy))
 
-    for name, label, dtype, kern, plain, cmp, bnd in cases:
+    for name, label, dtype, kern, plain, cmp, bnd, timed in cases:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -755,14 +770,44 @@ def kernels_vs_plain() -> dict:
         if st["ms"] is None:  # the first case: the main path's shape
             st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=3)
             st["terms"] = bnd
-            fb = finish_bound(bnd)
             line += (f"; kernel {st['ms']:.3f} ms, plain "
-                     f"{st['plain_ms']:.3f} ms, bound {fb['bound_ms']:.4f}"
-                     f" ms ({fb['bound_by']}"
-                     + ("; exp2 term after phase 8)" if bnd["exp2"] else ")"))
+                     f"{st['plain_ms']:.3f} ms")
+            line += bound_share(bnd, st["ms"])
+        elif timed:
+            ms = time_ms(kern)
+            line += f"; kernel {ms:.3f} ms" + bound_share(bnd, ms)
         print(line)
+    k1_deterministic(gen)
     torch.cuda.empty_cache()
     return stats
+
+
+def bound_share(bnd, ms) -> str:
+    """A row's bound, its exp2 term at the SFU's nominal rate (the kernels
+    line's takes the larger of that and phase 8's measured rate), and the
+    share of it that the kernel's time reaches."""
+    fb = finish_bound(bnd, SFU_NOMINAL)
+    return (f", bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}"
+            + ("; exp2 at the nominal rate" if bnd["exp2"] else "")
+            + f"), {fb['bound_ms'] / ms:.4f} of it")
+
+
+def k1_deterministic(gen):
+    """Two K1 calls and two K1c calls (forward and reverse) on the same
+    inputs at the served forward's widest shape give the same bits."""
+    a = _fused_case(8, 96, 16384, torch.bfloat16, gen)
+    for rev in (False, True):
+        if not torch.equal(cuda_scan.oss_scan_fused_fwd(*a, reverse=rev),
+                           cuda_scan.oss_scan_fused_fwd(*a, reverse=rev)):
+            raise SystemExit(f"FAIL K1 (8,2,96,16384) rev={rev}: two calls "
+                             "gave different bits")
+        (y1, c1), (y2, c2) = (cuda_scan.oss_scan_fused_fwd_carries(
+            *a, reverse=rev) for _ in range(2))
+        if not (torch.equal(y1, y2) and torch.equal(c1, c2)):
+            raise SystemExit(f"FAIL K1c (8,2,96,16384) rev={rev}: two calls "
+                             "gave different bits")
+    print("[kernels] K1 and K1c at (8,2,96,16384) bf16, forward and reverse: "
+          "two calls each, the same bits")
 
 
 # -- phase 4: the model, kernels vs plain --------------------------------------
@@ -995,7 +1040,7 @@ def race(ups, net, rounds=6) -> dict:
 # first class whose key is in the kernel's name takes it
 KERNEL_CLASSES = (
     ("K3 scan backward", ("selective_scan_bwd_kernel",)),
-    ("K1/K1c fused scan", ("oss_scan_fused_kernel",)),
+    ("K1/K1c fused scan", ("oss_scan_fused", "OssFusedScan")),
     ("K4/K4c scan", ("selective_scan_kernel",)),
     ("K2 GDFN", ("gdfn_kernel",)),
     ("K5 OSS front", ("oss_front_kernel",)),
@@ -1834,8 +1879,7 @@ def kldio_vs_plain(stats):
     version, forward and reverse, bf16 (the probe's dtype) and fp32, the
     forward envelope; the first case timed beside its plain version. Then
     K1 and K1c (the channels-first policy) on the seeded digest cases of
-    `tools.ab`, held to the digests of the build before the layout
-    policy."""
+    `tools.ab`, held to the recorded build's digests."""
     st = stats["ld_fused"]
     for dtype in (torch.bfloat16, torch.float32):
         u2, *w = kldio.make_inputs(0, "cuda")
@@ -1872,10 +1916,10 @@ def kldio_vs_plain(stats):
     if differ or got.keys() != want["digests"].keys():
         raise SystemExit(f"FAIL K1's channels-first policy: {len(differ)} "
                          f"of {len(want['digests'])} digests differ from "
-                         f"the build before the layout policy: {differ}")
+                         f"the recorded build: {differ}")
     print(f"[kldio] K1 and K1c (channels-first policy): all {len(got)} "
-          f"seeded outputs bit-identical to the build before the layout "
-          f"policy ({want['made_on']})")
+          f"seeded outputs bit-identical to the recorded build "
+          f"({want['made_on']})")
     torch.cuda.empty_cache()
 
 

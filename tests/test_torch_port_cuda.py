@@ -139,10 +139,10 @@ def test_kernels_launch_on_a_device_that_is_not_current(cuda):
     torch.testing.assert_close(got.cpu(), ref.cpu(), **TOL[torch.float32])
 
 
-def _fused_args(cuda, d, L, dtype, seed):
+def _fused_args(cuda, d, L, dtype, seed, b=2, N=16):
     g = torch.Generator().manual_seed(seed)
-    N, R = 16, -(-d // 16)
-    args = [torch.randn(2, 2, d, L, generator=g).to(cuda, dtype),
+    R = -(-d // 16)
+    args = [torch.randn(b, 2, d, L, generator=g).to(cuda, dtype),
             torch.randn(2, R + 2 * N, d, generator=g) / d ** 0.5,
             torch.randn(2, d, R, generator=g) / R ** 0.5,
             torch.rand(2, d, generator=g) * 3 - 5,
@@ -177,6 +177,65 @@ def test_oss_scan_fused_carries_kernel_matches_plain(cuda, d, L, reverse,
     _, ref = cuda_scan.oss_scan_fused_carries_ref(*args, reverse=reverse)
     assert car.shape == (2, 2 * d, cuda_scan.n_chunks(L), 16)
     _close(car, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,d,L,N", [(2, 96, 4100, 16), (1, 48, 1057, 16),
+                                     (1, 64, 700, 32), (2, 40, 333, 5)])
+def test_k1_and_k1c_segments_match_plain(cuda, b, d, L, N, reverse, dtype):
+    """K1 and K1c as four grids (the projection, the segmented scan) at L
+    over several segments with a ragged last segment and a ragged last
+    chunk; N at K1's limit of 32 and N below a register batch. K1c's y
+    equal to K1's, its carries within the fp32 envelope."""
+    args = _fused_args(cuda, d, L, dtype, b + d + L + N, b=b, N=N)
+    n0 = cuda_scan.oss_scan_fused_fwd.launches
+    y = cuda_scan.oss_scan_fused_fwd(*args, reverse=reverse)
+    assert cuda_scan.oss_scan_fused_fwd.launches == n0 + 1
+    yc, car = cuda_scan.oss_scan_fused_fwd_carries(*args, reverse=reverse)
+    ref, ref_car = cuda_scan.oss_scan_fused_carries_ref(*args,
+                                                        reverse=reverse)
+    assert torch.equal(y, yc)
+    _close(y, ref, dtype)
+    assert car.shape == (b, 2 * d, cuda_scan.n_chunks(L), N)
+    _close(car, ref_car, torch.float32)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("seg", [32, 40, 64, 1024])
+def test_k1_takes_any_segment_length(cuda, monkeypatch, seg, reverse):
+    """The carries are placed by position, so a segment of any length, one
+    that starts inside a chunk too (40), gives K1c's plain carries."""
+    monkeypatch.setattr(cuda_scan, "k1_segment", lambda *sizes: seg)
+    args = _fused_args(cuda, 48, 1057, torch.float32, seg, b=1)
+    y, car = cuda_scan.oss_scan_fused_fwd_carries(*args, reverse=reverse)
+    ref, ref_car = cuda_scan.oss_scan_fused_carries_ref(*args,
+                                                        reverse=reverse)
+    _close(y, ref, torch.float32)
+    _close(car, ref_car, torch.float32)
+
+
+def test_k1_and_k1c_are_deterministic(cuda):
+    """Fixed orders only: two calls on the same inputs give the same bits,
+    at the served forward's widest shape."""
+    args = _fused_args(cuda, 96, 16384, torch.bfloat16, 3, b=8)
+    assert torch.equal(cuda_scan.oss_scan_fused_fwd(*args),
+                       cuda_scan.oss_scan_fused_fwd(*args))
+    (y1, c1), (y2, c2) = (cuda_scan.oss_scan_fused_fwd_carries(
+        *args, reverse=True) for _ in range(2))
+    assert torch.equal(y1, y2) and torch.equal(c1, c2)
+
+
+def test_k1_refuses_what_it_cannot_take(cuda):
+    """D over 256 and N over 32 raise before a launch."""
+    for d, N, what in ((264, 16, "D=264"), (48, 33, "N=33")):
+        args = _fused_args(cuda, d, 64, torch.float32, 0, b=1, N=N)
+        for fn in (cuda_scan.oss_scan_fused_fwd,
+                   cuda_scan.oss_scan_fused_fwd_carries):
+            n0 = fn.launches
+            with pytest.raises(ValueError, match=what):
+                fn(*args)
+            assert fn.launches == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -978,8 +1037,8 @@ def test_ld_and_dl_policies_give_the_same_bits(cuda, reverse, dtype):
 
 
 def test_dl_policy_keeps_the_recorded_k1_bits(cuda):
-    """K1 and K1c (the Dl policy) give the bits recorded from the build
-    before the layout policy (`tools/k1_digests.json`, made by `python -m
+    """K1 and K1c (the Dl policy) give the bits recorded from the recorded
+    build (`tools/k1_digests.json`, made by `python -m
     vmambair_torch.tools.ab --other DIR --digests`)."""
     import json
 

@@ -1,7 +1,6 @@
 // Shared device helpers of the port's kernels: dtype-flagged loads and
 // stores (activations arrive as fp32 or bf16; all maths is fp32), the
-// thresholded softplus, and the chunk scan that K1 (oss_scan_fused.cu) and
-// K4 (selective_scan.cu) both run.
+// thresholded softplus, and K4's chunk scan (selective_scan.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,6 +56,18 @@ __device__ __forceinline__ void ld_raw_n(uint32_t (&r)[E], const void* p,
 
 __device__ __forceinline__ float raw_f32(uint32_t r, int dt) {
   return __uint_as_float(dt == DT_BF16 ? r << 16 : r);
+}
+
+// *p = v where ok, as one predicated st.global: the compiler is told of no
+// memory it touches (no "memory" clobber), so it does not hold loads of
+// other memory back behind it, and no branch splits the code around it.
+// For stores that no thread of the kernel reads back.
+__device__ __forceinline__ void st_f32_if(float* p, float v, bool ok) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q st.global.f32 [%0], %1;\n\t}"
+      :
+      : "l"(p), "f"(v), "r"((unsigned)ok));
 }
 
 // Rounds v to the activation dtype (identity for fp32).

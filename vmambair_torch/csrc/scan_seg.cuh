@@ -1,5 +1,5 @@
 // The skeleton the L-parallel segmented scans share (scan_lpar.cu,
-// scan_stack_bf16.cu).
+// scan_stack_bf16.cu, and K1's passes 1-3 in oss_scan_fused.cu).
 //
 // Layout: u, delta and y addressed through (b, g, l, d) strides, B and C
 // through (b, g, l, n) strides, so the DL (B, D, L) and the LD (B, L, D)
@@ -19,11 +19,13 @@
 // A block is 4 warps, one channel each, of one group; it walks its segment
 // in windows of 256 positions (32 lanes x KP = 8 consecutive positions).
 // Per window the block stages the group's B (and C) rows in shared memory
-// once for its 4 channels, loaded along L; each lane converts its own 8
-// positions' u and delta (softplus included). Positions past the segment
-// get delta = 0 and u = 0, which leave a state as it is. What a window
-// does with them is the policy's: scan_lpar.cu's fp32 scan (and v16's
-// reverse beside it), scan_stack_bf16.cu's bf16 stacks.
+// once for its 4 channels, loaded along L (dynamic shared memory, NS rows
+// of each: B and C take 33 KB at NS = 16, 66 KB at 32); each lane converts
+// its own 8 positions' u and delta (softplus included). Positions past the
+// segment get delta = 0 and u = 0, which leave a state as it is. What a
+// window does with them is the policy's: scan_lpar.cuh's fp32 scan (and
+// v16's reverse beside it; K1c's carries), scan_stack_bf16.cu's bf16
+// stacks.
 //
 // A policy P is a struct with NS (states in registers) and
 //   init<WRITE_Y>(a, k)      registers at the segment's start
@@ -43,7 +45,7 @@ constexpr int SG_WIN = 32 * SG_KP;
 constexpr int SG_WARPS = 4;   // channels to a block, one per warp
 constexpr int SG_THREADS = 32 * SG_WARPS;
 constexpr int SG_PP = 33;     // shared pitch of a position-in-lane row
-constexpr int SG_MAX_N = 16;
+constexpr int SG_MAX_N = 32;   // K1's limit; the probes' launches keep 16
 constexpr unsigned FULL = 0xffffffffu;
 
 // a window's staged B or C rows: state n at [n][p * SG_PP + lane] for the
@@ -64,6 +66,7 @@ struct SegArgs {
   float* hend; float* aend; float* hin;  // (B, G*Dg, nseg, N)
   float* rtot; float* rdec;    // v16's per-window reverse totals
   int G, L, Dg, N, seg, sub, reverse, softplus;
+  float* carries;              // K1c: (B, G*Dg, ceil(L / CH), N), or null
 };
 
 // A block's place: its lane, channel, segment and (b, c, s) row.
@@ -73,13 +76,24 @@ struct SegBlock {
   bool active;     // the warp's channel exists (else it stages only)
   long long hrow;  // (b, c, s)
   float a2[NS];    // A log2(e) per state, 0 past N
+  // position of scan index i of the segment
+  __device__ __forceinline__ int pos(const SegArgs& a, int i) const {
+    return a.reverse ? s0 + slen - 1 - i : s0 + i;
+  }
 };
+
+// shared memory of a pass: NS rows of B, and of C where it writes y
+template <int NS, bool WRITE_Y>
+constexpr size_t seg_smem() {
+  return (WRITE_Y ? 2 : 1) * NS * sizeof(SegRows);
+}
 
 template <int NS, bool WRITE_Y, class P>
 __global__ void __launch_bounds__(SG_THREADS)
     seg_scan_kernel(const __grid_constant__ SegArgs a) {
-  __shared__ SegRows b_s[SG_MAX_N];
-  __shared__ SegRows c_s[WRITE_Y ? SG_MAX_N : 1];
+  extern __shared__ float sg_sm[];
+  SegRows* b_s = reinterpret_cast<SegRows*>(sg_sm);
+  SegRows* c_s = b_s + NS;  // pass 3 only
   SegBlock<NS> k;
   k.lane = threadIdx.x & 31;
   const int ntile = (a.Dg + SG_WARPS - 1) / SG_WARPS;
@@ -107,10 +121,7 @@ __global__ void __launch_bounds__(SG_THREADS)
   const long long yb = b * a.sy_b + g * a.sy_g + cd * a.sy_d;
   const long long bb = b * a.sb_b + g * a.sb_g;
   const long long cb = b * a.sc_b + g * a.sc_g;
-  // position of scan index i of this segment
-  auto pos = [&](int i) {
-    return a.reverse ? k.s0 + k.slen - 1 - i : k.s0 + i;
-  };
+  auto pos = [&](int i) { return k.pos(a, i); };
   for (int w0 = 0; w0 < k.slen; w0 += SG_WIN) {
     const int wlen = min(SG_WIN, k.slen - w0);
     // this lane's positions (scan index w0 + KP * lane + p) and the
@@ -194,7 +205,9 @@ __global__ void __launch_bounds__(SG_THREADS)
 }
 
 // Pass 2: the entering state of every segment, one thread per (b, c, n).
-// (static: each source that includes this header keeps its own)
+// (static: each source that includes this header keeps its own; the
+// policy names it, so that a profile tells the scans' combines apart)
+template <class P>
 static __global__ void seg_scan_combine(const float* __restrict__ hend,
                                         const float* __restrict__ aend,
                                         float* __restrict__ hin,
@@ -217,31 +230,40 @@ template <class P>
 static int launch_seg(const SegArgs& a, int B, cudaStream_t st) {
   const int nseg = (a.L + a.seg - 1) / a.seg;
   const dim3 grid(nseg, a.G * ((a.Dg + SG_WARPS - 1) / SG_WARPS), B);
-  seg_scan_kernel<P::NS, false, P><<<grid, SG_THREADS, 0, st>>>(a);
-  int err = (int)cudaGetLastError();
+  constexpr size_t sm1 = seg_smem<P::NS, false>();
+  constexpr size_t sm3 = seg_smem<P::NS, true>();
+  int err = set_smem((const void*)seg_scan_kernel<P::NS, false, P>, sm1);
+  if (!err) {
+    err = set_smem((const void*)seg_scan_kernel<P::NS, true, P>, sm3);
+  }
+  if (err) return err;
+  seg_scan_kernel<P::NS, false, P><<<grid, SG_THREADS, sm1, st>>>(a);
+  err = (int)cudaGetLastError();
   if (err) return err;
   const long long rows = (long long)B * a.G * a.Dg;
-  seg_scan_combine<<<(unsigned)((rows * a.N + 255) / 256), 256, 0, st>>>(
+  seg_scan_combine<P><<<(unsigned)((rows * a.N + 255) / 256), 256, 0, st>>>(
       a.hend, a.aend, a.hin, rows, a.N, nseg, a.reverse);
   err = (int)cudaGetLastError();
   if (err) return err;
-  seg_scan_kernel<P::NS, true, P><<<grid, SG_THREADS, 0, st>>>(a);
+  seg_scan_kernel<P::NS, true, P><<<grid, SG_THREADS, sm3, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The launch for N states in the smallest register count of 4, 8, 16;
-// the sizes every segmented scan refuses.
-template <template <int> class P>
+// The launch for N states in the smallest register count of 4, 8, 16
+// (and 32 where MAXN allows it); the sizes every segmented scan refuses.
+template <template <int> class P, int MAXN = 16>
 static int launch_seg_n(const SegArgs& a, int B, void* stream) {
+  static_assert(MAXN == 16 || MAXN == SG_MAX_N, "16 or 32 states");
   const long long tiles = (long long)a.G * ((a.Dg + SG_WARPS - 1) / SG_WARPS);
-  if (a.N < 1 || a.N > SG_MAX_N || a.seg < 1 || a.L < 1 || a.Dg < 1 ||
+  if (a.N < 1 || a.N > MAXN || a.seg < 1 || a.L < 1 || a.Dg < 1 ||
       B > 65535 || tiles > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
   if (a.N <= 4) return launch_seg<P<4>>(a, B, st);
   if (a.N <= 8) return launch_seg<P<8>>(a, B, st);
-  return launch_seg<P<16>>(a, B, st);
+  if (MAXN == 16 || a.N <= 16) return launch_seg<P<16>>(a, B, st);
+  return launch_seg<P<MAXN>>(a, B, st);
 }
 
 }  // namespace vmt

@@ -20,7 +20,7 @@
 // Design: one block per (b, channel tile of T channels inside one group);
 // a loop over chunks of CH positions (reverse: back to front) carries the
 // fp32 state in shared memory. Per chunk the block stages u, delta and the
-// group's B/C rows and runs the same scan_chunk as K1, S threads to a
+// group's B/C rows and runs scan_chunk (common.cuh), S threads to a
 // channel; states go through registers NS at a time, so any N <= 256 works.
 //
 // K4c, the carry-saving forward of training (replaces _build_pallas_fwd

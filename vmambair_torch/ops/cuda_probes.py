@@ -29,7 +29,7 @@ Counterparts of the TPU probes `tools/kseq.py`, `tools/kvariants.py` and
   transpose pair and in-kernel projections on (B, L, D) chunks.
 - `ld_fused` (csrc/oss_scan_fused.cu, K1 with the Ld layout policy):
   kldio's `_ld_kernel`, the projection-fused scan read and written
-  channels-last, (B, G, L, D).
+  channels-last, (B, G, L, D); one call is `K1_GRIDS` grids, as K1's.
 - `scan_dual_v22`, `scan_dual_v24`, `scan_dual_v26` (`scan_dual(form=)`
   dispatches to them) and `scan_cumsum` (csrc/scan_dual.cu): kvariants'
   separated-exponent scans, the matmul dual `kernel_v22` (v23: Z in
@@ -52,8 +52,9 @@ import torch.nn.functional as F
 from .. import _build
 from .._build import dtype_code, f32, no_grad_needed, on_cpu
 from .cuda_effn import MAX_C
-from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, k1_sizes, launch_views,
-                        oss_scan_fused_ref, scan_views_ref, view_shapes)
+from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, k1_sizes, launch_k1,
+                        launch_views, oss_scan_fused_ref, scan_views_ref,
+                        view_shapes)
 from .selective_scan import _hillis_scan, _prep, selective_scan_chunked
 
 PROBE_MAX_D = 256                # kprobe: the tile in shared memory
@@ -940,12 +941,8 @@ def ld_fused(u_gld, xw, dw, db, A, Ds, *, softplus=True, reverse=False):
     u = u_gld.contiguous()
     y = torch.empty_like(u)
     ws = [f32(t) for t in (xw, dw, db, A, Ds)]
-    _build.launch(
-        "vmt_oss_scan_fused_ld_fwd", u.device,
-        u.data_ptr(), dtype_code(u, "u_gld"), y.data_ptr(),
-        *(w.data_ptr() for w in ws),
-        b, g, d, l, N, R, int(bool(reverse)), int(bool(softplus)),
-    )
+    launch_k1("vmt_oss_scan_fused_ld_fwd", u, y, ws, (), (b, g, d, l, N, R),
+              reverse, softplus)
     ld_fused.launches += 1
     return y
 

@@ -46,7 +46,10 @@ MAX_SEQ_WIN = 16  # positions to a shared-memory window of scan_seq.cu
 # (440 bytes in the ptxas report for sm_90a), at 8 it does not
 K7_WIN = 8
 MAX_FUSED_D = 256
-MAX_FUSED_N = 32
+MAX_FUSED_N = 32  # states in registers of K1's passes 1 and 3
+# grids one K1 / K1c call launches: the projection, the segments, their
+# combine, the segments again (csrc/oss_scan_fused.cu)
+K1_GRIDS = 4
 # positions per chunk of the kernels (CH in csrc/common.cuh): the carries
 # of K1c/K4c and the chunk walk of K3 must agree on it
 CARRY_CHUNK = 32
@@ -56,8 +59,8 @@ K3_TILE = 8  # at most this many channels to a K3 block (K3_TMAX in C)
 def fused_scan_supported(d: int, N: int) -> bool:
     """Whether a spatial direction pair of width d takes K1 (the rest take
     K4), as `fused_scan_supported` decides it in JAX: the in-kernel
-    projection contracts over all d, so d stays at most 256; K1 holds the
-    group's x_proj weights in shared memory, so N stays at most 32."""
+    projection contracts over all d, so d stays at most 256; K1's scan
+    passes keep a channel's states in registers, so N stays at most 32."""
     return d <= MAX_FUSED_D and N <= MAX_FUSED_N
 
 
@@ -352,6 +355,41 @@ def oss_scan_fused_carries_ref(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
     return y.reshape(b, l, g, d).permute(0, 2, 3, 1).to(u2.dtype), carries
 
 
+def k1_segment(b: int, g: int, d: int, L: int) -> int:
+    """Positions to a segment of K1's scan passes: 1024 (the L-parallel
+    scan's best at the served forward's widest shape, PERF.md), halved
+    down to 256 while the grid, b * g * ceil(d / 4) * ceil(L / seg)
+    blocks of 4 warps, has fewer than 1056 (8 to each of the H100's 132
+    SMs)."""
+    seg = 1024
+    while seg > 256 and b * g * -(-d // 4) * -(-L // seg) < 1056:
+        seg //= 2
+    return seg
+
+
+def k1_workspace(b: int, g: int, d: int, L: int, N: int, seg: int) -> int:
+    """fp32 scratch of one K1 call, in floats: x_dbl's B and C rows (b, g,
+    2N, L), delta (b, g, d, L), and the segments' end states, decays and
+    entering states (b, g*d, ceil(L / seg), N) each."""
+    return b * g * L * (2 * N + d) + 3 * b * g * d * -(-L // seg) * N
+
+
+def launch_k1(name, u, y, weights, pointers, sizes, reverse, softplus):
+    """Launches K1's exported C function `name` (`vmt_oss_scan_fused_fwd`
+    or kldio's `vmt_oss_scan_fused_ld_fwd`) on contiguous CUDA tensors u
+    and y, with its scratch. `weights`: the five fp32 parameter tensors;
+    `pointers`: what the function takes after them (K1: the carries'
+    pointer or None; kldio's: nothing); `sizes`: (b, g, d, L, N, R)."""
+    b, g, d, L, N, R = sizes
+    seg = k1_segment(b, g, d, L)
+    work = torch.empty(k1_workspace(b, g, d, L, N, seg), dtype=torch.float32,
+                       device=u.device)
+    _build.launch(
+        name, u.device, u.data_ptr(), dtype_code(u, "u"), y.data_ptr(),
+        *(w.data_ptr() for w in weights), *pointers, work.data_ptr(),
+        b, g, d, L, N, R, seg, int(bool(reverse)), int(bool(softplus)))
+
+
 def k1_sizes(name, u, g, d, x_proj_w, dt_proj_w, dt_bias, A, Ds):
     """(N, R) of K1's parameters for G = g groups of d channels; raises
     where they disagree or K1 does not take them."""
@@ -377,13 +415,9 @@ def _launch_k1(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, softplus, reverse,
     carries = torch.empty(b, g * d, n_chunks(l), N, dtype=torch.float32,
                           device=u2.device) if with_carries else None
     ws = [f32(t) for t in (x_proj_w, dt_proj_w, dt_bias, A, Ds)]
-    _build.launch(
-        "vmt_oss_scan_fused_fwd", u2.device,
-        u2.data_ptr(), dtype_code(u2, "u2"), y.data_ptr(),
-        *(w.data_ptr() for w in ws),
-        None if carries is None else carries.data_ptr(),
-        b, g, d, l, N, R, int(bool(reverse)), int(bool(softplus)),
-    )
+    launch_k1("vmt_oss_scan_fused_fwd", u2, y, ws,
+              (None if carries is None else carries.data_ptr(),),
+              (b, g, d, l, N, R), reverse, softplus)
     return y, carries
 
 
@@ -392,7 +426,9 @@ def oss_scan_fused_fwd(u2, x_proj_w, dt_proj_w, dt_bias, A, Ds, *,
     """K1: projection-fused selective scan of G direction layouts, in the
     kernel's layout (JAX's `dl=True` form). u2 (B, G, D, L); x_proj_w
     (G, R+2N, D); dt_proj_w (G, D, R); dt_bias (G, D); A (G, D, N) (already
-    -exp(A_log)); Ds (G, D). Returns y (B, G, D, L) in u2's dtype."""
+    -exp(A_log)); Ds (G, D). Returns y (B, G, D, L) in u2's dtype. On CUDA
+    one call is K1_GRIDS grids (the projection, then the segmented scan)
+    and counts one launch."""
     args = (u2, x_proj_w, dt_proj_w, dt_bias, A, Ds)
     if on_cpu(*args):
         return oss_scan_fused_ref(*args, softplus=softplus, reverse=reverse)

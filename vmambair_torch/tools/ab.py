@@ -9,10 +9,11 @@ unpacked with `git archive` into a directory that `.gitignore` lists). The
 two trees run in turns, other, this, this, other, ... (`--rounds` pairs),
 each in a process of its own that imports `vmambair_torch` from its tree
 and builds that tree's kernels there. Each process prints one JSON row:
-the card ms of K1 (8, 2, 48, 16384) bf16, K2 (8, 48, 128, 128) bf16, K5
-(8, 96, 128, 128) bf16 and K3 on the fused scan's (8, 2, 96, 4096) fp32
-inputs (CUDA-event medians, each call queued behind a device sleep, as
-`tools.race` times), and the served
+the card ms of K1 at (8, 2, 48, 16384) and (8, 2, 96, 16384) bf16, K1c at
+(8, 2, 96, 4096) fp32, K2 (8, 48, 128, 128) bf16, K5 (8, 96, 128, 128)
+bf16 and K3 on K1c's (8, 2, 96, 4096) fp32 inputs and carries, each
+tree's own (CUDA-event medians, each call queued behind a device sleep,
+as `tools.race` times), and the served
 forward of MambaSISR6 (seeded random weights, 8 bf16 tiles of 128x128;
 host-clock ms per forward, median of `FORWARDS` after one warm-up). The
 last line is the per-tree median of every number over its processes.
@@ -21,7 +22,10 @@ With `--digests` each tree prints instead the sha256 of K1's outputs
 (y of `oss_scan_fused_fwd`, y and the carries of K1c) on seeded cases
 (`digests`), and the last line says which cases differ: a change that
 must leave K1's bits as they were is checked this way. `DIGESTS_FILE`
-keeps one tree's digests for `chip_smoke.py` to hold the current build to.
+keeps the recorded build's digests (its `made_on` names the build) for
+`chip_smoke.py` and a CUDA test to hold the current build to; a change
+that rightly changes K1's bits records them anew from this tree's row,
+after K1 passes every check against its plain version.
 
 Only names that every checkout of the port has are used, so this file runs
 against older trees: it is run by path, never imported from the other tree.
@@ -98,7 +102,21 @@ def _cases(torch):
           (dt + torch.log(-torch.expm1(-dt))).to(dev),
           -torch.arange(1, N + 1.0).expand(2, d, N).contiguous().to(dev),
           torch.ones(2, d, device=dev))
+    # K1 at the served forward's widest shape: (8, 2, 96, 16384) bf16
+    d, R = 96, 6
+    dt = torch.exp(torch.rand(2, d, generator=gen)
+                   * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    k1w = (torch.randn(8, 2, d, 16384, generator=gen).to(dev,
+                                                          torch.bfloat16),
+           ((torch.rand(2, R + 2 * N, d, generator=gen) * 2 - 1)
+            / d ** 0.5).to(dev),
+           ((torch.rand(2, d, R, generator=gen) * 2 - 1) / R ** 0.5).to(dev),
+           (dt + torch.log(-torch.expm1(-dt))).to(dev),
+           -torch.arange(1, N + 1.0).expand(2, d, N).contiguous().to(dev),
+           torch.ones(2, d, device=dev))
     return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
+            ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
+            ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
             ("k2_ms", lambda: cuda_effn.gdfn_residual_fwd(*k2)),
             ("k5_ms", lambda: cuda_effn.oss_front_fwd(*k5)),
             ("k3_ms", lambda: cuda_scan.selective_scan_bwd(
