@@ -18,10 +18,18 @@ non-zero, and without a CUDA device the script stops before any result:
    (median of repeats) for the kernel and the plain version, beside the
    least time the card could take (bound) at the case's shapes. K1 at the
    four shapes of a served forward ((8,2,96,16384), (8,2,48,16384),
-   (8,2,96,4096), (8,2,192,1024)) and K1c at the S1 step's (8,2,96,4096)
-   and (8,2,48,4096) fp32 are timed in every row, each with its bound and
-   its share of it; two K1 and two K1c calls on the same inputs at
-   (8,2,96,16384) bf16, forward and reverse, must give the same bits;
+   (8,2,96,4096), (8,2,192,1024)), K1c at the S1 step's (8,2,96,4096)
+   and (8,2,48,4096) fp32 and K3 at every fp32 shape of the S1 step (the
+   fused scans (8,4096,192), (8,4096,96), (8,1024,192), (8,256,384) both
+   ways, the latent (8,64,768) both ways, the channel scans (8,c,8)) are
+   timed in every row, each with its bound and its share of it, and K3's
+   device ms per grid at each shape by torch.profiler; K3 also over a
+   ragged L in many segments, reverse, and in ragged segments, forward;
+   two K1 and two K1c calls on the same inputs at (8,2,96,16384) bf16,
+   forward and reverse, must give the same bits, and K3's du, ddelta, dB
+   and dC on the seeded cases of `tools.ab` that fit one of its segments
+   the bits recorded from the chunk walk it replaced
+   (`vmambair_torch/tools/k3_digests.json`);
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
 4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
@@ -44,7 +52,9 @@ non-zero, and without a CUDA device the script stops before any result:
    memory), the launches of every step against the dispatch's
    prediction, finite losses falling from step 1 to step 6; save, resume
    into a new model, one more step on each: the same step; a
-   torch.profiler table of one step in `chiprun_out/train_profile.txt`.
+   torch.profiler table of one step in `OUT_DIR/train_profile.txt`, and
+   K3's launches in that step by shape, each times phase 3's ms at
+   the shape, against the profiler's K3 class.
 7. pipeline - `train_pipeline` with both OSS switches on (K5, K6) at the
    full size of the recipe, on a synthetic paired PNG dataset written by
    the port's encoder into `build/chip_smoke_data/` (16 pairs of 480x480
@@ -611,10 +621,12 @@ def _gdfn_bound(args):
     return bound(*keffn.work((b, h, w, c), x.dtype, w_out.shape[1]))
 
 
-def kernels_vs_plain() -> dict:
+def kernels_vs_plain() -> tuple[dict, dict]:
     """Each case: (kernel name, label, dtype, kernel call, plain call,
     compare(got, ref) -> max error, bound). The first case of each kernel
-    is its main-path shape: its times go into the kernels line."""
+    is its main-path shape: its times go into the kernels line. Returns
+    those stats and K3's ms by (b, L, D, G, reverse) at the S1 step's
+    shapes, for phase 6's account."""
     gen = torch.Generator().manual_seed(0)
     stats = {name: dict(max_abs_err=0.0, ms=None, plain_ms=None,
                         bound_ms=None, bound_by=None, library_ms=None)
@@ -646,8 +658,9 @@ def kernels_vs_plain() -> dict:
                        for n, g, r in zip(names, got, ref))
         return cmp
 
-    def add(name, label, dtype, kern, plain, cmp, bnd, timed=False):
-        cases.append((name, label, dtype, kern, plain, cmp, bnd, timed))
+    def add(name, label, dtype, kern, plain, cmp, bnd, timed=False,
+            key=None):
+        cases.append((name, label, dtype, kern, plain, cmp, bnd, timed, key))
 
     # serve: K1, K4, K2 (bf16 first: the serve dtype); K1 at the four
     # shapes of a served forward, each bf16 row timed
@@ -731,7 +744,26 @@ def kernels_vs_plain() -> dict:
                     lambda s=s, dy=dy, r=rev: cuda_scan
                     .selective_scan_bwd_ref(*s, dy, delta_softplus=True,
                                             reverse=r),
-                    bwd_cmp(f"K3 fused {lab} {dtype}"), _bwd_bound(s, dy))
+                    bwd_cmp(f"K3 fused {lab} {dtype}"), _bwd_bound(s, dy),
+                    timed=dtype == torch.float32,
+                    key=(b, L, 2 * d, 2, rev))
+        # K3 over a ragged L in 65 segments of 64, reverse, and in 8
+        # segments of 128 (the last of 104 positions), forward
+        for (b, d, L, rev) in ((2, 48, 4100, True), (8, 96, 1000, False)):
+            a = _fused_case(b, d, L, dtype, gen)
+            _, car = cuda_scan.oss_scan_fused_fwd_carries(*a, reverse=rev)
+            s, _ = cuda_scan.fused_scan_inputs(*a)
+            dy = torch.randn(b, 2 * d, L, generator=gen).to(
+                "cuda", dtype).transpose(1, 2)
+            seg = cuda_scan.k3_segment(b, 2 * d, cuda_scan.k3_tile(d), L)
+            lab = f"fused ({b},2,{d},{L}) rev={rev} in {-(-L // seg)} segments"
+            add("selective_scan_bwd", lab, dtype,
+                lambda s=s, dy=dy, c=car, r=rev: cuda_scan
+                .selective_scan_bwd(*s, dy, c, delta_softplus=True,
+                                    reverse=r),
+                lambda s=s, dy=dy, r=rev: cuda_scan.selective_scan_bwd_ref(
+                    *s, dy, delta_softplus=True, reverse=r),
+                bwd_cmp(f"K3 {lab} {dtype}"), _bwd_bound(s, dy))
         scans = [(f"latent (8,64,768) G=2 rev={rev}", rev,
                   _scan_case(8, 64, 768, dtype, gen)) for rev in (False, True)]
         scans += [(f"channel scan (8,{c},8) G=2", False,
@@ -755,9 +787,12 @@ def kernels_vs_plain() -> dict:
                     *a, dy, c, delta_softplus=True, reverse=r),
                 lambda a=a, dy=dy, r=rev: cuda_scan.selective_scan_bwd_ref(
                     *a, dy, delta_softplus=True, reverse=r),
-                bwd_cmp(f"K3 {lab} {dtype}"), _bwd_bound(a, dy))
+                bwd_cmp(f"K3 {lab} {dtype}"), _bwd_bound(a, dy),
+                timed=dtype == torch.float32,
+                key=(*a[0].shape, a[3].shape[2], rev))
 
-    for name, label, dtype, kern, plain, cmp, bnd, timed in cases:
+    k3_calls, k3_ms = {}, {}
+    for name, label, dtype, kern, plain, cmp, bnd, timed, key in cases:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -767,19 +802,69 @@ def kernels_vs_plain() -> dict:
         st["max_abs_err"] = max(st["max_abs_err"], err)
         line = (f"[kernels] {name} {label} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e}")
+        ms = None
         if st["ms"] is None:  # the first case: the main path's shape
             st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=3)
             st["terms"] = bnd
+            ms = st["ms"]
             line += (f"; kernel {st['ms']:.3f} ms, plain "
                      f"{st['plain_ms']:.3f} ms")
             line += bound_share(bnd, st["ms"])
         elif timed:
             ms = time_ms(kern)
             line += f"; kernel {ms:.3f} ms" + bound_share(bnd, ms)
+        if key is not None and ms is not None:
+            k3_ms[key] = ms
+            k3_calls[key] = kern
         print(line)
+    k3_grids(k3_calls)
+    del cases, k3_calls
     k1_deterministic(gen)
+    k3_recorded_bits()
     torch.cuda.empty_cache()
-    return stats
+    return stats, k3_ms
+
+
+def k3_grids(calls):
+    """K3's device ms per grid at each timed shape of the S1 step: one
+    call under torch.profiler (the segments, their combine, the main pass,
+    and the wrapper's sums of the partials)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for key, kern in calls.items():
+        kern()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern()
+            torch.cuda.synchronize()
+        rows = {}
+        for r in prof.key_averages():
+            if r.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            k = next((g for g in ("selective_scan_bwd_seg_kernel",
+                                  "selective_scan_bwd_combine",
+                                  "selective_scan_bwd_kernel")
+                      if g in r.key), "sums of the partials")
+            rows[k] = rows.get(k, 0.0) + r.self_device_time_total / 1e3
+        b, L, D, G, rev = key
+        print(f"[kernels] K3 ({b},{L},{D}) G={G} rev={rev} per grid (ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in rows.items()))
+
+
+def k3_recorded_bits():
+    """K3's du, ddelta, dB and dC on the seeded cases of `tools.ab` that
+    fit one of its segments: the bits recorded from the chunk walk."""
+    with open(ab.K3_DIGESTS_FILE) as f:
+        want = json.load(f)
+    got = ab.k3_digests()
+    differ = sorted(k for k in want["digests"]
+                    if got.get(k) != want["digests"][k])
+    if differ or got.keys() != want["digests"].keys():
+        raise SystemExit(f"FAIL K3 within one segment: {len(differ)} of "
+                         f"{len(want['digests'])} digests differ from the "
+                         f"recorded build: {differ}")
+    print(f"[kernels] K3 within one segment: all {len(got)} seeded outputs "
+          f"bit-identical to the recorded build ({want['made_on']})")
 
 
 def bound_share(bnd, ms) -> str:
@@ -1039,7 +1124,8 @@ def race(ups, net, rounds=6) -> dict:
 # device kernels by class, for the "where the time goes" tables: the
 # first class whose key is in the kernel's name takes it
 KERNEL_CLASSES = (
-    ("K3 scan backward", ("selective_scan_bwd_kernel",)),
+    # K3's grids: selective_scan_bwd_seg_kernel, _combine, _kernel
+    ("K3 scan backward", ("selective_scan_bwd",)),
     ("K1/K1c fused scan", ("oss_scan_fused", "OssFusedScan")),
     ("K4/K4c scan", ("selective_scan_kernel",)),
     ("K2 GDFN", ("gdfn_kernel",)),
@@ -1097,6 +1183,7 @@ def profile(name, fn):
         f.write(table + "\n" + summary + "\n")
     print("\n".join(table.splitlines()[:25]))
     print(summary)
+    return by_class
 
 
 # -- phase 6: train ------------------------------------------------------------
@@ -1109,7 +1196,7 @@ def _train_batch():
     return {"lq": lq, "gt": gt}
 
 
-def train() -> dict:
+def train(k3_ms) -> dict:
     # checkpoints go to the git-ignored build/, not to the output directory
     root = os.path.join("build", "chip_smoke_train")
     shutil.rmtree(root, ignore_errors=True)
@@ -1178,8 +1265,53 @@ def train() -> dict:
     del other
     shutil.rmtree(root)
     torch.cuda.empty_cache()
-    profile("train", lambda: model.optimize_parameters(8))
+    tally = {}
+    with k3_shapes(tally):
+        by_class = profile("train", lambda: model.optimize_parameters(8))
+    k3_account(tally, k3_ms, by_class.get("K3 scan backward", 0.0))
     return counts
+
+
+@contextlib.contextmanager
+def k3_shapes(tally):
+    """Counts K3's calls by (b, L, D, G, reverse) into `tally`, through a
+    stand-in for the wrapper in `cuda_scan` (the autograd Functions look
+    it up there at each call). The wrapper counts its launches on the
+    name it looks up, the stand-in while it is in place, so the count
+    passes through it and back."""
+    real = cuda_scan.selective_scan_bwd
+
+    def counted(u, delta, A, B, C, *args, reverse=False, **kw):
+        key = (*u.shape, B.shape[2], bool(reverse))
+        tally[key] = tally.get(key, 0) + 1
+        return real(u, delta, A, B, C, *args, reverse=reverse, **kw)
+
+    counted.launches = real.launches
+    cuda_scan.selective_scan_bwd = counted
+    try:
+        yield
+    finally:
+        cuda_scan.selective_scan_bwd = real
+        real.launches = counted.launches
+
+
+def k3_account(tally, k3_ms, profiled_ms):
+    """K3's launches in one S1 step by shape, each times phase 3's card
+    ms at that shape (`k3_ms`: CUDA events, one call alone), against the
+    device ms of the profiler's K3 class in the same step."""
+    total, parts = 0.0, []
+    for key, n in sorted(tally.items(), key=lambda kv: -kv[1]):
+        b, L, D, G, rev = key
+        ms = k3_ms.get(key)
+        if ms is None:
+            parts.append(f"({b},{L},{D}) G={G} rev={rev}: {n} x not timed")
+            continue
+        total += n * ms
+        parts.append(f"({b},{L},{D}) G={G} rev={rev}: {n} x {ms:.4f} = "
+                     f"{n * ms:.2f} ms")
+    print(f"[train] K3 per step by shape: " + "; ".join(parts)
+          + f"; sum {total:.1f} ms against the profiler's K3 class "
+          f"{profiled_ms:.1f} ms ({sum(tally.values())} launches)")
 
 
 # -- phase 7: the pipeline ----------------------------------------------------
@@ -1985,12 +2117,12 @@ def main():
     os.environ.pop("VMAMBAIR_EFFN_FUSED", None)
     probe()
     build()
-    stats = kernels_vs_plain()
+    stats, k3_ms = kernels_vs_plain()
     for fused in (False, True):
         model_vs_plain(fused)
         model_grads_vs_plain(fused)
     serve_counts = serve()
-    train_counts = train()
+    train_counts = train(k3_ms)
     pipe_counts = pipeline()
     torch.cuda.empty_cache()
     t8 = time.perf_counter()

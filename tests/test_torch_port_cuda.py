@@ -381,6 +381,168 @@ def test_scan_backward_is_deterministic_on_the_growing_recipe(cuda, seed):
         assert torch.equal(a, b)
 
 
+def _k3_args(cuda, b, L, D, G, N, dtype, seed, full, layout):
+    """K3's inputs, u, delta, B, C and dy in `dtype`: laid out as the fused
+    scans pass them (layout "dl": (b, L, D) views of (b, D, L) buffers, B
+    and C (b, L, G, N) views of (b, G, N, L)) or contiguous, as the
+    channel scans do ("ld"). full: with D, a bias and softplus; else the
+    raw delta is |N(0, 1)| (a decaying state)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def act(pos=False):
+        t = torch.randn(b, D, L, generator=g)
+        t = t.abs() if pos else t
+        if layout == "dl":
+            return t.to(cuda, dtype).transpose(1, 2)
+        return t.transpose(1, 2).contiguous().to(cuda, dtype)
+
+    def rows():
+        t = torch.randn(b, G, N, L, generator=g)
+        if layout == "dl":
+            return t.to(cuda, dtype).permute(0, 3, 1, 2)
+        return t.permute(0, 3, 1, 2).contiguous().to(cuda, dtype)
+
+    u, delta = act(), act(pos=not full)
+    A = -torch.exp(torch.rand(D, N, generator=g)).to(cuda)
+    B, C = rows(), rows()
+    Dsk = torch.randn(D, generator=g).to(cuda) if full else None
+    bias = (torch.rand(D, generator=g) - 2).to(cuda) if full else None
+    return [u, delta, A, B, C, Dsk, bias], act()
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,L,D,G,N,layout,seg", [
+    (2, 1000, 16, 2, 16, "dl", None),  # 16 segments, the last of 40
+    (1, 77, 16, 2, 16, "ld", None),    # 2 segments, the last 13 positions
+    (2, 20, 16, 2, 16, "dl", None),    # L below a chunk: one segment
+    (1, 333, 6, 2, 5, "ld", 96),       # segments of 3 chunks, 3 channels
+    (2, 300, 48, 2, 40, "dl", 32),     # segments of a chunk, N over a pass
+])
+def test_k3_segments_match_plain(cuda, monkeypatch, b, L, D, G, N, layout,
+                                 seg, reverse, dtype, full):
+    """K3 over several segments (the segment of `k3_segment`, or one set
+    here), with a ragged last segment and chunk, and within one segment
+    shorter than a chunk; forward and reverse, fp32 and bf16 inputs, G =
+    2, D, bias and softplus on and off: all seven outputs within 5x the
+    fp32 envelope of the plain version, one launch per call."""
+    if seg:
+        monkeypatch.setattr(cuda_scan, "k3_segment", lambda *sizes: seg)
+    args, dy = _k3_args(cuda, b, L, D, G, N, dtype, L + D + N, full, layout)
+    kw = dict(delta_softplus=full, reverse=reverse)
+    _, car = cuda_scan.selective_scan_fwd_carries(*args, **kw)
+    n0 = cuda_scan.selective_scan_bwd.launches
+    got = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+    assert cuda_scan.selective_scan_bwd.launches == n0 + 1
+    ref = cuda_scan.selective_scan_bwd_ref(*args, dy, **kw)
+    for name, a, r in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dbias"),
+                          got, ref):
+        if r is None:
+            assert a is None, name
+        else:
+            torch.testing.assert_close(a, r, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("seed", [0, 47])
+def test_k3_segments_within_the_conditioned_bound(cuda, monkeypatch, seed,
+                                                  reverse):
+    """ROADMAP F2 over segments: on a growing state (raw delta 0.5 N(0, 1),
+    no D, bias or softplus) at L = 232 in 4 segments of 64, the last of
+    40, every gradient within C_BOUND n u32 kappa of the fp64 oracle (a
+    reverse scan held as the forward scan of the flipped sequence), as
+    `test_torch_port_k3_segments.py` holds K3's order on the CPU."""
+    from f2_bound import bound_ratios
+
+    monkeypatch.setattr(cuda_scan, "k3_segment", lambda *sizes: 64)
+    g = torch.Generator().manual_seed(seed)
+    args = [torch.randn(2, 232, 16, generator=g),
+            0.5 * torch.randn(2, 232, 16, generator=g),
+            -torch.exp(torch.rand(16, 16, generator=g)),
+            torch.randn(2, 232, 2, 16, generator=g),
+            torch.randn(2, 232, 2, 16, generator=g), None, None]
+    dy = torch.randn(2, 232, 16, generator=g)
+    dev = [None if t is None else t.to(cuda) for t in args]
+    _, car = cuda_scan.selective_scan_fwd_carries(*dev, reverse=reverse)
+    got = [t.cpu() for t in cuda_scan.selective_scan_bwd(
+        *dev, dy.to(cuda), car, reverse=reverse)[:5]]
+    orc = cuda_scan.selective_scan_bwd_ref(
+        *[None if t is None else t.double() for t in args], dy.double(),
+        reverse=reverse)[:5]
+    if reverse:
+        def fl(gr):
+            return [gr[0].flip(1), gr[1].flip(1), gr[2], gr[3].flip(1),
+                    gr[4].flip(1)]
+        got, orc = fl(got), fl(orc)
+        args = [args[0].flip(1), args[1].flip(1), args[2], args[3].flip(1),
+                args[4].flip(1)]
+        dy = dy.flip(1)
+    ratios = bound_ratios(got, orc, args[:5], dy)
+    print(f"K3 over segments, seed {seed} reverse={reverse}: error over the "
+          f"conditioned bound {[f'{r:.3g}' for r in ratios]}")
+    assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k3_takes_bf16_views_at_odd_offsets(cuda, reverse):
+    """bf16 inputs staged in 4-byte words: u, delta, dy, B and C as views
+    that start at an odd element of a wider buffer (so half of their
+    elements sit in the upper half of a word), over 3 segments: all seven
+    outputs within 5x the fp32 envelope of the plain version."""
+    g = torch.Generator().manual_seed(11)
+    b, L, D, G, N = 2, 150, 16, 2, 16
+
+    def view(*shape):
+        t = torch.randn(*shape[:-1], shape[-1] + 1, generator=g)
+        return t.to(cuda, torch.bfloat16)[..., 1:]
+
+    u, delta, dy = view(b, L, D), view(b, L, D), view(b, L, D)
+    B, C = view(b, L, G, N), view(b, L, G, N)
+    args = [u, delta, -torch.exp(torch.rand(D, N, generator=g)).to(cuda),
+            B, C, torch.randn(D, generator=g).to(cuda),
+            (torch.rand(D, generator=g) - 2).to(cuda)]
+    assert u.storage_offset() % 2 == 1
+    kw = dict(delta_softplus=True, reverse=reverse)
+    assert -(-L // cuda_scan.k3_segment(b, D, 8, L)) == 3
+    _, car = cuda_scan.selective_scan_fwd_carries(*args, **kw)
+    got = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+    ref = cuda_scan.selective_scan_bwd_ref(*args, dy, **kw)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **GRAD_TOL)
+
+
+def test_k3_is_deterministic_over_segments(cuda):
+    """Fixed orders only, no atomics: two calls over 9 segments (the last
+    of 4 positions) give the same bits, forward and reverse."""
+    args, dy = _k3_args(cuda, 8, 4100, 192, 2, 16, torch.float32, 9, True,
+                        "dl")
+    assert cuda_scan.k3_segment(8, 192, 8, 4100) == 512
+    for rev in (False, True):
+        kw = dict(delta_softplus=True, reverse=rev)
+        _, car = cuda_scan.selective_scan_fwd_carries(*args, **kw)
+        got = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+        again = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+def test_k3_keeps_the_recorded_bits_in_one_segment(cuda):
+    """Where L fits one segment, K3's du, ddelta, dB and dC are the bits
+    recorded from the chunk walk it replaced (`tools/k3_digests.json`,
+    made by `python -m vmambair_torch.tools.ab --other DIR --digests` on
+    that walk's tree)."""
+    import json
+
+    from vmambair_torch.tools import ab
+
+    with open(ab.K3_DIGESTS_FILE) as f:
+        want = json.load(f)["digests"]
+    got = ab.k3_digests()
+    assert got.keys() == want.keys()
+    assert [k for k in got if got[k] != want[k]] == []
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_autograd_scans_match_plain_path(cuda, reverse):
     """The autograd Functions (K1c/K4c forward, K3 backward) against

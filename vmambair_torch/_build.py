@@ -85,7 +85,9 @@ SIGNATURES = {
         _P, _P,                                  # Dskip, bias
         _P, _I, _LL, _LL, _LL,                   # dy (B, L, D)
         _P, _P, _P, _P, _P, _P, _P, _P,          # carries, du .. dbias
-        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B L D G N T rev sp stream
+        _P,                                      # work (scratch) or None
+        _I, _I, _I, _I, _I, _I,                  # B L D G N T
+        _I, _I, _I, _P,                          # seg rev sp stream
     ],
     "vmt_scan_seq_fwd": [
         _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)

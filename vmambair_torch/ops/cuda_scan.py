@@ -51,9 +51,10 @@ MAX_FUSED_N = 32  # states in registers of K1's passes 1 and 3
 # combine, the segments again (csrc/oss_scan_fused.cu)
 K1_GRIDS = 4
 # positions per chunk of the kernels (CH in csrc/common.cuh): the carries
-# of K1c/K4c and the chunk walk of K3 must agree on it
+# of K1c/K4c and the chunks K3 recomputes from them must agree on it
 CARRY_CHUNK = 32
 K3_TILE = 8  # at most this many channels to a K3 block (K3_TMAX in C)
+K3_MIN_SEG = 64  # K3 cuts no segment shorter than two chunks
 
 
 def fused_scan_supported(d: int, N: int) -> bool:
@@ -267,6 +268,36 @@ selective_scan_ld_fwd.launches = 0
 
 # -- K3: the scan backward -----------------------------------------------------
 
+def k3_tile(dg: int) -> int:
+    """Channels to a K3 block (one warp each): the largest divisor of the
+    group's width dg up to K3_TILE. It sets the layout of the dB/dC
+    partials, (B, D / T, N, L), and so the order of their sum."""
+    return max(t for t in range(1, min(dg, K3_TILE) + 1) if dg % t == 0)
+
+
+def k3_segment(b: int, D: int, T: int, L: int) -> int:
+    """Positions to a segment of K3. One segment of 1024 where L fits it
+    and its grid, b * (D / T) blocks of T warps, gives each of the H100's
+    132 SMs two: K3 then runs only its main pass, from dh = 0, and spares
+    pass 1 and the combine. Else 1024, halved down to K3_MIN_SEG (64)
+    while the grid, b * (D / T) * ceil(L / seg) blocks, has fewer than
+    1056 (8 to each SM)."""
+    tiles = b * (D // T)
+    seg = 1024
+    if L <= seg and tiles >= 264:
+        return seg
+    while seg > K3_MIN_SEG and tiles * -(-L // seg) < 1056:
+        seg //= 2
+    return seg
+
+
+def k3_workspace(b: int, D: int, L: int, N: int, seg: int) -> int:
+    """fp32 scratch of a K3 call over more than one segment, in floats:
+    each segment's handed-on dh, its decay and its entering dh, (b, D,
+    ceil(L / seg), N) each."""
+    return 3 * b * D * -(-L // seg) * N
+
+
 def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy, carries, *,
                        delta_softplus=False, reverse=False):
     """K3: the gradients of `sum(y * dy)` for y = selective_scan(u, delta,
@@ -274,7 +305,10 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy, carries, *,
     output of K4c/K1c on the same inputs. Returns (du, ddelta, dA, dB, dC,
     dD, dbias) in fp32, shaped as the inputs (du, ddelta as (B, L, D) views
     of (B, D, L) buffers); ddelta is the gradient of the raw delta; dD and
-    dbias are None where D and delta_bias are."""
+    dbias are None where D and delta_bias are. On CUDA one call is one to
+    three grids (`csrc/selective_scan_bwd.cu`: the segments from zero and
+    their combine where L spans more than one segment of `k3_segment`,
+    then the main pass) and counts one launch."""
     args = (u, delta, A, B, C, D, delta_bias)
     if on_cpu(*args, dy, carries):
         return selective_scan_bwd_ref(*args, dy,
@@ -292,17 +326,19 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy, carries, *,
             f"{carries.dtype}; the kernels' chunk of {CARRY_CHUNK} needs "
             f"contiguous fp32 {(bsz, dim, n_chunks(L), N)}")
     dg = dim // G
-    # channels to a K3 block: the largest divisor of the group's width up
-    # to K3_TILE; it sets the layout of the dB/dC partials
-    T = max(t for t in range(1, min(dg, K3_TILE) + 1) if dg % t == 0)
+    T = k3_tile(dg)
+    seg = k3_segment(bsz, dim, T, L)
+    nseg = -(-L // seg)
     dev = u.device
     du = torch.empty(bsz, dim, L, device=dev)
     ddl = torch.empty(bsz, dim, L, device=dev)
     dBp = torch.empty(bsz, dim // T, N, L, device=dev)
     dCp = torch.empty(bsz, dim // T, N, L, device=dev)
-    dAp = torch.empty(bsz, dim, N, device=dev)
-    dDp = torch.empty(bsz, dim, device=dev)
-    dbp = torch.empty(bsz, dim, device=dev)
+    dAp = torch.empty(bsz, nseg, dim, N, device=dev)
+    dDp = torch.empty(bsz, nseg, dim, device=dev)
+    dbp = torch.empty(bsz, nseg, dim, device=dev)
+    work = (torch.empty(k3_workspace(bsz, dim, L, N, seg), device=dev)
+            if nseg > 1 else None)
     A32 = f32(A)
     D32 = None if D is None else f32(D)
     b32 = None if delta_bias is None else f32(delta_bias)
@@ -318,15 +354,19 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy, carries, *,
         dy.data_ptr(), dtype_code(dy, "dy"), *dy.stride(),
         carries.data_ptr(), du.data_ptr(), ddl.data_ptr(), dBp.data_ptr(),
         dCp.data_ptr(), dAp.data_ptr(), dDp.data_ptr(), dbp.data_ptr(),
-        bsz, L, dim, G, N, T, int(bool(reverse)), int(bool(delta_softplus)),
+        None if work is None else work.data_ptr(),
+        bsz, L, dim, G, N, T, seg, int(bool(reverse)),
+        int(bool(delta_softplus)),
     )
     selective_scan_bwd.launches += 1
-    # partials: channel tiles of a group, then batch (as `_scan_bwd_dl`)
+    # partials: channel tiles of a group, then batch and segment (as
+    # `_scan_bwd_dl`)
     dB = dBp.view(bsz, G, dg // T, N, L).sum(2).permute(0, 3, 1, 2)
     dC = dCp.view(bsz, G, dg // T, N, L).sum(2).permute(0, 3, 1, 2)
-    return (du.transpose(1, 2), ddl.transpose(1, 2), dAp.sum(0), dB, dC,
-            None if D is None else dDp.sum(0),
-            None if delta_bias is None else dbp.sum(0))
+    return (du.transpose(1, 2), ddl.transpose(1, 2),
+            dAp.view(bsz * nseg, dim, N).sum(0), dB, dC,
+            None if D is None else dDp.view(bsz * nseg, dim).sum(0),
+            None if delta_bias is None else dbp.view(bsz * nseg, dim).sum(0))
 
 
 selective_scan_bwd.launches = 0

@@ -11,21 +11,26 @@ each in a process of its own that imports `vmambair_torch` from its tree
 and builds that tree's kernels there. Each process prints one JSON row:
 the card ms of K1 at (8, 2, 48, 16384) and (8, 2, 96, 16384) bf16, K1c at
 (8, 2, 96, 4096) fp32, K2 (8, 48, 128, 128) bf16, K5 (8, 96, 128, 128)
-bf16 and K3 on K1c's (8, 2, 96, 4096) fp32 inputs and carries, each
-tree's own (CUDA-event medians, each call queued behind a device sleep,
-as `tools.race` times), and the served
+bf16, K3 at every shape of the S1 step (on K1c's fp32 inputs and
+carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48, 4096), (8, 2,
+96, 1024) and (8, 2, 192, 256); on K4c's at the latent (8, 64, 768) and
+the channel scans (8, c, 8), c = 48, 96, 192, 384), each tree's own
+(CUDA-event medians, each call queued behind a device sleep, as
+`tools.race` times), and the served
 forward of MambaSISR6 (seeded random weights, 8 bf16 tiles of 128x128;
 host-clock ms per forward, median of `FORWARDS` after one warm-up). The
 last line is the per-tree median of every number over its processes.
 
 With `--digests` each tree prints instead the sha256 of K1's outputs
 (y of `oss_scan_fused_fwd`, y and the carries of K1c) on seeded cases
-(`digests`), and the last line says which cases differ: a change that
-must leave K1's bits as they were is checked this way. `DIGESTS_FILE`
-keeps the recorded build's digests (its `made_on` names the build) for
-`chip_smoke.py` and a CUDA test to hold the current build to; a change
-that rightly changes K1's bits records them anew from this tree's row,
-after K1 passes every check against its plain version.
+(`digests`) and of K3's du, ddelta, dB and dC on seeded cases that fit
+one of its segments (`k3_digests`), and the last line says which cases
+differ: a change that must leave K1's or K3's bits as they were is
+checked this way. `DIGESTS_FILE` and `K3_DIGESTS_FILE` keep the recorded
+builds' digests (their `made_on` names the build) for `chip_smoke.py`
+and a CUDA test to hold the current build to; a change that rightly
+changes K1's bits records them anew from this tree's row, after K1
+passes every check against its plain version.
 
 Only names that every checkout of the port has are used, so this file runs
 against older trees: it is run by path, never imported from the other tree.
@@ -51,6 +56,17 @@ HOLD_CYCLES = 1_000_000   # as tools.HOLD_CYCLES: about 0.5 ms of device sleep
 DIGEST_SHAPES = ((2, 48, 4096), (2, 96, 1000), (1, 202, 300), (2, 256, 64))
 DIGESTS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "k1_digests.json")
+# K3's digest cases (b, L, D, G, N, dtype, with D skip, bias and softplus):
+# each within one segment of K3 (the F2 recipe's shape first; a ragged L
+# below a chunk; N over a pass of 16 states; 32 chunks walked in one block)
+K3_DIGEST_CASES = ((2, 40, 16, 2, 16, "float32", False),
+                   (2, 20, 16, 2, 16, "float32", True),
+                   (2, 64, 48, 2, 16, "float32", True),
+                   (2, 64, 48, 2, 16, "bfloat16", True),
+                   (1, 64, 24, 4, 200, "float32", True),
+                   (8, 1024, 1152, 2, 16, "float32", True))
+K3_DIGESTS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "k3_digests.json")
 
 
 def _cases(torch):
@@ -114,13 +130,57 @@ def _cases(torch):
            (dt + torch.log(-torch.expm1(-dt))).to(dev),
            -torch.arange(1, N + 1.0).expand(2, d, N).contiguous().to(dev),
            torch.ones(2, d, device=dev))
+    k3 = _k3_cases(torch, cuda_scan)
     return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
             ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
             ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
             ("k2_ms", lambda: cuda_effn.gdfn_residual_fwd(*k2)),
             ("k5_ms", lambda: cuda_effn.oss_front_fwd(*k5)),
             ("k3_ms", lambda: cuda_scan.selective_scan_bwd(
-                *s, dy, car, delta_softplus=True))]
+                *s, dy, car, delta_softplus=True))] + [
+        (name, lambda a=a: cuda_scan.selective_scan_bwd(
+            *a, delta_softplus=True)) for name, a in k3]
+
+
+def _k3_cases(torch, cuda_scan):
+    """(name, K3's arguments) at the S1 step's other shapes: K1c's inputs
+    and carries on a direction pair (8, 2, d, L) fp32, K4c's on the latent
+    and the channel scans, from a generator of their own."""
+    gen = torch.Generator().manual_seed(3)
+    dev, N, out = "cuda", 16, []
+    for name, d, L in (("k3_48_ms", 48, 4096), ("k3_1024_ms", 96, 1024),
+                       ("k3_256_ms", 192, 256)):
+        R = -(-d // 16)
+        dt = torch.exp(torch.rand(2, d, generator=gen)
+                       * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        fused = (torch.randn(8, 2, d, L, generator=gen).to(dev),
+                 ((torch.rand(2, R + 2 * N, d, generator=gen) * 2 - 1)
+                  / d ** 0.5).to(dev),
+                 ((torch.rand(2, d, R, generator=gen) * 2 - 1)
+                  / R ** 0.5).to(dev),
+                 (dt + torch.log(-torch.expm1(-dt))).to(dev),
+                 -torch.arange(1, N + 1.0).expand(2, d, N).contiguous()
+                 .to(dev), torch.ones(2, d, device=dev))
+        _, car = cuda_scan.oss_scan_fused_fwd_carries(*fused)
+        s, _ = cuda_scan.fused_scan_inputs(*fused)
+        dy = torch.randn(8, 2 * d, L, generator=gen).to(dev).transpose(1, 2)
+        out.append((name, (*s, dy, car)))
+    for name, L, D in (("k3_latent_ms", 64, 768), ("k3_ch48_ms", 48, 8),
+                       ("k3_ch96_ms", 96, 8), ("k3_ch192_ms", 192, 8),
+                       ("k3_ch384_ms", 384, 8)):
+        a = (torch.randn(8, L, D, generator=gen),
+             torch.randn(8, L, D, generator=gen),
+             -torch.exp(torch.rand(D, N, generator=gen) * 2),
+             torch.randn(8, L, 2, N, generator=gen),
+             torch.randn(8, L, 2, N, generator=gen),
+             torch.randn(D, generator=gen),
+             torch.rand(D, generator=gen) * 2 - 3)
+        a = tuple(t.to(dev) for t in a)
+        _, car = cuda_scan.selective_scan_fwd_carries(*a,
+                                                      delta_softplus=True)
+        dy = torch.randn(8, L, D, generator=gen).to(dev)
+        out.append((name, (*a, dy, car)))
+    return out
 
 
 def _sha(t) -> str:
@@ -162,6 +222,42 @@ def digests() -> dict:
                     *args, reverse=rev)
                 out[key + " K1c y"] = _sha(y)
                 out[key + " K1c carries"] = _sha(car)
+    return out
+
+
+def k3_digests() -> dict:
+    """label -> sha256 of the bytes of K3's du, ddelta, dB and dC for every
+    K3_DIGEST_CASES case, forward and reverse, the inputs drawn on the host
+    from a generator seeded per case (u, delta, dy as (b, L, D) views of (b,
+    D, L) buffers, as the fused scans pass them), the carries K4c's."""
+    import torch
+    from vmambair_torch.ops import cuda_scan
+    out = {}
+    for b, L, D, G, N, dt, full in K3_DIGEST_CASES:
+        gen = torch.Generator().manual_seed(b * 10 ** 7 + L * 10 ** 4 + D)
+        dtype = getattr(torch, dt)
+
+        def act():
+            return torch.randn(b, D, L, generator=gen).to(
+                "cuda", dtype).transpose(1, 2)
+        u, delta = act(), act()
+        A = -torch.exp(torch.rand(D, N, generator=gen)).to("cuda")
+        B, C = (torch.randn(b, L, G, N, generator=gen).to("cuda", dtype)
+                for _ in range(2))
+        Dsk = torch.randn(D, generator=gen).to("cuda") if full else None
+        bias = (torch.rand(D, generator=gen) - 2).to("cuda") if full \
+            else None
+        dy = act()
+        for rev in (False, True):
+            kw = dict(delta_softplus=full, reverse=rev)
+            _, car = cuda_scan.selective_scan_fwd_carries(
+                u, delta, A, B, C, Dsk, bias, **kw)
+            grads = cuda_scan.selective_scan_bwd(u, delta, A, B, C, Dsk, bias,
+                                                 dy, car, **kw)
+            key = f"K3 ({b},{L},{D}) G={G} N={N} {dt} full={full} rev={rev}"
+            for name, g in zip(("du", "ddelta", "dB", "dC"),
+                               (grads[0], grads[1], grads[3], grads[4])):
+                out[f"{key} {name}"] = _sha(g)
     return out
 
 
@@ -232,8 +328,8 @@ def main(argv=None):
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(digests() if args.digests else child()),
-              flush=True)
+        print(json.dumps({**digests(), **k3_digests()} if args.digests
+                         else child()), flush=True)
         return
     if not args.other:
         ap.error("--other DIR is needed")
