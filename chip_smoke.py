@@ -18,15 +18,23 @@ non-zero, and without a CUDA device the script stops before any result:
    (median of repeats) for the kernel and the plain version, beside the
    least time the card could take (bound) at the case's shapes. K1 at the
    four shapes of a served forward ((8,2,96,16384), (8,2,48,16384),
-   (8,2,96,4096), (8,2,192,1024)), K1c at the S1 step's (8,2,96,4096)
-   and (8,2,48,4096) fp32 and K3 at every fp32 shape of the S1 step (the
+   (8,2,96,4096), (8,2,192,1024)), K2 at the five of a served forward
+   in bf16 ((8,96,128,128) first, the main shape; its tensor-core route)
+   and the five of the S1 step in fp32 ((8,48,64,64), (8,96,64,64),
+   (8,96,32,32), (8,192,16,16), (8,384,8,8); its CUDA-core route), each
+   beside its plain version (the cuDNN composite), K1c at the S1 step's
+   (8,2,96,4096) and (8,2,48,4096) fp32 and K3 at every fp32 shape of
+   the S1 step (the
    fused scans (8,4096,192), (8,4096,96), (8,1024,192), (8,256,384) both
    ways, the latent (8,64,768) both ways, the channel scans (8,c,8)) are
    timed in every row, each with its bound and its share of it, and K3's
-   device ms per grid at each shape by torch.profiler; K3 also over a
+   device ms per grid at each shape by torch.profiler; K2 also at the
+   CUDA tests' ragged shapes (every width class, C no multiple of 16, H
+   and W no multiple of the tiles, odd W); K3 also over a
    ragged L in many segments, reverse, and in ragged segments, forward;
    two K1 and two K1c calls on the same inputs at (8,2,96,16384) bf16,
-   forward and reverse, must give the same bits, and K3's du, ddelta, dB
+   forward and reverse, and two K2 calls at (8,96,128,128) bf16 and
+   (8,96,64,64) fp32 must give the same bits, and K3's du, ddelta, dB
    and dC on the seeded cases of `tools.ab` that fit one of its segments
    the bits recorded from the chunk walk it replaced
    (`vmambair_torch/tools/k3_digests.json`);
@@ -44,7 +52,9 @@ non-zero, and without a CUDA device the script stops before any result:
    card); checks the output shapes, mode, finiteness and that each kernel
    launched exactly as often as the dispatch predicts for the 4 forwards;
    then a torch.profiler table of one more request is printed (top rows)
-   and written to `chiprun_out/serve_profile.txt`;
+   and written to `chiprun_out/serve_profile.txt`, and K2's launches in
+   that request by shape, each times phase 3's ms at the shape, against
+   the profiler's K2 class;
 6. train  - full-size MambaSISR6 through `build_model` with the recipe of
    `options/MambaSISR15_x4.yml` (L1, Adam 2e-4 (0.9, 0.99), EMA 0.999,
    MultiStepLR), fp32, on one fixed seeded batch of 8 64x64 LQ / 256x256
@@ -53,8 +63,8 @@ non-zero, and without a CUDA device the script stops before any result:
    prediction, finite losses falling from step 1 to step 6; save, resume
    into a new model, one more step on each: the same step; a
    torch.profiler table of one step in `OUT_DIR/train_profile.txt`, and
-   K3's launches in that step by shape, each times phase 3's ms at
-   the shape, against the profiler's K3 class.
+   K2's and K3's launches in that step by shape, each times phase 3's ms
+   at the shape, against the profiler's K2 and K3 classes.
 7. pipeline - `train_pipeline` with both OSS switches on (K5, K6) at the
    full size of the recipe, on a synthetic paired PNG dataset written by
    the port's encoder into `build/chip_smoke_data/` (16 pairs of 480x480
@@ -283,6 +293,19 @@ MODEL_KERNELS = tuple(n for n, k in KERNELS.items() if k["path"] == "model")
 # and refinement (60 launches), encoder_level1 (30), levels 2 and 3 (4 each)
 K1_SERVE_SHAPES = ((8, 96, 16384), (8, 48, 16384), (8, 96, 4096),
                    (8, 192, 1024))
+# K2's (b, c, h, w) in a served forward of 8 128x128 tiles (decoder_level1
+# and refinement 30 launches, encoder_level1 15, the lower levels 2, 2 and
+# 1) and in the S1 step on 8 64x64 crops (the same blocks)
+K2_SERVE_SHAPES = ((8, 96, 128, 128), (8, 48, 128, 128), (8, 96, 64, 64),
+                   (8, 192, 32, 32), (8, 384, 16, 16))
+K2_STEP_SHAPES = ((8, 48, 64, 64), (8, 96, 64, 64), (8, 96, 32, 32),
+                  (8, 192, 16, 16), (8, 384, 8, 8))
+# the CUDA tests' K2 shapes (`tests/test_torch_port_cuda.py`,
+# GDFN_SHAPES): every width class, C no multiple of 16 or of its class's
+# width, H and W no multiple of the tiles, an odd W, batch 1
+K2_RAGGED_SHAPES = ((2, 48, 13, 19), (2, 96, 8, 8), (2, 384, 5, 7),
+                    (1, 192, 13, 19), (1, 40, 9, 33), (1, 72, 17, 10),
+                    (2, 136, 7, 11), (1, 264, 6, 10), (1, 20, 30, 2))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
@@ -526,11 +549,12 @@ def _scan_case(b, L, d, dtype, gen, n_groups=2, N=16, lifted=True):
     return (u, delta, A, Bm, Cm, Dsk, bias)
 
 
-def _gdfn_case(b, c, hw, dtype, gen):
+def _gdfn_case(b, c, hw, dtype, gen, w=None):
+    """K2's inputs at (b, c, hw, w or hw), hid = int(2.66 c)."""
     hid = int(c * 2.66)
     dev = "cuda"
     return (
-        (0.5 * torch.randn(b, c, hw, hw, generator=gen)).to(dev, dtype),
+        (0.5 * torch.randn(b, c, hw, w or hw, generator=gen)).to(dev, dtype),
         (1 + 0.1 * torch.randn(c, generator=gen)).to(dev),
         (0.1 * torch.randn(c, generator=gen)).to(dev),
         ((torch.rand(2 * hid, c, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
@@ -625,8 +649,10 @@ def kernels_vs_plain() -> tuple[dict, dict]:
     """Each case: (kernel name, label, dtype, kernel call, plain call,
     compare(got, ref) -> max error, bound). The first case of each kernel
     is its main-path shape: its times go into the kernels line. Returns
-    those stats and K3's ms by (b, L, D, G, reverse) at the S1 step's
-    shapes, for phase 6's account."""
+    those stats and the card ms by shape of K2 (by (b, c, h, w, dtype), at
+    every shape of a served forward and of the S1 step) and of K3 (by (b,
+    L, D, G, reverse), at the S1 step's shapes), for the accounts of
+    phases 5 and 6."""
     gen = torch.Generator().manual_seed(0)
     stats = {name: dict(max_abs_err=0.0, ms=None, plain_ms=None,
                         bound_ms=None, bound_by=None, library_ms=None)
@@ -659,8 +685,9 @@ def kernels_vs_plain() -> tuple[dict, dict]:
         return cmp
 
     def add(name, label, dtype, kern, plain, cmp, bnd, timed=False,
-            key=None):
-        cases.append((name, label, dtype, kern, plain, cmp, bnd, timed, key))
+            key=None, plain_timed=False):
+        cases.append((name, label, dtype, kern, plain, cmp, bnd, timed, key,
+                      plain_timed))
 
     # serve: K1, K4, K2 (bf16 first: the serve dtype); K1 at the four
     # shapes of a served forward, each bf16 row timed
@@ -685,9 +712,21 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 lambda a=a, r=rev: cuda_scan.selective_scan_ref(
                     *a, delta_softplus=True, reverse=r),
                 fwd_cmp(f"K4 {lab} {dtype}", dtype), _scan_bound(a, dtype))
-        for (b, c, hw) in ((8, 48, 128), (8, 384, 16), (8, 96, 64)):
-            a = _gdfn_case(b, c, hw, dtype, gen)
-            lab = f"({b},{c},{hw},{hw})"
+        # K2 at every shape of a served forward (bf16, the first its main
+        # shape) and of the S1 step (fp32), each timed beside its plain
+        # version, the cuDNN composite; then the CUDA tests' ragged shapes
+        for (b, c, h, w) in (K2_SERVE_SHAPES if dtype == torch.bfloat16
+                             else K2_STEP_SHAPES):
+            a = _gdfn_case(b, c, h, dtype, gen, w)
+            lab = f"({b},{c},{h},{w})"
+            add("gdfn_residual_fused", lab, dtype,
+                lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
+                lambda a=a: cuda_effn.gdfn_residual_ref(*a),
+                fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a),
+                timed=True, key=(b, c, h, w, dtype), plain_timed=True)
+        for (b, c, h, w) in K2_RAGGED_SHAPES:
+            a = _gdfn_case(b, c, h, dtype, gen, w)
+            lab = f"ragged ({b},{c},{h},{w})"
             add("gdfn_residual_fused", lab, dtype,
                 lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
                 lambda a=a: cuda_effn.gdfn_residual_ref(*a),
@@ -791,8 +830,9 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 timed=dtype == torch.float32,
                 key=(*a[0].shape, a[3].shape[2], rev))
 
-    k3_calls, k3_ms = {}, {}
-    for name, label, dtype, kern, plain, cmp, bnd, timed, key in cases:
+    k3_calls, shape_ms = {}, {"K2": {}, "K3": {}}
+    for (name, label, dtype, kern, plain, cmp, bnd, timed, key,
+         plain_timed) in cases:
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -812,17 +852,24 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             line += bound_share(bnd, st["ms"])
         elif timed:
             ms = time_ms(kern)
-            line += f"; kernel {ms:.3f} ms" + bound_share(bnd, ms)
+            line += f"; kernel {ms:.3f} ms"
+            if plain_timed:
+                line += f", plain {time_ms(plain, reps=3):.3f} ms"
+            line += bound_share(bnd, ms)
         if key is not None and ms is not None:
-            k3_ms[key] = ms
-            k3_calls[key] = kern
+            if name == "selective_scan_bwd":
+                shape_ms["K3"][key] = ms
+                k3_calls[key] = kern
+            else:
+                shape_ms["K2"][key] = ms
         print(line)
     k3_grids(k3_calls)
     del cases, k3_calls
     k1_deterministic(gen)
+    k2_deterministic(gen)
     k3_recorded_bits()
     torch.cuda.empty_cache()
-    return stats, k3_ms
+    return stats, shape_ms
 
 
 def k3_grids(calls):
@@ -893,6 +940,21 @@ def k1_deterministic(gen):
                              "gave different bits")
     print("[kernels] K1 and K1c at (8,2,96,16384) bf16, forward and reverse: "
           "two calls each, the same bits")
+
+
+def k2_deterministic(gen):
+    """Two K2 calls on the same inputs at the served forward's main shape
+    (the tensor-core route) and at the S1 step's (the fp32 route) give the
+    same bits."""
+    for (b, c, h, w), dtype in ((K2_SERVE_SHAPES[0], torch.bfloat16),
+                                (K2_STEP_SHAPES[1], torch.float32)):
+        a = _gdfn_case(b, c, h, dtype, gen, w)
+        if not torch.equal(cuda_effn.gdfn_residual_fwd(*a),
+                           cuda_effn.gdfn_residual_fwd(*a)):
+            raise SystemExit(f"FAIL K2 ({b},{c},{h},{w}) {dtype}: two calls "
+                             "gave different bits")
+    print("[kernels] K2 at (8,96,128,128) bf16 and (8,96,64,64) fp32: two "
+          "calls each, the same bits")
 
 
 # -- phase 4: the model, kernels vs plain --------------------------------------
@@ -1029,7 +1091,7 @@ def model_grads_vs_plain(fused: bool):
 
 # -- phase 5: serve ------------------------------------------------------------
 
-def serve() -> dict:
+def serve(shape_ms) -> dict:
     net = build_network(dict(type="MambaSISR6", dtype=torch.bfloat16),
                         seed=0)
     ups = RestorationUpscaler(4, net, "cuda", tile=128, tile_pad=0,
@@ -1075,8 +1137,12 @@ def serve() -> dict:
           f"{1e3 * times[0]:.1f} ms; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
           f"{nvidia_smi_line()}")
-    profile("serve", lambda: ups.tile_process(
-        np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
+    tally = {}
+    with k2_shapes(tally):
+        by_class = profile("serve", lambda: ups.tile_process(
+            np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
+    shape_account("serve", "K2", "forward", tally, shape_ms["K2"],
+                  by_class.get("K2 GDFN", 0.0))
     raced = race(ups, net)
     with oss_switches(True):
         profile("serve_front_tail", lambda: ups.tile_process(
@@ -1128,7 +1194,7 @@ KERNEL_CLASSES = (
     ("K3 scan backward", ("selective_scan_bwd",)),
     ("K1/K1c fused scan", ("oss_scan_fused", "OssFusedScan")),
     ("K4/K4c scan", ("selective_scan_kernel",)),
-    ("K2 GDFN", ("gdfn_kernel",)),
+    ("K2 GDFN", ("gdfn_kernel", "gdfn_mma_kernel")),
     ("K5 OSS front", ("oss_front_kernel",)),
     ("K6 OSS tail", ("oss_tail_kernel",)),
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "implicit",
@@ -1196,7 +1262,7 @@ def _train_batch():
     return {"lq": lq, "gt": gt}
 
 
-def train(k3_ms) -> dict:
+def train(shape_ms) -> dict:
     # checkpoints go to the git-ignored build/, not to the output directory
     root = os.path.join("build", "chip_smoke_train")
     shutil.rmtree(root, ignore_errors=True)
@@ -1265,53 +1331,72 @@ def train(k3_ms) -> dict:
     del other
     shutil.rmtree(root)
     torch.cuda.empty_cache()
-    tally = {}
-    with k3_shapes(tally):
+    k2_tally, k3_tally = {}, {}
+    with k2_shapes(k2_tally), k3_shapes(k3_tally):
         by_class = profile("train", lambda: model.optimize_parameters(8))
-    k3_account(tally, k3_ms, by_class.get("K3 scan backward", 0.0))
+    shape_account("train", "K2", "step", k2_tally, shape_ms["K2"],
+                  by_class.get("K2 GDFN", 0.0))
+    shape_account("train", "K3", "step", k3_tally, shape_ms["K3"],
+                  by_class.get("K3 scan backward", 0.0))
     return counts
 
 
 @contextlib.contextmanager
-def k3_shapes(tally):
-    """Counts K3's calls by (b, L, D, G, reverse) into `tally`, through a
-    stand-in for the wrapper in `cuda_scan` (the autograd Functions look
-    it up there at each call). The wrapper counts its launches on the
-    name it looks up, the stand-in while it is in place, so the count
-    passes through it and back."""
-    real = cuda_scan.selective_scan_bwd
+def counted_shapes(module, name, key, tally):
+    """Counts the calls of `module.name` by `key(*args, **kw)` into
+    `tally`, through a stand-in for the wrapper in its module (the
+    autograd Functions look it up there at each call). The wrapper counts
+    its launches on the name it looks up, the stand-in while it is in
+    place, so the count passes through it and back."""
+    real = getattr(module, name)
 
-    def counted(u, delta, A, B, C, *args, reverse=False, **kw):
-        key = (*u.shape, B.shape[2], bool(reverse))
-        tally[key] = tally.get(key, 0) + 1
-        return real(u, delta, A, B, C, *args, reverse=reverse, **kw)
+    def counted(*args, **kw):
+        k = key(*args, **kw)
+        tally[k] = tally.get(k, 0) + 1
+        return real(*args, **kw)
 
     counted.launches = real.launches
-    cuda_scan.selective_scan_bwd = counted
+    setattr(module, name, counted)
     try:
         yield
     finally:
-        cuda_scan.selective_scan_bwd = real
+        setattr(module, name, real)
         real.launches = counted.launches
 
 
-def k3_account(tally, k3_ms, profiled_ms):
-    """K3's launches in one S1 step by shape, each times phase 3's card
-    ms at that shape (`k3_ms`: CUDA events, one call alone), against the
-    device ms of the profiler's K3 class in the same step."""
+def k2_shapes(tally):
+    """K2's calls by (b, c, h, w, dtype)."""
+    return counted_shapes(cuda_effn, "gdfn_residual_fwd",
+                          lambda x, *a, **kw: (*x.shape, x.dtype), tally)
+
+
+def k3_shapes(tally):
+    """K3's calls by (b, L, D, G, reverse)."""
+    return counted_shapes(
+        cuda_scan, "selective_scan_bwd",
+        lambda u, delta, A, B, *a, reverse=False, **kw: (
+            *u.shape, B.shape[2], bool(reverse)), tally)
+
+
+def shape_account(phase, kernel, per, tally, ms_by_shape, profiled_ms):
+    """A kernel's launches in one forward or step by shape, each times
+    phase 3's card ms at that shape (CUDA events, one call alone), against
+    the device ms of the profiler's class of the kernel in the same run."""
     total, parts = 0.0, []
     for key, n in sorted(tally.items(), key=lambda kv: -kv[1]):
-        b, L, D, G, rev = key
-        ms = k3_ms.get(key)
+        shape = ", ".join(str(k)[6:] if isinstance(k, torch.dtype) else
+                          f"rev={k}" if isinstance(k, bool) else str(k)
+                          for k in key)
+        ms = ms_by_shape.get(key)
         if ms is None:
-            parts.append(f"({b},{L},{D}) G={G} rev={rev}: {n} x not timed")
+            parts.append(f"({shape}): {n} x not timed")
             continue
         total += n * ms
-        parts.append(f"({b},{L},{D}) G={G} rev={rev}: {n} x {ms:.4f} = "
-                     f"{n * ms:.2f} ms")
-    print(f"[train] K3 per step by shape: " + "; ".join(parts)
-          + f"; sum {total:.1f} ms against the profiler's K3 class "
-          f"{profiled_ms:.1f} ms ({sum(tally.values())} launches)")
+        parts.append(f"({shape}): {n} x {ms:.4f} = {n * ms:.2f} ms")
+    print(f"[{phase}] {kernel} per {per} by shape: " + "; ".join(parts)
+          + f"; sum {total:.1f} ms against the profiler's {kernel} class "
+          f"{profiled_ms:.1f} ms ({sum(tally.values())} launches); card "
+          f"{nvidia_smi_line()}")
 
 
 # -- phase 7: the pipeline ----------------------------------------------------
@@ -2117,12 +2202,12 @@ def main():
     os.environ.pop("VMAMBAIR_EFFN_FUSED", None)
     probe()
     build()
-    stats, k3_ms = kernels_vs_plain()
+    stats, shape_ms = kernels_vs_plain()
     for fused in (False, True):
         model_vs_plain(fused)
         model_grads_vs_plain(fused)
-    serve_counts = serve()
-    train_counts = train(k3_ms)
+    serve_counts = serve(shape_ms)
+    train_counts = train(shape_ms)
     pipe_counts = pipeline()
     torch.cuda.empty_cache()
     t8 = time.perf_counter()

@@ -78,12 +78,10 @@ def test_selective_scan_kernel_matches_plain(cuda, N, G, D, reverse, dtype):
         *args, delta_softplus=True, reverse=reverse), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,h,w", [(48, 13, 19), (96, 8, 8), (384, 5, 7)])
-def test_gdfn_kernel_matches_plain(cuda, c, h, w, dtype):
+def _gdfn_args(cuda, b, c, h, w, dtype):
     g = torch.Generator().manual_seed(c + h)
     hid = int(2.66 * c)
-    args = [0.5 * torch.randn(2, c, h, w, generator=g),
+    args = [0.5 * torch.randn(b, c, h, w, generator=g),
             1 + 0.1 * torch.randn(c, generator=g),
             0.1 * torch.randn(c, generator=g),
             torch.randn(2 * hid, c, generator=g) / c ** 0.5,
@@ -91,9 +89,36 @@ def test_gdfn_kernel_matches_plain(cuda, c, h, w, dtype):
             torch.randn(c, hid, generator=g) / hid ** 0.5]
     args = [a.to(cuda) for a in args]
     args[0] = args[0].to(dtype)
+    return args
+
+
+# K2 at every width class of its tensor-core route (C 48, 96, 192, 384),
+# at a ragged C in each (40, 72, 136, 264: no multiple of 16 or of the
+# class's width), at H and W no multiple of the tiles (8 x 16, 8 x 8, 4 x
+# 8; an odd W takes the element-wise halo load), and at batch 1
+GDFN_SHAPES = [(2, 48, 13, 19), (2, 96, 8, 8), (2, 384, 5, 7),
+               (1, 192, 13, 19), (1, 40, 9, 33), (1, 72, 17, 10),
+               (2, 136, 7, 11), (1, 264, 6, 10), (1, 20, 30, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w", GDFN_SHAPES)
+def test_gdfn_kernel_matches_plain(cuda, b, c, h, w, dtype):
+    args = _gdfn_args(cuda, b, c, h, w, dtype)
     got = cuda_effn.gdfn_residual_fused(*args)
     assert got.dtype == dtype
     _close(got, cuda_effn.gdfn_residual_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdfn_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs give the same bits, at every width
+    class (no atomics: each output is summed by one thread in a fixed
+    order)."""
+    for b, c, h, w in GDFN_SHAPES[:4]:
+        args = _gdfn_args(cuda, b, c, h, w, dtype)
+        assert torch.equal(cuda_effn.gdfn_residual_fwd(*args),
+                           cuda_effn.gdfn_residual_fwd(*args)), (c, h, w)
 
 
 def test_tiny_ossnet_forward_launches_kernels(cuda):
@@ -1057,8 +1082,8 @@ def _keffn_args(cuda, b, h, w, c, dtype, seed):
 @pytest.mark.parametrize("b,h,w,c", [(2, 13, 19, 48), (1, 16, 20, 96),
                                      (2, 5, 7, 384), (1, 9, 33, 40)])
 def test_gdfn_tanh_nhwc_kernel_matches_plain(cuda, b, h, w, c, dtype):
-    """keffn's kernel: H and W no multiples of K2's 4 x 8 tile (13 x 19, 5 x
-    7, 9 x 33), W not a multiple of 8 (20), C = 40 a ragged lane."""
+    """keffn's kernel: H and W no multiples of K2's tiles (13 x 19, 5 x 7,
+    9 x 33), W not a multiple of 8 (20), C = 40 a ragged width."""
     from vmambair_torch.ops import cuda_probes
 
     args = _keffn_args(cuda, b, h, w, c, dtype, c + h)

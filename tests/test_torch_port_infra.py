@@ -265,7 +265,8 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
         "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd",
         "vmt_scan_dual_fwd", "vmt_scan_dual_fwd", "vmt_scan_dual_fwd",
         "vmt_scan_dual_fwd",
-        "vmt_gdfn_tanh_nhwc_fwd", "vmt_probe_transpose", "vmt_probe_proj",
+        "vmt_gdfn_tanh_nhwc_f32_fwd", "vmt_probe_transpose",
+        "vmt_probe_proj",
         "vmt_oss_scan_fused_ld_fwd"]
     for name, a in calls:
         kinds = _build.SIGNATURES[name][:-1]  # the stream: added by launch

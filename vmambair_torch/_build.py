@@ -150,11 +150,19 @@ SIGNATURES = {
         _I, _P, _I, _P, _LL, _I, _I, _P,         # probe x dt y rows lanes rep st
     ],
     "vmt_gdfn_residual_fwd": [
-        _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
+        _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw, lnb, packed w
+        _I, _I, _I, _I, _I, _I, _F, _P,          # B C H W hp cls eps stream
+    ],
+    "vmt_gdfn_residual_f32_fwd": [
+        _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw..wout_t
         _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
     ],
     "vmt_gdfn_tanh_nhwc_fwd": [
-        _P, _I, _P, _P, _P, _P, _P, _P,          # x, dt, y, lnw..wout_t
+        _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw, lnb, packed w
+        _I, _I, _I, _I, _I, _I, _F, _P,          # B C H W hp cls eps stream
+    ],
+    "vmt_gdfn_tanh_nhwc_f32_fwd": [
+        _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw..wout_t
         _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
     ],
     "vmt_probe_transpose": [

@@ -17,8 +17,11 @@ layout:
 `*_fwd` are the kernel wrappers: a tensor on the CPU goes to the plain
 version (`*_ref`); a CUDA tensor goes to the kernel (`csrc/gdfn.cu`,
 `csrc/oss_front.cu`, `csrc/oss_tail.cu`), or the call raises; `.launches`
-counts each kernel's launches. They have no backward. `*_fused` are the
-differentiable entry points: without a gradient to record, one forward
+counts each kernel's launches. K2 takes bf16 activations on the tensor
+cores, its weights packed per hidden tile (`pack_gdfn_weights`, for the
+width class `k2_class` picks), and fp32 activations on the CUDA cores.
+The wrappers have no backward. `*_fused` are the differentiable entry
+points: without a gradient to record, one forward
 launch; otherwise an autograd Function whose forward is the same launch
 and whose backward recomputes through the plain version, as JAX recomputes
 through `_gdfn_xla`, `_oss_front_xla` and `_oss_tail_xla` (JAX has no
@@ -44,11 +47,88 @@ from .._build import dtype_code, f32, grad_needed, no_grad_needed, on_cpu
 MAX_C = 384
 FRONT_MAX_C = 704  # K5: LN(x) over the halo in shared memory
 TAIL_MAX_C = 768   # K6: the pixel tile of every channel in shared memory
+# K2's width classes on the tensor cores (csrc/gdfn.cu, k2::Cls0-3): the
+# largest C each takes (its padded output width CP), its output tile TH x
+# TW and its hidden tile HT
+K2_CLASSES = ((48, 8, 16, 32), (96, 8, 16, 16), (192, 8, 8, 32),
+              (384, 4, 8, 16))
 
 
 def effn_fused_supported(c: int) -> bool:
     """Whether the kernel takes C channels (its accumulators hold 384)."""
     return c <= MAX_C
+
+
+def k2_class(c: int) -> int:
+    """The width class K2's bf16 route takes for C channels: the first
+    whose largest C is at least C."""
+    return next(i for i, k in enumerate(K2_CLASSES) if c <= k[0])
+
+
+def pack_gdfn_weights(w_in, w_dw, w_out, cls: int, dtype=torch.bfloat16):
+    """K2's weights for its tensor-core route, per hidden tile of the width
+    class `cls`, rounded to `dtype`. w_in (2 hid, C), w_dw (2 hid, 3, 3),
+    w_out (C, hid) as `gdfn_residual_fwd` takes them. With HT the class's
+    hidden tile, hp = hid rounded up to HT, KP = C rounded up to 16 and CP
+    the class's largest C, returns
+    - win_p (hp / HT, 2 HT, KP) `dtype`: tile t is W_in's x1 rows t HT ..
+      t HT + HT - 1, then its x2 rows hid + t HT ..;
+    - wout_p (hp / HT, CP, HT) `dtype`: W_out's columns t HT .. t HT + HT - 1;
+    - wdw_p (hp / HT, 2 HT, 9) fp32 of the `dtype`-rounded taps, in
+      win_p's row order;
+    zero past hid, past C and past CP (a padded hidden channel gives
+    gelu(0) * 0 = 0)."""
+    cp, _, _, ht = K2_CLASSES[cls]
+    c2, c = w_in.shape
+    hid = c2 // 2
+    hp, kp = -(-hid // ht) * ht, -(-c // 16) * 16
+    nt = hp // ht
+    dev = w_in.device
+    win = F.pad(w_in.detach().reshape(2, hid, c),
+                (0, kp - c, 0, hp - hid)).view(2, nt, ht, kp)
+    win_p = torch.empty(nt, 2, ht, kp, dtype=dtype, device=dev)
+    win_p.permute(1, 0, 2, 3).copy_(win)
+    wout = F.pad(w_out.detach(), (0, hp - hid, 0, cp - c)).view(cp, nt, ht)
+    wout_p = torch.empty(nt, cp, ht, dtype=dtype, device=dev)
+    wout_p.permute(1, 0, 2).copy_(wout)
+    wdw = F.pad(w_dw.detach().reshape(2, hid, 9).to(dtype),
+                (0, 0, 0, hp - hid)).view(2, nt, ht, 9)
+    wdw_p = torch.empty(nt, 2, ht, 9, dtype=torch.float32, device=dev)
+    wdw_p.permute(1, 0, 2, 3).copy_(wdw)
+    return (win_p.view(nt, 2 * ht, kp), wout_p, wdw_p.view(nt, 2 * ht, 9))
+
+
+def launch_gdfn(entry: str, x, dims, ln_w, ln_b, w_in, w_dw, w_out, eps):
+    """Launches K2's kernel `entry` (`vmt_gdfn_residual` for NCHW images,
+    `vmt_gdfn_tanh_nhwc` for keffn's) on x, `dims` = (B, C, H, W): bf16
+    activations on the tensor cores with the weights packed for C's width
+    class, fp32 ones on the CUDA cores (`_f32_fwd`) with the weights
+    transposed. Weights in K2's layouts (`gdfn_residual_fwd`), rounded to
+    x's dtype; returns y, shaped as x."""
+    dtype_code(x, "x")
+    b, c, h, w = dims
+    hid = w_out.shape[1]
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    lnw, lnb = f32(ln_w), f32(ln_b)
+    if x.dtype == torch.bfloat16:
+        cls = k2_class(c)
+        win_p, wout_p, wdw_p = pack_gdfn_weights(w_in, w_dw, w_out, cls)
+        _build.launch(
+            entry + "_fwd", x.device, x.data_ptr(), y.data_ptr(),
+            lnw.data_ptr(), lnb.data_ptr(), win_p.data_ptr(),
+            wout_p.data_ptr(), wdw_p.data_ptr(), b, c, h, w,
+            wout_p.shape[0] * wout_p.shape[2], cls, float(eps))
+        return y
+    cdt = x.dtype
+    win_t = f32(w_in.to(cdt).t())
+    wdw = f32(w_dw.to(cdt).reshape(2 * hid, 9))
+    wout_t = f32(w_out.to(cdt).t())
+    _build.launch(
+        entry + "_f32_fwd", x.device, x.data_ptr(), y.data_ptr(),
+        lnw.data_ptr(), lnb.data_ptr(), win_t.data_ptr(), wdw.data_ptr(),
+        wout_t.data_ptr(), b, c, h, w, hid, float(eps))
+    return y
 
 
 def _layer_norm(x, w, b, eps):
@@ -89,20 +169,9 @@ def gdfn_residual_fwd(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
                          f"with x {tuple(x.shape)}")
     if not effn_fused_supported(c):
         raise ValueError(f"gdfn_residual_fused: C={c} > {MAX_C}")
-    x = x.contiguous()
-    y = torch.empty_like(x)
     # weights rounded to the activation dtype, as the convolutions use them
-    cdt = x.dtype
-    win_t = f32(w_in.to(cdt).t())
-    wdw = f32(w_dw.to(cdt).reshape(2 * hid, 9))
-    wout_t = f32(w_out.to(cdt).t())
-    lnw, lnb = f32(ln_w), f32(ln_b)
-    _build.launch(
-        "vmt_gdfn_residual_fwd", x.device,
-        x.data_ptr(), dtype_code(x, "x"), y.data_ptr(), lnw.data_ptr(),
-        lnb.data_ptr(), win_t.data_ptr(), wdw.data_ptr(), wout_t.data_ptr(),
-        b, c, h, w, hid, float(eps),
-    )
+    y = launch_gdfn("vmt_gdfn_residual", x, (b, c, h, w), ln_w, ln_b, w_in,
+                    w_dw, w_out, eps)
     gdfn_residual_fwd.launches += 1
     return y
 

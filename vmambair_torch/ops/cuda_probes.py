@@ -51,7 +51,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .._build import dtype_code, f32, no_grad_needed, on_cpu
-from .cuda_effn import MAX_C
+from .cuda_effn import MAX_C, launch_gdfn
 from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, k1_sizes, launch_k1,
                         launch_views, oss_scan_fused_ref, scan_views_ref,
                         view_shapes)
@@ -818,22 +818,10 @@ def gdfn_tanh_nhwc(x, ln_w, ln_b, w_in, w_dw, w_out, *, eps=1e-5):
     b, h, w, c, hid = _gdfn_shapes("gdfn_tanh_nhwc", *args)
     if c > MAX_C:
         raise ValueError(f"gdfn_tanh_nhwc: C={c} > {MAX_C}")
-    x = x.contiguous()
-    y = torch.empty_like(x)
     # weights rounded to the activation dtype, as the TPU kernel takes
-    # them; K2's argument layouts: w_in is win_t as it stands, w_out is
-    # wout_t, w_dw goes to (2h, 9)
-    cdt = x.dtype
-    win_t = f32(w_in.to(cdt))
-    wdw = f32(w_dw.to(cdt).reshape(9, 2 * hid).t())
-    wout_t = f32(w_out.to(cdt))
-    lnw, lnb = f32(ln_w), f32(ln_b)
-    _build.launch(
-        "vmt_gdfn_tanh_nhwc_fwd", x.device,
-        x.data_ptr(), dtype_code(x, "x"), y.data_ptr(), lnw.data_ptr(),
-        lnb.data_ptr(), win_t.data_ptr(), wdw.data_ptr(), wout_t.data_ptr(),
-        b, c, h, w, hid, float(eps),
-    )
+    # them, in K2's layouts: w_in and w_out transposed, the taps first
+    y = launch_gdfn("vmt_gdfn_tanh_nhwc", x, (b, c, h, w), ln_w, ln_b,
+                    w_in.t(), w_dw.permute(2, 0, 1), w_out.t(), eps)
     gdfn_tanh_nhwc.launches += 1
     return y
 

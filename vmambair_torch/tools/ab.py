@@ -10,10 +10,14 @@ two trees run in turns, other, this, this, other, ... (`--rounds` pairs),
 each in a process of its own that imports `vmambair_torch` from its tree
 and builds that tree's kernels there. Each process prints one JSON row:
 the card ms of K1 at (8, 2, 48, 16384) and (8, 2, 96, 16384) bf16, K1c at
-(8, 2, 96, 4096) fp32, K2 (8, 48, 128, 128) bf16, K5 (8, 96, 128, 128)
-bf16, K3 at every shape of the S1 step (on K1c's fp32 inputs and
-carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48, 4096), (8, 2,
-96, 1024) and (8, 2, 192, 256); on K4c's at the latent (8, 64, 768) and
+(8, 2, 96, 4096) fp32, K2 (8, 48, 128, 128) bf16 and at the other shapes
+of a served forward (bf16: `k2_96_ms` (8, 96, 128, 128), `k2_96_64_ms`,
+`k2_192_ms`, `k2_384_ms`) and of the S1 step (fp32: `k2f_48_ms` (8, 48,
+64, 64), `k2f_96_ms`, `k2f_96_32_ms`, `k2f_192_ms`, `k2f_384_ms`), K5
+(8, 96, 128, 128) bf16, K3 at every shape of the S1 step (on K1c's fp32
+inputs and carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48,
+4096), (8, 2, 96, 1024) and (8, 2, 192, 256); on K4c's at the latent
+(8, 64, 768) and
 the channel scans (8, c, 8), c = 48, 96, 192, 384), each tree's own
 (CUDA-event medians, each call queued behind a device sleep, as
 `tools.race` times), and the served
@@ -131,6 +135,7 @@ def _cases(torch):
            -torch.arange(1, N + 1.0).expand(2, d, N).contiguous().to(dev),
            torch.ones(2, d, device=dev))
     k3 = _k3_cases(torch, cuda_scan)
+    k2s = _k2_cases(torch)
     return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
             ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
             ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
@@ -139,7 +144,37 @@ def _cases(torch):
             ("k3_ms", lambda: cuda_scan.selective_scan_bwd(
                 *s, dy, car, delta_softplus=True))] + [
         (name, lambda a=a: cuda_scan.selective_scan_bwd(
-            *a, delta_softplus=True)) for name, a in k3]
+            *a, delta_softplus=True)) for name, a in k3] + [
+        (name, lambda a=a: cuda_effn.gdfn_residual_fwd(*a))
+        for name, a in k2s]
+
+
+def _k2_cases(torch):
+    """(name, K2's arguments) at the other shapes of a served forward
+    (bf16) and at the S1 step's (fp32), from a generator of their own."""
+    gen = torch.Generator().manual_seed(4)
+    dev, out = "cuda", []
+    for name, b, c, hw, dt in (
+            ("k2_96_ms", 8, 96, 128, torch.bfloat16),
+            ("k2_96_64_ms", 8, 96, 64, torch.bfloat16),
+            ("k2_192_ms", 8, 192, 32, torch.bfloat16),
+            ("k2_384_ms", 8, 384, 16, torch.bfloat16),
+            ("k2f_48_ms", 8, 48, 64, torch.float32),
+            ("k2f_96_ms", 8, 96, 64, torch.float32),
+            ("k2f_96_32_ms", 8, 96, 32, torch.float32),
+            ("k2f_192_ms", 8, 192, 16, torch.float32),
+            ("k2f_384_ms", 8, 384, 8, torch.float32)):
+        hid = int(c * 2.66)
+        out.append((name, (
+            (0.5 * torch.randn(b, c, hw, hw, generator=gen)).to(dev, dt),
+            (1 + 0.1 * torch.randn(c, generator=gen)).to(dev),
+            (0.1 * torch.randn(c, generator=gen)).to(dev),
+            ((torch.rand(2 * hid, c, generator=gen) * 2 - 1)
+             / c ** 0.5).to(dev),
+            ((torch.rand(2 * hid, 3, 3, generator=gen) * 2 - 1) / 3).to(dev),
+            ((torch.rand(c, hid, generator=gen) * 2 - 1)
+             / hid ** 0.5).to(dev))))
+    return out
 
 
 def _k3_cases(torch, cuda_scan):
