@@ -30,7 +30,11 @@ non-zero, and without a CUDA device the script stops before any result:
    timed in every row, each with its bound and its share of it, and K3's
    device ms per grid at each shape by torch.profiler; K2 also at the
    CUDA tests' ragged shapes (every width class, C no multiple of 16, H
-   and W no multiple of the tiles, odd W); K3 also over a
+   and W no multiple of the tiles, odd W); K5 at the five MamberBlock
+   shapes of a served forward ((8,96,128,128) first), its bf16 rows (the
+   tensor-core route) timed beside its plain version, and at ragged
+   shapes (every width class, E != C, C up to 704, odd W, batch 1), bf16
+   and fp32 (the CUDA-core route); K3 also over a
    ragged L in many segments, reverse, and in ragged segments, forward;
    two K1 and two K1c calls on the same inputs at (8,2,96,16384) bf16,
    forward and reverse, and two K2 calls at (8,96,128,128) bf16 and
@@ -54,7 +58,9 @@ non-zero, and without a CUDA device the script stops before any result:
    then a torch.profiler table of one more request is printed (top rows)
    and written to `chiprun_out/serve_profile.txt`, and K2's launches in
    that request by shape, each times phase 3's ms at the shape, against
-   the profiler's K2 class;
+   the profiler's K2 class; after the race (below) one request with K5
+   and K6 on is profiled the same way (`serve_front_tail_profile.txt`),
+   with K5's launches by shape against the profiler's K5 class;
 6. train  - full-size MambaSISR6 through `build_model` with the recipe of
    `options/MambaSISR15_x4.yml` (L1, Adam 2e-4 (0.9, 0.99), EMA 0.999,
    MultiStepLR), fp32, on one fixed seeded batch of 8 64x64 LQ / 256x256
@@ -306,6 +312,20 @@ K2_STEP_SHAPES = ((8, 48, 64, 64), (8, 96, 64, 64), (8, 96, 32, 32),
 K2_RAGGED_SHAPES = ((2, 48, 13, 19), (2, 96, 8, 8), (2, 384, 5, 7),
                     (1, 192, 13, 19), (1, 40, 9, 33), (1, 72, 17, 10),
                     (2, 136, 7, 11), (1, 264, 6, 10), (1, 20, 30, 2))
+# K5's (b, c, h) at the five MamberBlock shapes of a served forward (E = C,
+# square images; the first, 30 of the 50 blocks, is the main shape), and
+# its ragged (b, c, e, h, w): the CUDA tests' shapes, then every width
+# class with E != C, C no multiple of 16, H and W no multiple of the tiles,
+# an odd W, batch 1, a 1x1 image and the widest C the route takes
+K5_SERVE_SHAPES = ((8, 96, 128), (8, 48, 128), (8, 96, 64), (8, 192, 32),
+                   (8, 384, 16))
+K5_RAGGED_SHAPES = ((2, 48, 48, 13, 19), (2, 96, 100, 8, 8),
+                    (2, 384, 384, 5, 7), (2, 20, 70, 3, 33),
+                    (1, 40, 52, 9, 33), (1, 72, 72, 17, 10),
+                    (1, 136, 72, 7, 11), (1, 200, 200, 16, 16),
+                    (1, 264, 136, 6, 10), (1, 640, 64, 5, 8),
+                    (1, 704, 704, 6, 10), (1, 20, 20, 30, 2),
+                    (2, 96, 96, 1, 1))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
@@ -563,13 +583,17 @@ def _gdfn_case(b, c, hw, dtype, gen, w=None):
     )
 
 
-def _front_case(b, c, hw, dtype, gen):
-    """K5's inputs at a MamberBlock's shape (E = C), drawn on the card."""
+def _front_case(b, c, hw, dtype, gen, e=None, w=None):
+    """K5's inputs at (b, c, hw, w or hw) with E = e or C, drawn on the
+    card."""
+    e = e or c
+
     def r(*shape):
         return torch.rand(*shape, generator=gen, device="cuda") * 2 - 1
-    return ((0.5 * torch.randn(b, c, hw, hw, generator=gen, device="cuda")
-             ).to(dtype), 1 + 0.1 * r(c), 0.1 * r(c), r(2 * c, c) / c ** 0.5,
-            r(2 * c) / c ** 0.5, r(c, 3, 3) / 3, r(c) / 3)
+    return ((0.5 * torch.randn(b, c, hw, w or hw, generator=gen,
+                               device="cuda")).to(dtype),
+            1 + 0.1 * r(c), 0.1 * r(c), r(2 * e, c) / c ** 0.5,
+            r(2 * e) / c ** 0.5, r(e, 3, 3) / 3, r(e) / 3)
 
 
 def _tail_case(b, d, hw, dtype, gen):
@@ -650,9 +674,10 @@ def kernels_vs_plain() -> tuple[dict, dict]:
     compare(got, ref) -> max error, bound). The first case of each kernel
     is its main-path shape: its times go into the kernels line. Returns
     those stats and the card ms by shape of K2 (by (b, c, h, w, dtype), at
-    every shape of a served forward and of the S1 step) and of K3 (by (b,
-    L, D, G, reverse), at the S1 step's shapes), for the accounts of
-    phases 5 and 6."""
+    every shape of a served forward and of the S1 step), of K5 (the same
+    key, at every shape of a served forward) and of K3 (by (b, L, D, G,
+    reverse), at the S1 step's shapes), for the accounts of phases 5 and
+    6."""
     gen = torch.Generator().manual_seed(0)
     stats = {name: dict(max_abs_err=0.0, ms=None, plain_ms=None,
                         bound_ms=None, bound_by=None, library_ms=None)
@@ -732,22 +757,32 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 lambda a=a: cuda_effn.gdfn_residual_ref(*a),
                 fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
     # K5 and K6 at the five MamberBlock shapes of a served forward (the
-    # first, 30 of the 50 blocks, is the main shape)
+    # first, 30 of the 50 blocks, is the main shape); K5's bf16 rows (its
+    # tensor-core route) timed beside its plain version; then K5 at the
+    # ragged shapes
     cgen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        for (b, c, hw) in ((8, 96, 128), (8, 48, 128), (8, 96, 64),
-                           (8, 192, 32), (8, 384, 16)):
+        for (b, c, hw) in K5_SERVE_SHAPES:
             lab = f"({b},{c},{hw},{hw})"
             a = _front_case(b, c, hw, dtype, cgen)
             add("oss_front_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_front_fwd(*a),
                 lambda a=a: cuda_effn.oss_front_ref(*a),
-                pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a))
+                pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a),
+                timed=dtype == torch.bfloat16, key=(b, c, hw, hw, dtype),
+                plain_timed=True)
             a = _tail_case(b, c, hw, dtype, cgen)
             add("oss_tail_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_tail_fwd(*a),
                 lambda a=a: cuda_effn.oss_tail_ref(*a),
                 fwd_cmp(f"K6 {lab} {dtype}", dtype), _tail_bound(a))
+        for (b, c, e, h, w) in K5_RAGGED_SHAPES:
+            a = _front_case(b, c, h, dtype, cgen, e, w)
+            lab = f"ragged ({b},{c},{h},{w}) E={e}"
+            add("oss_front_fused", lab, dtype,
+                lambda a=a: cuda_effn.oss_front_fwd(*a),
+                lambda a=a: cuda_effn.oss_front_ref(*a),
+                pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a))
     a = _scan_case(8, 96, 8, torch.float32, gen, lifted=False)
     add("selective_scan", "channel scan (8,96,8) G=2", torch.float32,
         lambda a=a: cuda_scan.selective_scan_fwd(*a, delta_softplus=True),
@@ -830,7 +865,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 timed=dtype == torch.float32,
                 key=(*a[0].shape, a[3].shape[2], rev))
 
-    k3_calls, shape_ms = {}, {"K2": {}, "K3": {}}
+    k3_calls, shape_ms = {}, {"K2": {}, "K3": {}, "K5": {}}
     for (name, label, dtype, kern, plain, cmp, bnd, timed, key,
          plain_timed) in cases:
         got = kern()
@@ -860,6 +895,8 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             if name == "selective_scan_bwd":
                 shape_ms["K3"][key] = ms
                 k3_calls[key] = kern
+            elif name == "oss_front_fused":
+                shape_ms["K5"][key] = ms
             else:
                 shape_ms["K2"][key] = ms
         print(line)
@@ -1144,9 +1181,12 @@ def serve(shape_ms) -> dict:
     shape_account("serve", "K2", "forward", tally, shape_ms["K2"],
                   by_class.get("K2 GDFN", 0.0))
     raced = race(ups, net)
-    with oss_switches(True):
-        profile("serve_front_tail", lambda: ups.tile_process(
+    tally = {}
+    with oss_switches(True), k5_shapes(tally):
+        by_class = profile("serve_front_tail", lambda: ups.tile_process(
             np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
+    shape_account("serve", "K5", "forward with K5/K6 on", tally,
+                  shape_ms["K5"], by_class.get("K5 OSS front", 0.0))
     return {k: counts[k] + raced[k] for k in counts}
 
 
@@ -1195,7 +1235,7 @@ KERNEL_CLASSES = (
     ("K1/K1c fused scan", ("oss_scan_fused", "OssFusedScan")),
     ("K4/K4c scan", ("selective_scan_kernel",)),
     ("K2 GDFN", ("gdfn_kernel", "gdfn_mma_kernel")),
-    ("K5 OSS front", ("oss_front_kernel",)),
+    ("K5 OSS front", ("oss_front_kernel", "oss_front_mma_kernel")),
     ("K6 OSS tail", ("oss_tail_kernel",)),
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "implicit",
                       "cudnn", "winograd")),
@@ -1367,6 +1407,12 @@ def counted_shapes(module, name, key, tally):
 def k2_shapes(tally):
     """K2's calls by (b, c, h, w, dtype)."""
     return counted_shapes(cuda_effn, "gdfn_residual_fwd",
+                          lambda x, *a, **kw: (*x.shape, x.dtype), tally)
+
+
+def k5_shapes(tally):
+    """K5's calls by (b, c, h, w, dtype)."""
+    return counted_shapes(cuda_effn, "oss_front_fwd",
                           lambda x, *a, **kw: (*x.shape, x.dtype), tally)
 
 

@@ -683,9 +683,12 @@ def _tail_args(cuda, d, h, w, ydtype, zdtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,e,h,w", [(48, 48, 13, 19), (96, 100, 8, 8),
-                                     (384, 384, 5, 7), (20, 70, 3, 33)])
+                                     (384, 384, 5, 7), (20, 70, 3, 33),
+                                     (40, 52, 9, 33), (136, 72, 7, 11),
+                                     (200, 200, 16, 16), (704, 64, 5, 8)])
 def test_oss_front_kernel_matches_plain(cuda, c, e, h, w, dtype):
-    """K5 at ragged tiles, E past one channel tile and E != C."""
+    """K5 at ragged tiles, E past one channel tile and E != C, every width
+    class of the bf16 route (C up to 704)."""
     args = _front_args(cuda, c, e, h, w, dtype, c + h)
     n0 = cuda_effn.oss_front_fwd.launches
     xs, z = cuda_effn.oss_front_fused(*args)

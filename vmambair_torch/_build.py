@@ -173,8 +173,12 @@ SIGNATURES = {
         _LL, _I, _I, _I, _P,                     # rows D RN R stream
     ],
     "vmt_oss_front_fwd": [
-        _P, _I, _P, _P,                          # x, dt, xs, z
-        _P, _P, _P, _P, _P, _P,                  # lnw lnb win_t bin wdw bdw
+        _P, _P, _P, _P, _P, _P, _P,              # x xs z lnw lnb win_p aux_p
+        _I, _I, _I, _I, _I, _I, _F, _P,          # B C E H W cls eps stream
+    ],
+    "vmt_oss_front_f32_fwd": [
+        _P, _P, _P, _P, _P,                      # x xs z lnw lnb
+        _P, _P, _P, _P,                          # win_t bin wdw bdw
         _I, _I, _I, _I, _I, _F, _P,              # B C E H W eps stream
     ],
     "vmt_oss_tail_fwd": [

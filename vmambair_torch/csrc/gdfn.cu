@@ -55,7 +55,7 @@
 // (vmt_gdfn_tanh_nhwc_fwd, below): the gate and the layout are template
 // policies, so K2's instantiations are the code above unchanged.
 #include "ln_halo.cuh"
-#include "mma.cuh"
+#include "mma_front.cuh"
 
 namespace vmt {
 
@@ -80,9 +80,9 @@ struct GeluTanh {
 // ---------------------------------------------------------------------------
 namespace k2 {
 
-constexpr int NTH = 256;
-constexpr int NWARP = NTH / 32;
-constexpr int LB = 16;  // global loads a thread keeps in flight
+// the thread count, the layout policies and the LayerNorm front
+// (mma_front.cuh)
+using namespace mfront;
 
 // A width class. TH x TW: the output tile; HT: hidden channels per tile;
 // the in-projection's warps: WM along the halo pixels, NWARP / WM along
@@ -159,57 +159,6 @@ __host__ __device__ inline Plan plan(int C) {
   return p;
 }
 
-// Layout policies. at(): the offset of channel c of pixel (gy, gx) from the
-// image's first element. in(e): the e-th element of the halo staging as
-// (channel, halo pixel), in the order that keeps the global reads
-// coalesced; out(i): the same for the output tile; oix(c, q): where the
-// output tile keeps channel c of pixel q (fp32), written from the mma
-// fragments without bank conflicts and read back in out()'s order.
-template <class K>
-struct Nchw {
-  static constexpr bool kRows = true;  // a channel's row is contiguous
-  __device__ static __forceinline__ long long at(int c, int gy, int gx,
-                                                 int C, int H, int W) {
-    return (long long)c * H * W + (long long)gy * W + gx;
-  }
-  __device__ static __forceinline__ void in(int e, int C, int& c, int& p) {
-    c = e / K::P;
-    p = e - c * K::P;
-  }
-  __device__ static __forceinline__ void out(int i, int C, int& c, int& q) {
-    c = i / K::Q;
-    q = i - c * K::Q;
-  }
-  __device__ static __forceinline__ int oix(int c, int q) {
-    return c * (K::Q + 4) + q;
-  }
-};
-
-template <class K>
-struct Nhwc {
-  static constexpr bool kRows = false;
-  static constexpr int OPN = (K::CP + 31) / 32 * 32 + 8;
-  __device__ static __forceinline__ long long at(int c, int gy, int gx,
-                                                 int C, int H, int W) {
-    return ((long long)gy * W + gx) * C + c;
-  }
-  __device__ static __forceinline__ void in(int e, int C, int& c, int& p) {
-    p = e / C;
-    c = e - p * C;
-  }
-  __device__ static __forceinline__ void out(int i, int C, int& c, int& q) {
-    q = i / C;
-    c = i - q * C;
-  }
-  __device__ static __forceinline__ int oix(int c, int q) {
-    return q * OPN + c;
-  }
-};
-
-__device__ __forceinline__ float bf16_bits(unsigned short u) {
-  return __uint_as_float((uint32_t)u << 16);
-}
-
 // cp.async hidden tile t's packed weights into ring slot s (16-byte
 // chunks; the packed rows are KP and HT bf16 long, the taps 18 HT fp32).
 template <class K>
@@ -267,109 +216,11 @@ __global__ void __launch_bounds__(NTH, K::MINB) gdfn_mma_kernel(
   // the first hidden tile's weights, while x's halo loads
   stage_weights<K>(smk + pl.ring, win_p, wout_p, wdw_p, pl, KP, 0);
 
-  // 1. x over the halo -> xs (zero outside the image) and LN's weight and
-  // bias -> ln, all in flight at once: NCHW rows of an even W as 4-byte
-  // words by cp.async (zero-filled outside the image); otherwise LB loads
-  // a thread
+  // 1-3. x's halo and LN's weights by cp.async, the statistics, zn [MP][ZP]
+  // = round(LN(x)) (mma_front.cuh)
   const unsigned short* xr = reinterpret_cast<const unsigned short*>(x);
-  float* ln = reinterpret_cast<float*>(smk + pl.ln);
-  if (Lay::kRows && W % 2 == 0) {
-    constexpr int RWW = K::RW / 2, CW = K::PH * RWW;
-    for (int i = tid; i < C * CW; i += NTH) {
-      const int c = i / CW, rw = i - c * CW;
-      const int r = rw / RWW, w = rw - r * RWW;
-      const int gy = y0 - 1 + r, gx = x0 - 2 + 2 * w;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      mma::cp_async4(xs + c * K::XS + r * K::RW + 2 * w,
-                     in ? xr + xb + Lay::at(c, gy, gx, C, H, W) : xr, in);
-    }
-  } else {
-    const int n = C * K::P;
-    for (int e0 = tid; e0 < n; e0 += LB * NTH) {
-      unsigned short v[LB];
-#pragma unroll
-      for (int j = 0; j < LB; ++j) {
-        const int e = e0 + j * NTH;
-        v[j] = 0;
-        if (e < n) {
-          int c, p;
-          Lay::in(e, C, c, p);
-          const int gy = y0 - 1 + p / K::PW, gx = x0 - 1 + p % K::PW;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-            v[j] = xr[xb + Lay::at(c, gy, gx, C, H, W)];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < LB; ++j) {
-        const int e = e0 + j * NTH;
-        if (e < n) {
-          int c, p;
-          Lay::in(e, C, c, p);
-          xs[c * K::XS + K::xi(p)] = v[j];
-        }
-      }
-    }
-  }
-  for (int i = tid; i < C; i += NTH) {
-    mma::cp_async4(ln + i, lnw + i, true);
-    mma::cp_async4(ln + KP + i, lnb + i, true);
-  }
-  mma::cp_async_commit();
-  mma::cp_async_wait_all();
-  __syncthreads();
-  // 2. LayerNorm statistics (fp32, two passes): a warp takes 8 pixels at a
-  // time, its lanes 4 channel groups of each, summed across by shuffles
-  for (int pb = warp * 8; pb < K::P; pb += NWARP * 8) {
-    const int p = pb + (lane & 7), cq = lane >> 3;
-    const bool ok = p < K::P;
-    const unsigned short* xp = xs + K::xi(p);
-    float s = 0.f;
-    if (ok)
-      for (int c = cq; c < C; c += 4) s += bf16_bits(xp[c * K::XS]);
-    s += __shfl_xor_sync(0xffffffffu, s, 8);
-    s += __shfl_xor_sync(0xffffffffu, s, 16);
-    const float mu = s / C;
-    float v = 0.f;
-    if (ok)
-      for (int c = cq; c < C; c += 4) {
-        const float d = bf16_bits(xp[c * K::XS]) - mu;
-        v += d * d;
-      }
-    v += __shfl_xor_sync(0xffffffffu, v, 8);
-    v += __shfl_xor_sync(0xffffffffu, v, 16);
-    if (ok && cq == 0) {
-      s_mu[p] = mu;
-      s_rs[p] = rsqrtf(v / C + eps);
-    }
-  }
-  __syncthreads();
-  // 3. zn [MP][ZP] = round(LN(x)), eight channels per 16-byte store; zero
-  // outside the image, in the pad rows and past C
-  for (int i = tid; i < K::MP * (KP / 8); i += NTH) {
-    const int kg = i / K::MP, p = i - kg * K::MP;
-    const int gy = y0 - 1 + p / K::PW, gx = x0 - 1 + p % K::PW;
-    uint32_t w4[4] = {0u, 0u, 0u, 0u};
-    if (p < K::P && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const float mu = s_mu[p], rs = s_rs[p];
-      const unsigned short* xp = xs + K::xi(p);
-      float z[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = kg * 8 + j;
-        z[j] = c < C ? (bf16_bits(xp[c * K::XS]) - mu) * rs * ln[c] +
-                           ln[KP + c]
-                     : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat162 h2 =
-            __floats2bfloat162_rn(z[2 * j], z[2 * j + 1]);
-        w4[j] = *reinterpret_cast<const uint32_t*>(&h2);
-      }
-    }
-    *reinterpret_cast<uint4*>(zn + p * ZP + kg * 8) =
-        make_uint4(w4[0], w4[1], w4[2], w4[3]);
-  }
+  ln_front<K, Lay>(x, lnw, lnb, C, H, W, y0, x0, xb, eps, xs,
+                   reinterpret_cast<float*>(smk + pl.ln), s_mu, s_rs, zn);
 
   // the out-projection's accumulators: this warp's MIO x NI blocks of
   // [Q x CP], over every hidden tile
@@ -790,7 +641,7 @@ extern "C" int vmt_gdfn_residual_fwd(
     const void* x, void* y, const float* lnw, const float* lnb,
     const void* win_p, const void* wout_p, const float* wdw_p, int B, int C,
     int H, int W, int hp, int cls, float eps, void* stream) {
-  return vmt::k2::gdfn_fwd<vmt::k2::Nchw, vmt::GeluErf>(
+  return vmt::k2::gdfn_fwd<vmt::mfront::Nchw, vmt::GeluErf>(
       x, y, lnw, lnb, win_p, wout_p, wdw_p, B, C, H, W, hp, cls, eps, stream);
 }
 
@@ -815,7 +666,7 @@ extern "C" int vmt_gdfn_tanh_nhwc_fwd(
     const void* x, void* y, const float* lnw, const float* lnb,
     const void* win_p, const void* wout_p, const float* wdw_p, int B, int C,
     int H, int W, int hp, int cls, float eps, void* stream) {
-  return vmt::k2::gdfn_fwd<vmt::k2::Nhwc, vmt::GeluTanh>(
+  return vmt::k2::gdfn_fwd<vmt::mfront::Nhwc, vmt::GeluTanh>(
       x, y, lnw, lnb, win_p, wout_p, wdw_p, B, C, H, W, hp, cls, eps, stream);
 }
 

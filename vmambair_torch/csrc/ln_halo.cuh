@@ -1,5 +1,7 @@
-// The front that K2 (gdfn.cu) and K5 (oss_front.cu) share: LayerNorm over
-// the channels of an output tile's halo, then 1x1 projections of it.
+// The front that the fp32 routes of K2 (gdfn.cu) and K5 (oss_front.cu)
+// share: LayerNorm over the channels of an output tile's halo, then 1x1
+// projections of it on the CUDA cores (their bf16 routes share
+// mma_front.cuh).
 //
 // A block of NTH threads owns a TH x TW output tile of one image. ln_halo
 // normalises x over the (TH+2) x (TW+2) halo into shared memory (fp32

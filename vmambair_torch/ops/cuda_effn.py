@@ -17,9 +17,10 @@ layout:
 `*_fwd` are the kernel wrappers: a tensor on the CPU goes to the plain
 version (`*_ref`); a CUDA tensor goes to the kernel (`csrc/gdfn.cu`,
 `csrc/oss_front.cu`, `csrc/oss_tail.cu`), or the call raises; `.launches`
-counts each kernel's launches. K2 takes bf16 activations on the tensor
-cores, its weights packed per hidden tile (`pack_gdfn_weights`, for the
-width class `k2_class` picks), and fp32 activations on the CUDA cores.
+counts each kernel's launches. K2 and K5 take bf16 activations on the
+tensor cores, their weights packed per hidden or channel tile
+(`pack_gdfn_weights`, `pack_front_weights`, for the width class
+`k2_class` or `k5_class` picks), and fp32 activations on the CUDA cores.
 The wrappers have no backward. `*_fused` are the differentiable entry
 points: without a gradient to record, one forward
 launch; otherwise an autograd Function whose forward is the same launch
@@ -52,6 +53,11 @@ TAIL_MAX_C = 768   # K6: the pixel tile of every channel in shared memory
 # TW and its hidden tile HT
 K2_CLASSES = ((48, 8, 16, 32), (96, 8, 16, 16), (192, 8, 8, 32),
               (384, 4, 8, 16))
+# K5's width classes on the tensor cores (csrc/oss_front.cu, k5::Fc0-3):
+# the largest C each takes, its output tile TH x TW and its channel tile ET
+K5_CLASSES = ((48, 8, 16, 16), (96, 8, 16, 32), (192, 8, 8, 16),
+              (FRONT_MAX_C, 4, 8, 16))
+K5_AUX = 12  # per channel: 9 depthwise taps, b_dw, b_x, b_z
 
 
 def effn_fused_supported(c: int) -> bool:
@@ -224,6 +230,39 @@ def oss_tail_supported() -> bool:
     return _switch("VMAMBAIR_OSS_TAIL")
 
 
+def k5_class(c: int) -> int:
+    """The width class K5's bf16 route takes for C channels: the first
+    whose largest C is at least C."""
+    return next(i for i, k in enumerate(K5_CLASSES) if c <= k[0])
+
+
+def pack_front_weights(w_in, b_in, w_dw, b_dw, cls: int,
+                       dtype=torch.bfloat16):
+    """K5's weights for its tensor-core route, per channel tile of the
+    width class `cls`, rounded to `dtype`. w_in (2E, C), b_in (2E,), w_dw
+    (E, 3, 3), b_dw (E,) as `oss_front_fwd` takes them. With ET the
+    class's channel tile, ep = E rounded up to ET and KP = C rounded up to
+    16, returns
+    - win_p (ep / ET, 2 ET, KP) `dtype`: tile t is the in_conv's x-half
+      rows t ET .. t ET + ET - 1, then its z-half rows E + t ET ..;
+    - aux_p (ep / ET, ET, 12) fp32 of the `dtype`-rounded values: each
+      channel's 9 taps in (dy, dx) order, b_dw, b_x and b_z;
+    zero past E and past C."""
+    et = K5_CLASSES[cls][3]
+    c2, c = w_in.shape
+    e = c2 // 2
+    ep, kp = -(-e // et) * et, -(-c // 16) * 16
+    nt = ep // et
+    win = F.pad(w_in.detach().reshape(2, e, c),
+                (0, kp - c, 0, ep - e)).view(2, nt, et, kp)
+    win_p = torch.empty(nt, 2, et, kp, dtype=dtype, device=w_in.device)
+    win_p.permute(1, 0, 2, 3).copy_(win)
+    aux = torch.cat([w_dw.detach().reshape(e, 9), b_dw.detach()[:, None],
+                     b_in.detach().reshape(2, e).t()], 1)
+    aux_p = F.pad(aux.to(dtype).float(), (0, 0, 0, ep - e))
+    return win_p.view(nt, 2 * et, kp), aux_p.view(nt, et, K5_AUX)
+
+
 def oss_front_ref(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
     """Plain version: LayerNorm2d, the biased in_conv, split, SiLU and the
     depthwise conv, in x's dtype, as the unfused OSS does (JAX's
@@ -256,22 +295,28 @@ def oss_front_fwd(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
                          f"x {tuple(x.shape)}")
     if c > FRONT_MAX_C:
         raise ValueError(f"oss_front_fused: C={c} > {FRONT_MAX_C}")
+    dtype_code(x, "x")
     x = x.contiguous()
     xs = torch.empty(b, e, h, w, dtype=x.dtype, device=x.device)
     z = torch.empty_like(xs)
-    # weights and biases rounded to the activation dtype, as the
-    # convolutions use them
-    cdt = x.dtype
-    win_t = f32(w_in.to(cdt).t())
-    bin_, bdw = f32(b_in.to(cdt)), f32(b_dw.to(cdt))
-    wdw = f32(w_dw.to(cdt).reshape(e, 9))
     lnw, lnb = f32(ln_w), f32(ln_b)
-    _build.launch(
-        "vmt_oss_front_fwd", x.device,
-        x.data_ptr(), dtype_code(x, "x"), xs.data_ptr(), z.data_ptr(),
-        lnw.data_ptr(), lnb.data_ptr(), win_t.data_ptr(), bin_.data_ptr(),
-        wdw.data_ptr(), bdw.data_ptr(), b, c, e, h, w, float(eps),
-    )
+    # weights and biases rounded to the activation dtype, as the
+    # convolutions use them: bf16 on the tensor cores, packed for C's
+    # width class; fp32 on the CUDA cores, the in_conv transposed
+    if x.dtype == torch.bfloat16:
+        cls = k5_class(c)
+        win_p, aux_p = pack_front_weights(w_in, b_in, w_dw, b_dw, cls)
+        _build.launch(
+            "vmt_oss_front_fwd", x.device, x.data_ptr(), xs.data_ptr(),
+            z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), win_p.data_ptr(),
+            aux_p.data_ptr(), b, c, e, h, w, cls, float(eps))
+    else:
+        win_t = f32(w_in.t())
+        _build.launch(
+            "vmt_oss_front_f32_fwd", x.device, x.data_ptr(), xs.data_ptr(),
+            z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), win_t.data_ptr(),
+            f32(b_in).data_ptr(), f32(w_dw.reshape(e, 9)).data_ptr(),
+            f32(b_dw).data_ptr(), b, c, e, h, w, float(eps))
     oss_front_fwd.launches += 1
     return xs, z
 

@@ -14,7 +14,10 @@ the card ms of K1 at (8, 2, 48, 16384) and (8, 2, 96, 16384) bf16, K1c at
 of a served forward (bf16: `k2_96_ms` (8, 96, 128, 128), `k2_96_64_ms`,
 `k2_192_ms`, `k2_384_ms`) and of the S1 step (fp32: `k2f_48_ms` (8, 48,
 64, 64), `k2f_96_ms`, `k2f_96_32_ms`, `k2f_192_ms`, `k2f_384_ms`), K5
-(8, 96, 128, 128) bf16, K3 at every shape of the S1 step (on K1c's fp32
+(8, 96, 128, 128) bf16 and at the other shapes of a served forward
+(`k5_48_ms` (8, 48, 128, 128), `k5_96_64_ms`, `k5_192_ms`, `k5_384_ms`)
+and at (8, 96, 64, 64) fp32 (`k5f_96_ms`, its CUDA-core route), K3 at
+every shape of the S1 step (on K1c's fp32
 inputs and carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48,
 4096), (8, 2, 96, 1024) and (8, 2, 192, 256); on K4c's at the latent
 (8, 64, 768) and
@@ -136,6 +139,7 @@ def _cases(torch):
            torch.ones(2, d, device=dev))
     k3 = _k3_cases(torch, cuda_scan)
     k2s = _k2_cases(torch)
+    k5s = _k5_cases(torch)
     return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
             ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
             ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
@@ -146,7 +150,8 @@ def _cases(torch):
         (name, lambda a=a: cuda_scan.selective_scan_bwd(
             *a, delta_softplus=True)) for name, a in k3] + [
         (name, lambda a=a: cuda_effn.gdfn_residual_fwd(*a))
-        for name, a in k2s]
+        for name, a in k2s] + [
+        (name, lambda a=a: cuda_effn.oss_front_fwd(*a)) for name, a in k5s]
 
 
 def _k2_cases(torch):
@@ -174,6 +179,29 @@ def _k2_cases(torch):
             ((torch.rand(2 * hid, 3, 3, generator=gen) * 2 - 1) / 3).to(dev),
             ((torch.rand(c, hid, generator=gen) * 2 - 1)
              / hid ** 0.5).to(dev))))
+    return out
+
+
+def _k5_cases(torch):
+    """(name, K5's arguments) at the other MamberBlock shapes of a served
+    forward (bf16, E = C) and at the S1 step's widest (fp32, its CUDA-core
+    route), drawn on the card from a generator of their own."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+    out = []
+    for name, b, c, hw, dt in (
+            ("k5_48_ms", 8, 48, 128, torch.bfloat16),
+            ("k5_96_64_ms", 8, 96, 64, torch.bfloat16),
+            ("k5_192_ms", 8, 192, 32, torch.bfloat16),
+            ("k5_384_ms", 8, 384, 16, torch.bfloat16),
+            ("k5f_96_ms", 8, 96, 64, torch.float32)):
+        out.append((name, (
+            (0.5 * torch.randn(b, c, hw, hw, generator=gen, device=dev)
+             ).to(dt), 1 + 0.1 * r(c), 0.1 * r(c), r(2 * c, c) / c ** 0.5,
+            r(2 * c) / c ** 0.5, r(c, 3, 3) / 3, r(c) / 3)))
     return out
 
 
