@@ -40,8 +40,16 @@ non-zero, and without a CUDA device the script stops before any result:
    forward and reverse, and two K2 calls at (8,96,128,128) bf16 and
    (8,96,64,64) fp32 must give the same bits, and K3's du, ddelta, dB
    and dC on the seeded cases of `tools.ab` that fit one of its segments
-   the bits recorded from the chunk walk it replaced
-   (`vmambair_torch/tools/k3_digests.json`);
+   (fed by the plain carries) the bits recorded from its build
+   (`vmambair_torch/tools/k3_digests.json`). K4 is timed at every shape
+   of a served forward (the latent pair (8,256,768) bf16 both ways, the
+   channel scans (8,c,8) fp32, c = 48, 96, 192, 384) and K4c at the S1
+   step's (the latent (8,64,768) both ways and the same channel scans,
+   fp32), each beside its plain version, its bound and an empty kernel's
+   launch (`torch.cuda._sleep(0)`, the practical floor at these sizes);
+   both at the CUDA tests' ragged shapes too (L no multiple of 8, 32 or
+   256, several segments, N below and over a pass of 16 states, 3
+   channels to a group), bf16 and fp32;
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
 4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
@@ -56,9 +64,9 @@ non-zero, and without a CUDA device the script stops before any result:
    card); checks the output shapes, mode, finiteness and that each kernel
    launched exactly as often as the dispatch predicts for the 4 forwards;
    then a torch.profiler table of one more request is printed (top rows)
-   and written to `chiprun_out/serve_profile.txt`, and K2's launches in
-   that request by shape, each times phase 3's ms at the shape, against
-   the profiler's K2 class; after the race (below) one request with K5
+   and written to `chiprun_out/serve_profile.txt`, and K2's and K4's
+   launches in that request by shape, each times phase 3's ms at the
+   shape, against the profiler's K2 and K4 classes; after the race (below) one request with K5
    and K6 on is profiled the same way (`serve_front_tail_profile.txt`),
    with K5's launches by shape against the profiler's K5 class;
 6. train  - full-size MambaSISR6 through `build_model` with the recipe of
@@ -69,8 +77,8 @@ non-zero, and without a CUDA device the script stops before any result:
    prediction, finite losses falling from step 1 to step 6; save, resume
    into a new model, one more step on each: the same step; a
    torch.profiler table of one step in `OUT_DIR/train_profile.txt`, and
-   K2's and K3's launches in that step by shape, each times phase 3's ms
-   at the shape, against the profiler's K2 and K3 classes.
+   K2's, K3's and K4c's launches in that step by shape, each times phase
+   3's ms at the shape, against the profiler's K2, K3 and K4 classes.
 7. pipeline - `train_pipeline` with both OSS switches on (K5, K6) at the
    full size of the recipe, on a synthetic paired PNG dataset written by
    the port's encoder into `build/chip_smoke_data/` (16 pairs of 480x480
@@ -326,6 +334,17 @@ K5_RAGGED_SHAPES = ((2, 48, 48, 13, 19), (2, 96, 100, 8, 8),
                     (1, 264, 136, 6, 10), (1, 640, 64, 5, 8),
                     (1, 704, 704, 6, 10), (1, 20, 20, 30, 2),
                     (2, 96, 96, 1, 1))
+# the CUDA tests' K4 / K4c shapes past the main path's (`tests/
+# test_torch_port_cuda.py`, K4_CASES): (b, L, D, G, N, layout), an L no
+# multiple of 8, 32 or 256, L over several segments, N below a pass of 16
+# and over it (passes), 3 channels to a group, on the model's views (a
+# latent pair's or a channel scan's)
+K4_RAGGED_SHAPES = ((2, 77, 8, 2, 16, "channel"), (2, 77, 6, 2, 5, "pair"),
+                    (2, 3001, 8, 2, 16, "channel"),
+                    (1, 2100, 6, 2, 40, "pair"),
+                    (2, 77, 96, 4, 200, "pair"),
+                    (1, 300, 24, 2, 200, "channel"),
+                    (2, 256, 64, 2, 16, "pair"))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
@@ -543,30 +562,58 @@ def _fused_case(b, d, L, dtype, gen):
 
 
 def _scan_case(b, L, d, dtype, gen, n_groups=2, N=16, lifted=True):
-    """Inputs laid out as the model passes them: u, delta, B, C are views
-    of (B, 2D, L) / (B, 2, M, L) buffers for the latent pairs, or
-    contiguous (B, L, 8) / (B, L, 2, N) for the channel scan."""
+    """Inputs laid out as the model passes them: for the latent pairs u,
+    delta views of (B, 2D, L) buffers and B, C views of x_dbl, the
+    model's einsums' own outputs; for the channel scan u and delta
+    contiguous (B, L, 8) and B, C views of x_dbl's (B, 2, L, M) (M = R +
+    2N, R = 1)."""
     dev = "cuda"
     dg = d // n_groups
     A = -torch.exp(torch.rand(d, N, generator=gen) * 2).to(dev)
     Dsk = torch.randn(d, generator=gen).to(dev)
     bias = (torch.rand(d, generator=gen) * 2 - 3).to(dev)
-    if lifted:
+    if lifted:  # the projections as `models/oss.py` runs them
         R = -(-dg // 16)
         u2 = torch.randn(b, n_groups, dg, L, generator=gen).to(dev, dtype)
         xpw = ((torch.rand(n_groups, R + 2 * N, dg, generator=gen) * 2 - 1)
                / dg ** 0.5).to(dev)
         dtw = ((torch.rand(n_groups, dg, R, generator=gen) * 2 - 1)
                / R ** 0.5).to(dev)
-        (u, delta, _, Bm, Cm, _, _), _ = cuda_scan.fused_scan_inputs(
-            u2, xpw, dtw, bias.view(n_groups, dg), A.view(n_groups, dg, N),
-            Dsk.view(n_groups, dg))
+        x_dbl = torch.einsum("bgdl,gcd->bgcl", u2.float(), xpw)
+        dts = torch.einsum("bgrl,gdr->bgdl", x_dbl[:, :, :R], dtw)
+        u = u2.reshape(b, d, L).transpose(1, 2)
+        delta = dts.reshape(b, d, L).transpose(1, 2)
+        Bm = x_dbl[:, :, R:R + N].permute(0, 3, 1, 2)
+        Cm = x_dbl[:, :, R + N:].permute(0, 3, 1, 2)
     else:
         u = torch.randn(b, L, d, generator=gen).to(dev, dtype)
         delta = torch.randn(b, L, d, generator=gen).to(dev)
-        Bm = torch.randn(b, L, n_groups, N, generator=gen).to(dev)
-        Cm = torch.randn(b, L, n_groups, N, generator=gen).to(dev)
+        xdbl = torch.randn(b, n_groups, L, 1 + 2 * N, generator=gen).to(
+            dev).transpose(1, 2)
+        Bm, Cm = xdbl[..., 1:1 + N], xdbl[..., 1 + N:]
     return (u, delta, A, Bm, Cm, Dsk, bias)
+
+
+def _k4_ragged_case(b, L, D, G, N, layout, dtype, gen):
+    """K4's inputs at a ragged shape, u in `dtype`: a latent pair's views
+    ("pair": u, delta (b, L, D) views of (b, D, L), B and C views of
+    x_dbl's (b, G, R + 2N, L)) or a channel scan's ("channel": u, delta
+    contiguous, B and C views of x_dbl's (b, G, L, R + 2N)), R = 3."""
+    dev, R = "cuda", 3
+    M = R + 2 * N
+    if layout == "pair":
+        u = torch.randn(b, D, L, generator=gen).to(dev, dtype).transpose(1, 2)
+        delta = torch.randn(b, D, L, generator=gen).to(dev).transpose(1, 2)
+        xdbl = torch.randn(b, G, M, L, generator=gen).to(dev).permute(
+            0, 3, 1, 2)
+    else:
+        u = torch.randn(b, L, D, generator=gen).to(dev, dtype)
+        delta = torch.randn(b, L, D, generator=gen).to(dev)
+        xdbl = torch.randn(b, G, L, M, generator=gen).to(dev).transpose(1, 2)
+    return (u, delta, -torch.exp(torch.rand(D, N, generator=gen) * 2).to(
+                dev), xdbl[..., R:R + N], xdbl[..., R + N:],
+            torch.randn(D, generator=gen).to(dev),
+            (torch.rand(D, generator=gen) * 2 - 3).to(dev))
 
 
 def _gdfn_case(b, c, hw, dtype, gen, w=None):
@@ -736,7 +783,9 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                     *a, delta_softplus=True, reverse=r),
                 lambda a=a, r=rev: cuda_scan.selective_scan_ref(
                     *a, delta_softplus=True, reverse=r),
-                fwd_cmp(f"K4 {lab} {dtype}", dtype), _scan_bound(a, dtype))
+                fwd_cmp(f"K4 {lab} {dtype}", dtype), _scan_bound(a, dtype),
+                timed=dtype == torch.bfloat16,
+                key=(8, 256, 768, 2, rev, dtype), plain_timed=True)
         # K2 at every shape of a served forward (bf16, the first its main
         # shape) and of the S1 step (fp32), each timed beside its plain
         # version, the cuDNN composite; then the CUDA tests' ragged shapes
@@ -783,12 +832,16 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 lambda a=a: cuda_effn.oss_front_fwd(*a),
                 lambda a=a: cuda_effn.oss_front_ref(*a),
                 pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a))
-    a = _scan_case(8, 96, 8, torch.float32, gen, lifted=False)
-    add("selective_scan", "channel scan (8,96,8) G=2", torch.float32,
-        lambda a=a: cuda_scan.selective_scan_fwd(*a, delta_softplus=True),
-        lambda a=a: cuda_scan.selective_scan_ref(*a, delta_softplus=True),
-        fwd_cmp("K4 channel", torch.float32), _scan_bound(a, torch.float32))
-
+    # K4 at the channel scans of a served forward (fp32, each timed)
+    for c in (48, 96, 192, 384):
+        a = _scan_case(8, c, 8, torch.float32, gen, lifted=False)
+        lab = f"channel scan (8,{c},8) G=2"
+        add("selective_scan", lab, torch.float32,
+            lambda a=a: cuda_scan.selective_scan_fwd(*a, delta_softplus=True),
+            lambda a=a: cuda_scan.selective_scan_ref(*a, delta_softplus=True),
+            fwd_cmp(f"K4 {lab}", torch.float32),
+            _scan_bound(a, torch.float32), timed=True,
+            key=(8, c, 8, 2, False, torch.float32), plain_timed=True)
     # train: K1c, K4c, K3 at the S1 step's shapes (fp32 first: the
     # training dtype), K3 fed by the carries of the forward it follows
     for dtype in (torch.float32, torch.bfloat16):
@@ -852,7 +905,10 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 carries_cmp(f"K4c {lab} {dtype}",
                             lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
                                 *a, delta_softplus=True, reverse=r)),
-                _scan_bound(a, dtype, carries=True))
+                _scan_bound(a, dtype, carries=True),
+                timed=dtype == torch.float32,
+                key=(*a[0].shape, a[3].shape[2], rev, dtype),
+                plain_timed=True)
             _, car = cuda_scan.selective_scan_fwd_carries(
                 *a, delta_softplus=True, reverse=rev)
             dy = torch.randn(a[0].shape, generator=gen).to("cuda", dtype)
@@ -865,7 +921,41 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 timed=dtype == torch.float32,
                 key=(*a[0].shape, a[3].shape[2], rev))
 
-    k3_calls, shape_ms = {}, {"K2": {}, "K3": {}, "K5": {}}
+    # K4 and K4c at the CUDA tests' ragged shapes, both ways, fp32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, L, D, G, N, lay) in K4_RAGGED_SHAPES:
+            for rev in (False, True):
+                a = _k4_ragged_case(b, L, D, G, N, lay, dtype, gen)
+                lab = f"ragged ({b},{L},{D}) G={G} N={N} {lay} rev={rev}"
+                add("selective_scan", lab, dtype,
+                    lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
+                        *a, delta_softplus=True, reverse=r),
+                    lambda a=a, r=rev: cuda_scan.selective_scan_ref(
+                        *a, delta_softplus=True, reverse=r),
+                    fwd_cmp(f"K4 {lab} {dtype}", dtype),
+                    _scan_bound(a, dtype))
+                add("selective_scan_carries", lab, dtype,
+                    lambda a=a, r=rev: cuda_scan.selective_scan_fwd_carries(
+                        *a, delta_softplus=True, reverse=r),
+                    lambda a=a, r=rev: cuda_scan.selective_scan_carries_ref(
+                        *a, delta_softplus=True, reverse=r),
+                    carries_cmp(f"K4c {lab} {dtype}",
+                                lambda a=a, r=rev: cuda_scan
+                                .selective_scan_fwd(*a, delta_softplus=True,
+                                                    reverse=r)),
+                    _scan_bound(a, dtype, carries=True))
+
+    k3_calls = {}
+    shape_ms = {"K2": {}, "K3": {}, "K4": {}, "K4c": {}, "K5": {}}
+    by_name = {"selective_scan_bwd": "K3", "selective_scan": "K4",
+               "selective_scan_carries": "K4c", "oss_front_fused": "K5",
+               "gdfn_residual_fused": "K2"}
+    # the practical floor of a call at K4's smallest shapes, whose bound
+    # is a fraction of a microsecond: an empty kernel's launch (the same
+    # CUDA-event timing, behind the same device sleep)
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0), reps=21)
+    print(f"[kernels] an empty kernel's launch (torch.cuda._sleep(0)): "
+          f"{empty_ms:.4f} ms")
     for (name, label, dtype, kern, plain, cmp, bnd, timed, key,
          plain_timed) in cases:
         got = kern()
@@ -882,23 +972,21 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=3)
             st["terms"] = bnd
             ms = st["ms"]
-            line += (f"; kernel {st['ms']:.3f} ms, plain "
-                     f"{st['plain_ms']:.3f} ms")
+            line += (f"; kernel {st['ms']:.4f} ms, plain "
+                     f"{st['plain_ms']:.4f} ms")
             line += bound_share(bnd, st["ms"])
         elif timed:
             ms = time_ms(kern)
-            line += f"; kernel {ms:.3f} ms"
+            line += f"; kernel {ms:.4f} ms"
             if plain_timed:
-                line += f", plain {time_ms(plain, reps=3):.3f} ms"
+                line += f", plain {time_ms(plain, reps=3):.4f} ms"
             line += bound_share(bnd, ms)
         if key is not None and ms is not None:
+            shape_ms[by_name[name]][key] = ms
             if name == "selective_scan_bwd":
-                shape_ms["K3"][key] = ms
                 k3_calls[key] = kern
-            elif name == "oss_front_fused":
-                shape_ms["K5"][key] = ms
-            else:
-                shape_ms["K2"][key] = ms
+        if ms is not None and by_name.get(name, "").startswith("K4"):
+            line += f"; {ms / empty_ms:.2f} empty launches"
         print(line)
     k3_grids(k3_calls)
     del cases, k3_calls
@@ -937,7 +1025,8 @@ def k3_grids(calls):
 
 def k3_recorded_bits():
     """K3's du, ddelta, dB and dC on the seeded cases of `tools.ab` that
-    fit one of its segments: the bits recorded from the chunk walk."""
+    fit one of its segments, fed by the plain carries: the bits recorded
+    from its build."""
     with open(ab.K3_DIGESTS_FILE) as f:
         want = json.load(f)
     got = ab.k3_digests()
@@ -1174,12 +1263,14 @@ def serve(shape_ms) -> dict:
           f"{1e3 * times[0]:.1f} ms; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
           f"{nvidia_smi_line()}")
-    tally = {}
-    with k2_shapes(tally):
+    tally, k4_tally = {}, {}
+    with k2_shapes(tally), k4_shapes("selective_scan_fwd", k4_tally):
         by_class = profile("serve", lambda: ups.tile_process(
             np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
     shape_account("serve", "K2", "forward", tally, shape_ms["K2"],
                   by_class.get("K2 GDFN", 0.0))
+    shape_account("serve", "K4", "forward", k4_tally, shape_ms["K4"],
+                  by_class.get("K4/K4c scan", 0.0))
     raced = race(ups, net)
     tally = {}
     with oss_switches(True), k5_shapes(tally):
@@ -1233,7 +1324,8 @@ KERNEL_CLASSES = (
     # K3's grids: selective_scan_bwd_seg_kernel, _combine, _kernel
     ("K3 scan backward", ("selective_scan_bwd",)),
     ("K1/K1c fused scan", ("oss_scan_fused", "OssFusedScan")),
-    ("K4/K4c scan", ("selective_scan_kernel",)),
+    # K4's grids: seg_scan_kernel and seg_scan_combine of its policy
+    ("K4/K4c scan", ("SelectiveScanFwd",)),
     ("K2 GDFN", ("gdfn_kernel", "gdfn_mma_kernel")),
     ("K5 OSS front", ("oss_front_kernel", "oss_front_mma_kernel")),
     ("K6 OSS tail", ("oss_tail_kernel",)),
@@ -1371,11 +1463,14 @@ def train(shape_ms) -> dict:
     del other
     shutil.rmtree(root)
     torch.cuda.empty_cache()
-    k2_tally, k3_tally = {}, {}
-    with k2_shapes(k2_tally), k3_shapes(k3_tally):
+    k2_tally, k3_tally, k4_tally = {}, {}, {}
+    with k2_shapes(k2_tally), k3_shapes(k3_tally), k4_shapes(
+            "selective_scan_fwd_carries", k4_tally):
         by_class = profile("train", lambda: model.optimize_parameters(8))
     shape_account("train", "K2", "step", k2_tally, shape_ms["K2"],
                   by_class.get("K2 GDFN", 0.0))
+    shape_account("train", "K4c", "step", k4_tally, shape_ms["K4c"],
+                  by_class.get("K4/K4c scan", 0.0))
     shape_account("train", "K3", "step", k3_tally, shape_ms["K3"],
                   by_class.get("K3 scan backward", 0.0))
     return counts
@@ -1416,6 +1511,17 @@ def k5_shapes(tally):
                           lambda x, *a, **kw: (*x.shape, x.dtype), tally)
 
 
+def _k4_key(u, delta, A, B, C, D=None, delta_bias=None,
+            delta_softplus=False, reverse=False, out_dtype=None):
+    return (*u.shape, B.shape[2], bool(reverse), u.dtype)
+
+
+def k4_shapes(name, tally):
+    """K4's or K4c's calls (`name`: its wrapper) by (b, L, D, G, reverse,
+    u's dtype)."""
+    return counted_shapes(cuda_scan, name, _k4_key, tally)
+
+
 def k3_shapes(tally):
     """K3's calls by (b, L, D, G, reverse)."""
     return counted_shapes(
@@ -1440,8 +1546,8 @@ def shape_account(phase, kernel, per, tally, ms_by_shape, profiled_ms):
         total += n * ms
         parts.append(f"({shape}): {n} x {ms:.4f} = {n * ms:.2f} ms")
     print(f"[{phase}] {kernel} per {per} by shape: " + "; ".join(parts)
-          + f"; sum {total:.1f} ms against the profiler's {kernel} class "
-          f"{profiled_ms:.1f} ms ({sum(tally.values())} launches); card "
+          + f"; sum {total:.2f} ms against the profiler's {kernel} class "
+          f"{profiled_ms:.2f} ms ({sum(tally.values())} launches); card "
           f"{nvidia_smi_line()}")
 
 

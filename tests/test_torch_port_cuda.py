@@ -287,6 +287,66 @@ def test_scan_carries_and_backward_kernels_match_plain(cuda, N, G, D,
         torch.testing.assert_close(a, b, **GRAD_TOL)
 
 
+def _k4_args(cuda, b, L, D, G, N, dtype, seed, layout):
+    """K4's inputs as the model passes them, in `dtype` (u) and fp32:
+    "pair", a latent direction pair (u, delta (b, L, D) views of (b, D, L)
+    buffers, B and C views of x_dbl's (b, G, R + 2N, L) rows); "channel",
+    a channel scan (u, delta contiguous, B and C views of x_dbl's (b, G,
+    L, R + 2N)); R = 3, so that the B and C views start at an odd
+    offset."""
+    g = torch.Generator().manual_seed(seed)
+    R = 3
+    M = R + 2 * N
+    if layout == "pair":
+        u = torch.randn(b, D, L, generator=g).to(cuda, dtype).transpose(1, 2)
+        delta = torch.randn(b, D, L, generator=g).to(cuda).transpose(1, 2)
+        xdbl = torch.randn(b, G, M, L, generator=g).to(cuda).permute(
+            0, 3, 1, 2)
+    else:
+        u = torch.randn(b, L, D, generator=g).to(cuda, dtype)
+        delta = torch.randn(b, L, D, generator=g).to(cuda)
+        xdbl = torch.randn(b, G, L, M, generator=g).to(cuda).transpose(1, 2)
+    return [u, delta, -torch.exp(torch.rand(D, N, generator=g) * 2).to(cuda),
+            xdbl[..., R:R + N], xdbl[..., R + N:],
+            torch.randn(D, generator=g).to(cuda),
+            (torch.rand(D, generator=g) * 2 - 3).to(cuda)]
+
+
+# K4 / K4c at the channel scans' shapes (8, C, 8), G = 2; at an L no
+# multiple of 8, 32 or 256; over several segments of `k4_segment` (L =
+# 3001: 12 of 256, the last of 185; L = 2100 with N = 40: 9 of 256 in 3
+# state passes); at N = 200 (13 passes of 16, the last of 8), N = 40 and
+# N = 5 (below a pass); at 3 channels to a group; at a latent pair's shape
+# (every one of them on the model's strided views)
+K4_CASES = [(8, 48, 8, 2, 16, "channel"), (8, 96, 8, 2, 16, "channel"),
+            (8, 192, 8, 2, 16, "channel"), (8, 384, 8, 2, 16, "channel"),
+            (2, 77, 8, 2, 16, "channel"), (2, 77, 6, 2, 5, "pair"),
+            (2, 3001, 8, 2, 16, "channel"), (1, 2100, 6, 2, 40, "pair"),
+            (2, 77, 96, 4, 200, "pair"), (1, 300, 24, 2, 200, "channel"),
+            (2, 256, 64, 2, 16, "pair")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,L,D,G,N,layout", K4_CASES)
+def test_k4_and_k4c_match_plain(cuda, b, L, D, G, N, layout, reverse, dtype):
+    """K4 within the forward envelope of its plain version, one launch per
+    call; K4c's y equal to K4's, its carries within the fp32 envelope of
+    `selective_scan_carries_ref`, one launch per call."""
+    args = _k4_args(cuda, b, L, D, G, N, dtype, b + L + D + N, layout)
+    kw = dict(delta_softplus=True, reverse=reverse)
+    fwd = cuda_scan.selective_scan_fwd
+    fwc = cuda_scan.selective_scan_fwd_carries
+    n0, n1 = fwd.launches, fwc.launches
+    y = fwd(*args, **kw)
+    y2, car = fwc(*args, **kw)
+    assert (fwd.launches, fwc.launches) == (n0 + 1, n1 + 1)
+    _close(y, cuda_scan.selective_scan_ref(*args, **kw), dtype)
+    assert torch.equal(y2, y)
+    _close(car, cuda_scan.selective_scan_carries_ref(*args, **kw)[1],
+           torch.float32)
+
+
 # dy seeds of the K3 tests without D and bias; 47, 81, 358 and 371 drew the
 # dy whose gradients missed GRAD_TOL on the growing recipe (ROADMAP F2)
 F2_SEEDS = (0, 1, 2, 3, 47, 81, 358, 371)
@@ -553,10 +613,10 @@ def test_k3_is_deterministic_over_segments(cuda):
 
 
 def test_k3_keeps_the_recorded_bits_in_one_segment(cuda):
-    """Where L fits one segment, K3's du, ddelta, dB and dC are the bits
-    recorded from the chunk walk it replaced (`tools/k3_digests.json`,
-    made by `python -m vmambair_torch.tools.ab --other DIR --digests` on
-    that walk's tree)."""
+    """Where L fits one segment, K3's du, ddelta, dB and dC on the plain
+    carries are the bits recorded from the build of its segmented design
+    (`tools/k3_digests.json`, made by `python -m vmambair_torch.tools.ab
+    --other DIR --digests`)."""
     import json
 
     from vmambair_torch.tools import ab

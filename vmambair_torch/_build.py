@@ -74,7 +74,9 @@ SIGNATURES = {
         _P, _P,                                  # Dskip, bias
         _P, _I, _LL, _LL, _LL,                   # y (B, D, L)
         _P,                                      # carries (K4c) or None
-        _I, _I, _I, _I, _I, _I, _I, _P,          # B L D G N rev sp stream
+        _P,                                      # work (scratch) or None
+        _I, _I, _I, _I, _I, _I,                  # B L D G N seg
+        _I, _I, _P,                              # rev sp stream
     ],
     "vmt_selective_scan_bwd": [
         _P, _I, _LL, _LL, _LL,                   # u (B, L, D)

@@ -24,14 +24,21 @@
 // moves it), plus, back to front, the segment's first position where it
 // ends at L; so a lane keeps the state at p = 0 and at p = cq, and stores
 // each after its state's replay, with stores that nothing else waits on
-// (st_f32_if). The stores change no arithmetic of y.
+// (st_f32_if). The stores change no arithmetic of y. (State j of the
+// registers is state k.n0 + j: K4 walks N in passes, scan_seg.cuh.)
+//
+// UNR states of the window's loop are unrolled at once, all NS by
+// default. A window runs its code once, so a kernel that runs few windows
+// a block (K4) pays for its code's size in instruction fetches; with UNR <
+// NS the code shrinks that many times, the states' registers go to local
+// memory (the L1), and fewer chains interleave.
 #pragma once
 
 #include "scan_seg.cuh"
 
 namespace vmt {
 
-template <int NS_, bool REV2, bool CARRIES = false>
+template <int NS_, bool REV2, bool CARRIES = false, int UNR = NS_>
 struct LparScan {
   static constexpr int NS = NS_;
   float carry[NS];  // the forward state entering the window
@@ -115,8 +122,8 @@ struct LparScan {
                                          float (&yv)[SG_KP]) {
     const int lane = k.lane;
     // unguarded over the NS states: past N, A = 0 and B = C = 0 keep a
-    // state at 0, and the states' chains interleave
-#pragma unroll
+    // state at 0, and the states' chains interleave (UNR of them at once)
+#pragma unroll(UNR)
     for (int j = 0; j < NS; ++j) {
       float av[SG_KP], x[SG_KP];
       float P = 1.f, H = 0.f;  // the lane's decay product and end state
@@ -178,14 +185,18 @@ struct LparScan {
       if (WRITE_Y) {
         float hh = lane ? prev : carry[j];
         float hb = hh;  // K1c: the state before position cq
-        if (CARRIES) st_f32_if(a.carries + ia + j, hh, ca && j < a.N);
+        if (CARRIES) {
+          st_f32_if(a.carries + ia + k.n0 + j, hh, ca && k.n0 + j < a.N);
+        }
 #pragma unroll
         for (int p = 0; p < SG_KP; ++p) {
           if (CARRIES && p > 0) hb = p == cq ? hh : hb;
           hh = av[p] * hh + x[p];
           yv[p] += c_s[j][p * SG_PP + lane] * hh;
         }
-        if (CARRIES) st_f32_if(a.carries + ib + j, hb, cb && j < a.N);
+        if (CARRIES) {
+          st_f32_if(a.carries + ib + k.n0 + j, hb, cb && k.n0 + j < a.N);
+        }
       }
       carry[j] = __shfl_sync(FULL, hl, 31);
     }

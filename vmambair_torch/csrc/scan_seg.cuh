@@ -1,5 +1,6 @@
 // The skeleton the L-parallel segmented scans share (scan_lpar.cu,
-// scan_stack_bf16.cu, and K1's passes 1-3 in oss_scan_fused.cu).
+// scan_stack_bf16.cu, K1's passes 1-3 in oss_scan_fused.cu, and K4 in
+// selective_scan.cu).
 //
 // Layout: u, delta and y addressed through (b, g, l, d) strides, B and C
 // through (b, g, l, n) strides, so the DL (B, D, L) and the LD (B, L, D)
@@ -16,6 +17,8 @@
 //     in scan order (back to front when reverse) gives each its entering
 //     state, hin[s] = h; h = aend[s] h + hend[s].
 //  3. seg_scan_kernel<.., true, P>: each segment again, from hin, writing y.
+// A scan with one segment may pass no hin: pass 3 then runs alone, from a
+// zero state (the policy's init reads none), and needs no scratch.
 // A block is 4 warps, one channel each, of one group; it walks its segment
 // in windows of 256 positions (32 lanes x KP = 8 consecutive positions).
 // Per window the block stages the group's B (and C) rows in shared memory
@@ -26,6 +29,13 @@
 // window does with them is the policy's: scan_lpar.cuh's fp32 scan (and
 // v16's reverse beside it; K1c's carries), scan_stack_bf16.cu's bf16
 // stacks.
+// A policy with PASSES = true walks N states in passes of NS (K4, N up to
+// 256): per window, after the lane's u and delta, each pass stages its
+// states' B (and C) rows and runs the policy's window on them, y summing
+// over the passes; between passes the policy swaps its registers with
+// the warp's state row in shared memory (SegBlock::hs, N floats, after
+// the rows), which also holds every state for pass 1's finish. Without
+// it, N <= NS and the one pass's code is the skeleton's without passes.
 //
 // A policy P is a struct with NS (states in registers) and
 //   init<WRITE_Y>(a, k)      registers at the segment's start
@@ -34,7 +44,12 @@
 //                            adds C h to yv (yv enters as D u)
 //   store(a, at, p)          further outputs of position p at offset at
 //   finish(a, k)             pass 1's hend and aend (active warps only)
+// and, with PASSES,
+//   pass(a, k, from)         registers of states k.n0.. in place of
+//                            those of states from.. (k.a2 already k.n0's)
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -75,27 +90,44 @@ struct SegBlock {
   int lane, c, s0, slen;
   bool active;     // the warp's channel exists (else it stages only)
   long long hrow;  // (b, c, s)
-  float a2[NS];    // A log2(e) per state, 0 past N
+  int n0;          // the pass's first state (0 without passes)
+  float* hs;       // PASSES: the warp's N states in shared memory
+  float a2[NS];    // A log2(e) of states n0 + j, 0 past N
   // position of scan index i of the segment
   __device__ __forceinline__ int pos(const SegArgs& a, int i) const {
     return a.reverse ? s0 + slen - 1 - i : s0 + i;
   }
 };
 
-// shared memory of a pass: NS rows of B, and of C where it writes y
-template <int NS, bool WRITE_Y>
-constexpr size_t seg_smem() {
-  return (WRITE_Y ? 2 : 1) * NS * sizeof(SegRows);
+// whether policy P walks the states in passes (its PASSES, else false)
+template <class P, class = void>
+struct SegPasses : std::false_type {};
+template <class P>
+struct SegPasses<P, std::void_t<decltype(P::PASSES)>>
+    : std::bool_constant<P::PASSES> {};
+
+// shared memory of a pass: NS rows of B, and of C where it writes y;
+// with passes, the warps' state rows after them
+template <class P, bool WRITE_Y>
+size_t seg_smem(int N) {
+  return (WRITE_Y ? 2 : 1) * P::NS * sizeof(SegRows) +
+         (SegPasses<P>::value ? SG_WARPS * (size_t)N * sizeof(float) : 0);
 }
 
 template <int NS, bool WRITE_Y, class P>
 __global__ void __launch_bounds__(SG_THREADS)
     seg_scan_kernel(const __grid_constant__ SegArgs a) {
+  constexpr bool PASSES = SegPasses<P>::value;
   extern __shared__ float sg_sm[];
   SegRows* b_s = reinterpret_cast<SegRows*>(sg_sm);
   SegRows* c_s = b_s + NS;  // pass 3 only
   SegBlock<NS> k;
   k.lane = threadIdx.x & 31;
+  k.n0 = 0;
+  k.hs = PASSES ? sg_sm + (WRITE_Y ? 2 : 1) * NS * SG_KP * SG_PP +
+                      (threadIdx.x >> 5) * a.N
+                : nullptr;
+  const int npass = PASSES ? (a.N + NS - 1) / NS : 1;
   const int ntile = (a.Dg + SG_WARPS - 1) / SG_WARPS;
   const int g = blockIdx.y / ntile;
   const int d = (blockIdx.y % ntile) * SG_WARPS + (threadIdx.x >> 5);
@@ -107,10 +139,18 @@ __global__ void __launch_bounds__(SG_THREADS)
   k.s0 = blockIdx.x * a.seg;
   k.slen = min(a.seg, a.L - k.s0);
   k.hrow = ((long long)b * a.G * a.Dg + k.c) * gridDim.x + blockIdx.x;
+  // states n0 .. n0 + NS - 1 in registers: A, and the policy's own
+  auto to_pass = [&](int n0) {
+    const int from = k.n0;
+    k.n0 = n0;
 #pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    k.a2[j] = j < a.N ? a.A[(long long)k.c * a.N + j] * LOG2E : 0.f;
-  }
+    for (int j = 0; j < NS; ++j) {
+      k.a2[j] = n0 + j < a.N ? a.A[(long long)k.c * a.N + n0 + j] * LOG2E
+                             : 0.f;
+    }
+    return from;
+  };
+  to_pass(0);
   P pol;
   pol.template init<WRITE_Y>(a, k);
   const int cd = k.c - g * a.Dg;
@@ -146,23 +186,29 @@ __global__ void __launch_bounds__(SG_THREADS)
              lane_ok);
     ld_raw_n(rd, a.dl, a.d_dt, [&](int p) { return db + tp[p] * a.sd_l; },
              lane_ok);
-    // staged element e: state e % NS of position tq[e / NS]; rows past N
-    // and positions past the window stay 0
-    auto row_ok = [&](int e) { return e % NS < a.N && tq[e / NS] >= 0; };
+    // staged element e: state n0 + e % NS of position tq[e / NS]; rows
+    // past N and positions past the window stay 0
+    auto ld_rows = [&]() {
+      const int n0 = PASSES ? k.n0 : 0;
+      auto row_ok = [&](int e) {
+        return n0 + e % NS < a.N && tq[e / NS] >= 0;
+      };
 #pragma unroll
-    for (int e = 0; e < 2 * NS; ++e) rb[e] = rc[e] = 0u;
-    ld_raw_n(rb, a.Bm, a.b_dt,
-             [&](int e) {
-               return bb + (e % NS) * a.sb_n + tq[e / NS] * a.sb_l;
-             },
-             row_ok);
-    if (WRITE_Y) {
-      ld_raw_n(rc, a.Cm, a.c_dt,
+      for (int e = 0; e < 2 * NS; ++e) rb[e] = rc[e] = 0u;
+      ld_raw_n(rb, a.Bm, a.b_dt,
                [&](int e) {
-                 return cb + (e % NS) * a.sc_n + tq[e / NS] * a.sc_l;
+                 return bb + (n0 + e % NS) * a.sb_n + tq[e / NS] * a.sb_l;
                },
                row_ok);
-    }
+      if (WRITE_Y) {
+        ld_raw_n(rc, a.Cm, a.c_dt,
+                 [&](int e) {
+                   return cb + (n0 + e % NS) * a.sc_n + tq[e / NS] * a.sc_l;
+                 },
+                 row_ok);
+      }
+    };
+    ld_rows();
     float dv[SG_KP], du[SG_KP], yv[SG_KP];
 #pragma unroll
     for (int p = 0; p < SG_KP; ++p) {
@@ -177,19 +223,31 @@ __global__ void __launch_bounds__(SG_THREADS)
       yv[p] = dsk * uu;
     }
     pol.template pre<WRITE_Y>(a, k, w0, dv, yv);
-    __syncthreads();  // the previous window's reads of b_s, c_s are done
+    for (int ps = 0;;) {
+      __syncthreads();  // the previous window's reads of b_s, c_s are done
 #pragma unroll
-    for (int hq = 0; hq < 2; ++hq) {
-      const int q = threadIdx.x + SG_THREADS * hq;
-      const int at = (q % SG_KP) * SG_PP + q / SG_KP;
+      for (int hq = 0; hq < 2; ++hq) {
+        const int q = threadIdx.x + SG_THREADS * hq;
+        const int at = (q % SG_KP) * SG_PP + q / SG_KP;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {  // rows past N are zeros
-        b_s[j][at] = raw_f32(rb[hq * NS + j], a.b_dt);
-        if (WRITE_Y) c_s[j][at] = raw_f32(rc[hq * NS + j], a.c_dt);
+        for (int j = 0; j < NS; ++j) {  // rows past N are zeros
+          b_s[j][at] = raw_f32(rb[hq * NS + j], a.b_dt);
+          if (WRITE_Y) c_s[j][at] = raw_f32(rc[hq * NS + j], a.c_dt);
+        }
+      }
+      __syncthreads();
+      pol.template window<WRITE_Y>(a, k, w0, dv, du, b_s, c_s, yv);
+      if constexpr (!PASSES) {
+        break;
+      } else {
+        if (++ps == npass) break;
+        pol.pass(a, k, to_pass(ps * NS));
+        ld_rows();
       }
     }
-    __syncthreads();
-    pol.template window<WRITE_Y>(a, k, w0, dv, du, b_s, c_s, yv);
+    if constexpr (PASSES) {
+      if (npass > 1) pol.pass(a, k, to_pass(0));  // the next window's first
+    }
     if (WRITE_Y && k.active) {
 #pragma unroll
       for (int p = 0; p < SG_KP; ++p) {
@@ -229,22 +287,25 @@ static __global__ void seg_scan_combine(const float* __restrict__ hend,
 template <class P>
 static int launch_seg(const SegArgs& a, int B, cudaStream_t st) {
   const int nseg = (a.L + a.seg - 1) / a.seg;
+  if (!a.hin && nseg > 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(nseg, a.G * ((a.Dg + SG_WARPS - 1) / SG_WARPS), B);
-  constexpr size_t sm1 = seg_smem<P::NS, false>();
-  constexpr size_t sm3 = seg_smem<P::NS, true>();
-  int err = set_smem((const void*)seg_scan_kernel<P::NS, false, P>, sm1);
-  if (!err) {
-    err = set_smem((const void*)seg_scan_kernel<P::NS, true, P>, sm3);
+  const size_t sm3 = seg_smem<P, true>(a.N);
+  int err = set_smem((const void*)seg_scan_kernel<P::NS, true, P>, sm3);
+  if (err) return err;
+  if (a.hin) {  // pass 1 and the combine
+    const size_t sm1 = seg_smem<P, false>(a.N);
+    err = set_smem((const void*)seg_scan_kernel<P::NS, false, P>, sm1);
+    if (err) return err;
+    seg_scan_kernel<P::NS, false, P><<<grid, SG_THREADS, sm1, st>>>(a);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    const long long rows = (long long)B * a.G * a.Dg;
+    seg_scan_combine<P>
+        <<<(unsigned)((rows * a.N + 255) / 256), 256, 0, st>>>(
+            a.hend, a.aend, a.hin, rows, a.N, nseg, a.reverse);
+    err = (int)cudaGetLastError();
+    if (err) return err;
   }
-  if (err) return err;
-  seg_scan_kernel<P::NS, false, P><<<grid, SG_THREADS, sm1, st>>>(a);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const long long rows = (long long)B * a.G * a.Dg;
-  seg_scan_combine<P><<<(unsigned)((rows * a.N + 255) / 256), 256, 0, st>>>(
-      a.hend, a.aend, a.hin, rows, a.N, nseg, a.reverse);
-  err = (int)cudaGetLastError();
-  if (err) return err;
   seg_scan_kernel<P::NS, true, P><<<grid, SG_THREADS, sm3, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -11,131 +11,122 @@
 // written through (B, D, L) strides. Activations are fp32 or bf16 (each its
 // own flag); A (D, N), Dskip (D,), bias (D,) fp32 and contiguous.
 //
-// What bounds it on the H100: as K1, the sequential walk over L per channel
-// (latency of exp2 + FMA per state and position). In the model it serves
-// the latent spatial scans (D = 384 per direction pair, L = 256 at a 128
-// tile) and the channel scans (L = C, 2 groups of 4 channels), which are
-// small: there the launch and the chunk loop dominate.
+// What bounds it on the H100: the SFU, one exp2 per (b, l, d, n), as K1;
+// at the model's calls the work is small (the latent direction pairs,
+// (8, 256, 768) served; the channel scans, (8, C, 8) with C = 48 to 384,
+// 16 warps of channels), and the launch, the loads' latency and the
+// sequential part of the scan set the time.
 //
-// Design: one block per (b, channel tile of T channels inside one group);
-// a loop over chunks of CH positions (reverse: back to front) carries the
-// fp32 state in shared memory. Per chunk the block stages u, delta and the
-// group's B/C rows and runs scan_chunk (common.cuh), S threads to a
-// channel; states go through registers NS at a time, so any N <= 256 works.
+// Design: scan_seg.cuh's skeleton with scan_lpar.cuh's fp32 policy, the
+// one K1's passes 1-3 run (a block of 4 warps, a channel each; a lane
+// scans 8 consecutive positions in registers and a warp-shuffle tree over
+// the lanes joins them, 256 positions a window). The wrapper's segment
+// (cuda_scan.k4_segment) decides the grids: where L fits one segment,
+// every call of the model's main path, pass 3 runs alone from a zero
+// state, one grid and no scratch; longer L takes pass 1, the combine and
+// pass 3 over the caller's scratch `work` (hend, aend, hin: 3 B D nseg N
+// floats). N up to 16 sits in registers at once; more states go in passes
+// of 16 (the skeleton's PASSES), each pass staging its states' B and C
+// rows and adding its C h to y, the warp's other states kept in shared
+// memory (4 N floats a block); the sum over the states keeps its order.
+// The window's loop over the states is unrolled K4_UNR at a time, not
+// whole as in K1: at the model's calls a block runs one or two windows, so
+// the code runs once and every instruction is fetched cold (the kernels
+// between two K4 calls in a forward evict it); an eighth of the code
+// costs fewer fetches than the interleaved states save.
 //
 // K4c, the carry-saving forward of training (replaces _build_pallas_fwd
 // with save_carries=True, pallas_scan.py:401-418), is this kernel with a
-// non-null `carries`: at the start of every chunk the block also writes the
-// fp32 state entering it to carries (B, D, n_chunks, N), indexed by the
-// chunk's position in L, for the backward (K3, selective_scan_bwd.cu) to
-// recompute the chunk from. It adds B * D * n_chunks * N * 4 bytes of
-// writes (1/CH of the state traffic the scan does in registers).
-#include "common.cuh"
+// non-null `carries`: pass 3 also writes the fp32 state entering every
+// chunk of CH positions, in scan order, to carries (B, D, n_chunks, N),
+// indexed by the chunk's position in L (the CARRIES form of the policy,
+// K1c's), for the backward (K3, selective_scan_bwd.cu) to recompute the
+// chunk from. The stores change no arithmetic of y: K4c's y is K4's.
+#include "scan_lpar.cuh"
 
 namespace vmt {
 
-template <int NS>
-__global__ void selective_scan_kernel(
-    const void* __restrict__ u, int u_dt, long long su_b, long long su_d,
-    long long su_l, const void* __restrict__ dl, int d_dt, long long sd_b,
-    long long sd_d, long long sd_l, const float* __restrict__ A,
-    const void* __restrict__ Bm, int b_dt, long long sb_b, long long sb_g,
-    long long sb_n, long long sb_l, const void* __restrict__ Cm, int c_dt,
-    long long sc_b, long long sc_g, long long sc_n, long long sc_l,
-    const float* __restrict__ Dskip, const float* __restrict__ bias,
-    void* __restrict__ y, int y_dt, long long sy_b, long long sy_d,
-    long long sy_l, float* __restrict__ carries, int D, int L, int N, int G,
-    int T, int S, int reverse, int softplus) {
-  extern __shared__ float sm[];
-  const int ntile = D / T;
-  const int b = blockIdx.x / ntile;
-  const int c0 = (blockIdx.x % ntile) * T;
-  const int g = c0 / (D / G);
+constexpr int K4_NS = 16;  // states in registers, a pass's
+constexpr int K4_UNR = 2;  // states of the window's loop unrolled at once
 
-  float* u_s = sm;                  // [T][LDS]
-  float* d_s = u_s + T * LDS;       // [T][LDS]
-  float* bc = d_s + T * LDS;        // [2N][LDS]: B rows, then C rows
-  float* ypart = bc + 2 * N * LDS;  // [S][T][LDS]
-  float* h = ypart + S * T * LDS;   // [T][N]
-  float* A2 = h + T * N;            // [T][N]
+// scan_lpar.cuh's policy (K1's, with K1c's carries where CARRIES), named
+// for the profiler, which reads no hin where there is one segment, and
+// which with PASSES walks N > 16 states in passes of K4_NS.
+template <bool CARRIES, bool PASSES_>
+struct SelectiveScanFwd : LparScan<K4_NS, false, CARRIES, K4_UNR> {
+  using Base = LparScan<K4_NS, false, CARRIES, K4_UNR>;
+  static constexpr int NS = K4_NS;
+  static constexpr bool PASSES = PASSES_;
 
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  for (int i = tid; i < T * N; i += nth) {
-    h[i] = 0.f;
-    A2[i] = A[(long long)c0 * N + i] * LOG2E;
-  }
-  // offsets are in elements of each tensor's own dtype
-  const long long ub = b * su_b + c0 * su_d;
-  const long long db = b * sd_b + c0 * sd_d;
-  const long long bb = b * sb_b + g * sb_g;
-  const long long cb = b * sc_b + g * sc_g;
-  const long long yb = b * sy_b + c0 * sy_d;
-  // which index runs fastest in memory decides the thread mapping
-  const bool u_tfast = su_l == 1;
-  const bool d_tfast = sd_l == 1;
-  const bool b_tfast = sb_l == 1;
-  const bool c_tfast = sc_l == 1;
-
-  const int nchunks = (L + CH - 1) / CH;
-  for (int k = 0; k < nchunks; ++k) {
-    const int ck = reverse ? nchunks - 1 - k : k;
-    const int t0 = ck * CH;
-    const int len = min(CH, L - t0);
-    __syncthreads();
-    if (carries) {  // K4c: the state entering this chunk
-      for (int i = tid; i < T * N; i += nth) {
-        carries[(((long long)b * D + c0 + i / N) * nchunks + ck) * N +
-                i % N] = h[i];
+  // the entering state: hin's (pass 3 over segments) or zeros (pass 1, or
+  // one segment); with passes, all N of them in the warp's row k.hs
+  template <bool WRITE_Y>
+  __device__ __forceinline__ void init(const SegArgs& a,
+                                       const SegBlock<NS>& k) {
+    Base::template init<false>(a, k);  // zero states, the carries' places
+    const float* hin = WRITE_Y ? a.hin : nullptr;
+    if (PASSES) {
+      for (int n = k.lane; n < a.N; n += 32) {
+        k.hs[n] = hin ? hin[k.hrow * a.N + n] : 0.f;
+      }
+      __syncwarp();
+    }
+    if (PASSES || hin) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        this->carry[j] = j >= a.N ? 0.f
+                         : PASSES ? k.hs[j]
+                                  : hin[k.hrow * a.N + j];
       }
     }
-    for (int i = tid; i < T * CH; i += nth) {
-      int c, t;
-      if (u_tfast) { c = i / CH; t = i % CH; } else { c = i % T; t = i / T; }
-      u_s[c * LDS + t] =
-          t < len ? ld_act(u, ub + c * su_d + (t0 + t) * su_l, u_dt) : 0.f;
-      if (d_tfast) { c = i / CH; t = i % CH; } else { c = i % T; t = i / T; }
-      float dv = 0.f;
-      if (t < len) {
-        dv = ld_act(dl, db + c * sd_d + (t0 + t) * sd_l, d_dt);
-        if (bias) dv += bias[c0 + c];
-        if (softplus) dv = softplus20(dv);
+  }
+
+  // the next pass: states `from`.. to the warp's row, states k.n0.. from
+  // it (every lane holds the same states, the window's last lane's)
+  __device__ __forceinline__ void pass(const SegArgs& a,
+                                       const SegBlock<NS>& k, int from) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (k.lane == j && from + j < a.N) k.hs[from + j] = this->carry[j];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      this->carry[j] = k.n0 + j < a.N ? k.hs[k.n0 + j] : 0.f;
+    }
+    __syncwarp();
+  }
+
+  // pass 1: the segment's end state and decay of every state (with
+  // passes, the row holds all N: each window's last pass stored its own)
+  __device__ __forceinline__ void finish(const SegArgs& a,
+                                         const SegBlock<NS>& k) {
+    if constexpr (!PASSES) {
+      Base::finish(a, k);
+    } else {
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1) {
+        this->dsum += __shfl_xor_sync(FULL, this->dsum, s);
       }
-      d_s[c * LDS + t] = dv;
-    }
-    for (int i = tid; i < N * CH; i += nth) {
-      int n, t;
-      if (b_tfast) { n = i / CH; t = i % CH; } else { n = i % N; t = i / N; }
-      bc[n * LDS + t] =
-          t < len ? ld_act(Bm, bb + n * sb_n + (t0 + t) * sb_l, b_dt) : 0.f;
-      if (c_tfast) { n = i / CH; t = i % CH; } else { n = i % N; t = i / N; }
-      bc[(N + n) * LDS + t] =
-          t < len ? ld_act(Cm, cb + n * sc_n + (t0 + t) * sc_l, c_dt) : 0.f;
-    }
-    __syncthreads();
-    scan_chunk<NS>(d_s, u_s, bc, bc + N * LDS, LDS, A2, h, ypart, T, S, N, len,
-               reverse != 0);
-    __syncthreads();
-    for (int i = tid; i < T * len; i += nth) {
-      const int c = i / len, t = i % len;
-      float acc = Dskip ? Dskip[c0 + c] * u_s[c * LDS + t] : 0.f;
-      for (int s = 0; s < S; ++s) acc += ypart[(s * T + c) * LDS + t];
-      st_act(y, yb + c * sy_d + (t0 + t) * sy_l, y_dt, acc);
+      for (int n = k.lane; n < a.N; n += 32) {
+        a.hend[k.hrow * a.N + n] = k.hs[n];
+        a.aend[k.hrow * a.N + n] =
+            exp2_ftz(a.A[(long long)k.c * a.N + n] * LOG2E * this->dsum);
+      }
     }
   }
-}
+};
 
-template <int NS, typename... Args>
-static int launch(size_t smem, int blocks, int threads, cudaStream_t stream,
-                  Args... args) {
-  int err = set_smem((const void*)selective_scan_kernel<NS>, smem);
-  if (err) return err;
-  selective_scan_kernel<NS><<<blocks, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
+template <bool CARRIES>
+static int k4_launch(const SegArgs& a, int B, cudaStream_t st) {
+  return a.N > K4_NS ? launch_seg<SelectiveScanFwd<CARRIES, true>>(a, B, st)
+                     : launch_seg<SelectiveScanFwd<CARRIES, false>>(a, B, st);
 }
 
 }  // namespace vmt
 
+// work: null where L fits one segment of `seg` positions, else fp32
+// scratch of 3 B D ceil(L / seg) N floats (cuda_scan.k4_workspace).
 extern "C" int vmt_selective_scan_fwd(
     const void* u, int u_dt, long long su_b, long long su_l, long long su_d,
     const void* dl, int d_dt, long long sd_b, long long sd_l, long long sd_d,
@@ -143,26 +134,28 @@ extern "C" int vmt_selective_scan_fwd(
     long long sb_g, long long sb_n, const void* Cm, int c_dt, long long sc_b,
     long long sc_l, long long sc_g, long long sc_n, const float* Dskip,
     const float* bias, void* y, int y_dt, long long sy_b, long long sy_d,
-    long long sy_l, float* carries, int B, int L, int D, int G, int N,
-    int reverse, int softplus, void* stream) {
+    long long sy_l, float* carries, float* work, int B, int L, int D, int G,
+    int N, int seg, int reverse, int softplus, void* stream) {
   using namespace vmt;
-  const int T = largest_divisor_le(D / G, 32);
-  const int S = N < 8 ? N : 8;
-  const size_t smem = sizeof(float) *
-      ((size_t)(2 * T + 2 * N + S * T) * LDS + 2 * (size_t)T * N);
-  const int blocks = B * (D / T);
-  cudaStream_t st = (cudaStream_t)stream;
-#define VMT_K4_LAUNCH(NS_)                                                  \
-  launch<NS_>(smem, blocks, T * S, st, u, u_dt, su_b, su_d, su_l, dl, d_dt, \
-              sd_b, sd_d, sd_l, A, Bm, b_dt, sb_b, sb_g, sb_n, sb_l, Cm,    \
-              c_dt, sc_b, sc_g, sc_n, sc_l, Dskip, bias, y, y_dt, sy_b,    \
-              sy_d, sy_l, carries, D, L, N, G, T, S, reverse, softplus)
-  switch (states_per_thread(N, S)) {
-    case 1: return VMT_K4_LAUNCH(1);
-    case 2: return VMT_K4_LAUNCH(2);
-    case 4: return VMT_K4_LAUNCH(4);
-    case 8: return VMT_K4_LAUNCH(8);
-    default: return VMT_K4_LAUNCH(16);
+  if (B < 1 || L < 1 || G < 1 || D % G || N < 1 || N > 256 || seg < 1 ||
+      B > 65535 || (long long)G * ((D / G + SG_WARPS - 1) / SG_WARPS) >
+                       65535) {
+    return (int)cudaErrorInvalidValue;
   }
-#undef VMT_K4_LAUNCH
+  const int Dg = D / G;
+  const long long hs =
+      (long long)B * D * ((L + seg - 1) / seg) * N;  // each of the three
+  const SegArgs a{
+      u, u_dt, su_b, Dg * su_d, su_l, su_d,
+      dl, d_dt, sd_b, Dg * sd_d, sd_l, sd_d,
+      A,
+      Bm, b_dt, sb_b, sb_g, sb_l, sb_n,
+      Cm, c_dt, sc_b, sc_g, sc_l, sc_n,
+      Dskip, bias,
+      y, y_dt, sy_b, Dg * sy_d, sy_l, sy_d,
+      nullptr, work, work ? work + hs : nullptr,
+      work ? work + 2 * hs : nullptr, nullptr, nullptr,
+      G, L, Dg, N, seg, seg, reverse, softplus, carries};
+  cudaStream_t st = (cudaStream_t)stream;
+  return carries ? k4_launch<true>(a, B, st) : k4_launch<false>(a, B, st);
 }

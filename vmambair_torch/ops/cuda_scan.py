@@ -104,10 +104,31 @@ def _scan_shapes(u, delta, A, B, C, name):
     return bsz, L, dim, G, N
 
 
+def k4_segment(b: int, D: int, G: int, L: int) -> int:
+    """Positions to a segment of K4 (`csrc/selective_scan.cu`). One segment
+    of 1024 where L fits it: K4 then runs pass 3 alone from a zero state,
+    one grid without scratch (every call of the model's main path: the
+    latent pairs at L = 256 and 64, the channel scans at L = C <= 384).
+    Else K1's rule (`k1_segment`) on its grid of G groups of D / G
+    channels."""
+    return 1024 if L <= 1024 else k1_segment(b, G, D // G, L)
+
+
+def k4_workspace(b: int, D: int, L: int, N: int, seg: int) -> int:
+    """fp32 scratch of a K4 call over more than one segment, in floats:
+    each segment's end state, its decay and its entering state, (b, D,
+    ceil(L / seg), N) each. None is needed within one segment."""
+    return 3 * b * D * -(-L // seg) * N
+
+
 def _launch_k4(u, delta, A, B, C, D, delta_bias, softplus, reverse,
                out_dtype, carries):
     bsz, L, dim, G, N = _scan_shapes(u, delta, A, B, C, "selective_scan")
     y = torch.empty(bsz, dim, L, dtype=out_dtype or u.dtype, device=u.device)
+    seg = k4_segment(bsz, dim, G, L)
+    work = (torch.empty(k4_workspace(bsz, dim, L, N, seg),
+                        dtype=torch.float32, device=u.device)
+            if L > seg else None)
     A32 = f32(A)
     D32 = None if D is None else f32(D)
     b32 = None if delta_bias is None else f32(delta_bias)
@@ -122,7 +143,8 @@ def _launch_k4(u, delta, A, B, C, D, delta_bias, softplus, reverse,
         None if b32 is None else b32.data_ptr(),
         y.data_ptr(), dtype_code(y, "out"), *y.stride(),
         None if carries is None else carries.data_ptr(),
-        bsz, L, dim, G, N, int(bool(reverse)), int(bool(softplus)),
+        None if work is None else work.data_ptr(),
+        bsz, L, dim, G, N, seg, int(bool(reverse)), int(bool(softplus)),
     )
     return y.transpose(1, 2)
 
@@ -132,7 +154,10 @@ def selective_scan_fwd(u, delta, A, B, C, D=None, delta_bias=None,
     """K4: grouped selective scan, forward. u, delta (B, L, D); A (D, N)
     fp32; B, C (B, L, G, N); D, delta_bias (D,). Returns y (B, L, D) in
     `out_dtype` (default: u's dtype). Inputs may be strided views; on CUDA
-    the result is a (B, L, D) view of a (B, D, L) buffer."""
+    the result is a (B, L, D) view of a (B, D, L) buffer. On CUDA one call
+    is one grid where L fits a segment of `k4_segment`, else three (the
+    segments from zero, their combine, the segments again), and counts
+    one launch."""
     args = (u, delta, A, B, C, D, delta_bias)
     if on_cpu(*args):
         return selective_scan_ref(*args, delta_softplus, reverse, out_dtype)

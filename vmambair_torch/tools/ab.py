@@ -21,9 +21,13 @@ every shape of the S1 step (on K1c's fp32
 inputs and carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48,
 4096), (8, 2, 96, 1024) and (8, 2, 192, 256); on K4c's at the latent
 (8, 64, 768) and
-the channel scans (8, c, 8), c = 48, 96, 192, 384), each tree's own
-(CUDA-event medians, each call queued behind a device sleep, as
-`tools.race` times), and the served
+the channel scans (8, c, 8), c = 48, 96, 192, 384), each tree's own,
+K4 at every shape of a served forward (`k4_latent_ms`: the latent pair
+(8, 256, 768) bf16; `k4_ch48_ms` .. `k4_ch384_ms`: the channel scans (8,
+c, 8) fp32) and K4c at the S1 step's latent (8, 64, 768) fp32
+(`k4c_latent_ms`) and channel scan (8, 96, 8) (`k4c_ch96_ms`), laid out
+as the model passes them (CUDA-event medians, each call queued behind a
+device sleep, as `tools.race` times), and the served
 forward of MambaSISR6 (seeded random weights, 8 bf16 tiles of 128x128;
 host-clock ms per forward, median of `FORWARDS` after one warm-up). The
 last line is the per-tree median of every number over its processes.
@@ -31,8 +35,9 @@ last line is the per-tree median of every number over its processes.
 With `--digests` each tree prints instead the sha256 of K1's outputs
 (y of `oss_scan_fused_fwd`, y and the carries of K1c) on seeded cases
 (`digests`) and of K3's du, ddelta, dB and dC on seeded cases that fit
-one of its segments (`k3_digests`), and the last line says which cases
-differ: a change that must leave K1's or K3's bits as they were is
+one of its segments (`k3_digests`; fed by the plain carries,
+`selective_scan_carries_ref` on the card, so that they hold K3 alone), and
+the last line says which cases differ: a change that must leave K1's or K3's bits as they were is
 checked this way. `DIGESTS_FILE` and `K3_DIGESTS_FILE` keep the recorded
 builds' digests (their `made_on` names the build) for `chip_smoke.py`
 and a CUDA test to hold the current build to; a change that rightly
@@ -140,6 +145,7 @@ def _cases(torch):
     k3 = _k3_cases(torch, cuda_scan)
     k2s = _k2_cases(torch)
     k5s = _k5_cases(torch)
+    k4s = _k4_cases(torch)
     return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
             ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
             ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
@@ -151,7 +157,50 @@ def _cases(torch):
             *a, delta_softplus=True)) for name, a in k3] + [
         (name, lambda a=a: cuda_effn.gdfn_residual_fwd(*a))
         for name, a in k2s] + [
-        (name, lambda a=a: cuda_effn.oss_front_fwd(*a)) for name, a in k5s]
+        (name, lambda a=a: cuda_effn.oss_front_fwd(*a))
+        for name, a in k5s] + [
+        (name, lambda f=f, a=a: f(*a, delta_softplus=True))
+        for name, f, a in k4s]
+
+
+def _k4_cases(torch):
+    """(name, wrapper, its arguments) of K4 at the shapes of a served
+    forward and of K4c at the S1 step's, from a generator of their own,
+    laid out as the model passes them: B and C views of x_dbl, whose
+    einsum (`models/oss.py`) leaves it in (group, b, L, R + 2N) order; u
+    and delta for the latent direction pair (b, L, 2d) views of (b, 2d, L)
+    buffers (u bf16 served, fp32 in the step), for the channel scans (8,
+    c, 8) fp32 contiguous."""
+    from vmambair_torch.ops import cuda_scan
+    gen = torch.Generator().manual_seed(6)
+    dev, N, out = "cuda", 16, []
+    for name, L, D, dtype in (
+            ("k4_latent_ms", 256, 768, torch.bfloat16),
+            ("k4_ch48_ms", 48, 8, torch.float32),
+            ("k4_ch96_ms", 96, 8, torch.float32),
+            ("k4_ch192_ms", 192, 8, torch.float32),
+            ("k4_ch384_ms", 384, 8, torch.float32),
+            ("k4c_latent_ms", 64, 768, torch.float32),
+            ("k4c_ch96_ms", 96, 8, torch.float32)):
+        R = -(-D // 32)  # dt_rank of d = D / 2 channels to a direction
+        M = R + 2 * N
+        if D > 8:
+            u = torch.randn(8, D, L, generator=gen).to(dev, dtype)
+            delta = torch.randn(8, D, L, generator=gen).to(dev)
+            u, delta = u.transpose(1, 2), delta.transpose(1, 2)
+        else:
+            u = torch.randn(8, L, D, generator=gen).to(dev, dtype)
+            delta = torch.randn(8, L, D, generator=gen).to(dev)
+        xdbl = torch.randn(2, 8, L, M, generator=gen).to(dev).permute(
+            1, 2, 0, 3)
+        a = (u, delta, -torch.exp(torch.rand(D, N, generator=gen) * 2).to(
+                 dev), xdbl[..., R:R + N], xdbl[..., R + N:],
+             torch.randn(D, generator=gen).to(dev),
+             (torch.rand(D, generator=gen) * 2 - 3).to(dev))
+        fn = (cuda_scan.selective_scan_fwd_carries if name.startswith("k4c")
+              else cuda_scan.selective_scan_fwd)
+        out.append((name, fn, a))
+    return out
 
 
 def _k2_cases(torch):
@@ -292,7 +341,9 @@ def k3_digests() -> dict:
     """label -> sha256 of the bytes of K3's du, ddelta, dB and dC for every
     K3_DIGEST_CASES case, forward and reverse, the inputs drawn on the host
     from a generator seeded per case (u, delta, dy as (b, L, D) views of (b,
-    D, L) buffers, as the fused scans pass them), the carries K4c's."""
+    D, L) buffers, as the fused scans pass them), the carries the plain
+    version's on the card (`selective_scan_carries_ref`): a source that no
+    change to K4c moves."""
     import torch
     from vmambair_torch.ops import cuda_scan
     out = {}
@@ -313,7 +364,7 @@ def k3_digests() -> dict:
         dy = act()
         for rev in (False, True):
             kw = dict(delta_softplus=full, reverse=rev)
-            _, car = cuda_scan.selective_scan_fwd_carries(
+            _, car = cuda_scan.selective_scan_carries_ref(
                 u, delta, A, B, C, Dsk, bias, **kw)
             grads = cuda_scan.selective_scan_bwd(u, delta, A, B, C, Dsk, bias,
                                                  dy, car, **kw)
