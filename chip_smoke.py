@@ -88,6 +88,38 @@ non-zero, and without a CUDA device the script stops before any result:
    auto-resume to iter 10; `test_pipeline`; `inference_torch.py --device
    cuda` on the validation LQ, outputs read back at 4x; ms per iteration
    and data ms per iteration from the pipeline's timers.
+7b. gan - the S2 GAN stage with the recipe of
+   `options/MambaSISR15GAN_x4.yml` at full width (MambaSISR6, the
+   64-feature `UNetDiscriminatorSN` with skips, seeded VGG19 with the
+   YAML's layer weights; L1 + perceptual + vanilla GAN, two Adams 1e-4
+   (0.9, 0.99), EMA 0.999), fp32, on phase 6's batch of 8 64x64 LQ /
+   256x256 GT. G starts from a checkpoint of a seeded G, saved by
+   `save_network` and loaded through `pretrain_network_g` with
+   `param_key_g: params_ema`. 1 warm-up and 5 timed iterations of
+   `optimize_parameters` (ms per iteration, GT MP/s, the G and D steps'
+   ms by CUDA events, peak memory), each checked: the launches equal the
+   dispatch's prediction for a training step (K1c, K4c, K3, K2) and
+   nothing else, every logged value finite, every spectral norm's u
+   moved; G's and D's parameters moved over the run. A torch.profiler
+   table of one iteration (`OUT_DIR/gan_profile.txt`) by class, with
+   the idle share and the device ms of G, D and VGG19 apart (a kernel
+   goes to the module whose forward, or whose forward's autograd node,
+   launched it). One gated iteration (`net_d_init_iters` ahead): G's
+   no-grad forward (K1, K4, K2) and no change to G or its EMA. Card
+   against CPU at MambaSISR6's widths, depth [1,1,1,1] + 1 (D and VGG19
+   at full width), 2 x 32x32 LQ / 128x128 GT, through the kernels on the
+   card and through the plain versions on the CPU from the same weights,
+   u and batch: d loss / d output at the card's output (pixel, GAN and
+   perceptual terms up to conv2_2; VGG19's deeper max-pools and ReLUs
+   are kinks that the paths' 1e-6 roundings cross, so the recipe's five
+   layers are printed) within 2e-3 of its largest entry, G's backward of
+   one upstream gradient within 2e-3 of each tensor's largest entry,
+   then one iteration each, every D gradient within 2e-3 of its largest
+   entry, every logged loss within 1e-3 (the iteration's G gradients
+   printed). Then
+   `train_pipeline` with the GAN recipe on phase 7's PNGs: 2 iterations,
+   validation (PSNR-Y), net_g, net_d and the state at 2, auto-resume
+   to 3, the launches of both runs against the prediction.
 8. probes - the scan-design probes (`vmambair_torch/tools/`) at
    MambaSISR6's full-resolution scan (B=8 tiles of 128x128, L=16384, G=2
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
@@ -146,10 +178,9 @@ with them off and once on, and phase 5 races served forwards with them off
 and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
-(for K1-K6 the launches in the serve, train and pipeline phases, for the
-probe kernels those of the probe paths of phases 8 to 10, which must be at
-least one each; a
-launch is one call of the kernel's wrapper, which for K1, K1c and
+(for K1-K6 the launches in the serve, train, pipeline and GAN phases,
+for the probe kernels those of the probe paths of phases 8 to 10, which
+must be at least one each; a launch is one call of the kernel's wrapper, which for K1, K1c and
 `ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
 stacks three, `grids_per_launch` in its entry;
 max error, times and bound from phases 3 and 8-10) and the card's name and
@@ -179,6 +210,7 @@ from vmambair_torch.tools import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS,
                                   SFU_NOMINAL, ab, hold, kdualnum, keffn,
                                   kldio, kpeak, kprobe, kseq, kvariants)
 from vmambair_torch.train import build_model
+from vmambair_torch.train.checkpoint import save_network
 from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
 from vmambair_torch.utils.img_util import imread, imwrite
 from vmambair_torch.utils.options import finalize_options
@@ -807,8 +839,9 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
     # K5 and K6 at the five MamberBlock shapes of a served forward (the
     # first, 30 of the 50 blocks, is the main shape); K5's bf16 rows (its
-    # tensor-core route) timed beside its plain version; then K5 at the
-    # ragged shapes
+    # tensor-core route) and its fp32 row at (8,96,64,64) (the S1 step's
+    # main shape with the switch on, the CUDA-core route) timed beside its
+    # plain version; then K5 at the ragged shapes
     cgen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         for (b, c, hw) in K5_SERVE_SHAPES:
@@ -818,8 +851,8 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 lambda a=a: cuda_effn.oss_front_fwd(*a),
                 lambda a=a: cuda_effn.oss_front_ref(*a),
                 pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a),
-                timed=dtype == torch.bfloat16, key=(b, c, hw, hw, dtype),
-                plain_timed=True)
+                timed=dtype == torch.bfloat16 or (b, c, hw) == (8, 96, 64),
+                key=(b, c, hw, hw, dtype), plain_timed=True)
             a = _tail_case(b, c, hw, dtype, cgen)
             add("oss_tail_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_tail_fwd(*a),
@@ -1329,8 +1362,10 @@ KERNEL_CLASSES = (
     ("K2 GDFN", ("gdfn_kernel", "gdfn_mma_kernel")),
     ("K5 OSS front", ("oss_front_kernel", "oss_front_mma_kernel")),
     ("K6 OSS tail", ("oss_tail_kernel",)),
+    # cuDNN's FFT algorithms among them: their transforms, pointwise
+    # products and complex (cf32) GEMMs
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "implicit",
-                      "cudnn", "winograd")),
+                      "cudnn", "winograd", "fft", "complex", "cf32")),
     ("matrix products (einsums)", ("gemm", "xmma", "cutlass", "splitK")),
     ("optimizer (Adam, EMA)", ("multi_tensor", "adam", "lerp")),
     ("copies", ("Memcpy", "Memset", "copy")),
@@ -1355,10 +1390,11 @@ def device_breakdown(prof) -> dict:
     return out
 
 
-def profile(name, fn):
+def profile(name, fn, extra=None):
     """A torch.profiler table of one call of fn (top rows printed, all in
     chiprun_out/<name>_profile.txt) and its device time by class against
-    the host clock around the call."""
+    the host clock around the call; `extra(prof)`, if given, adds lines
+    of its own to both."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1376,6 +1412,8 @@ def profile(name, fn):
                                           key=lambda kv: -kv[1]))
         + f"; device sum {busy:.1f} ms of {wall:.1f} ms on the host clock "
         f"under the profiler (idle {100 * (1 - busy / wall):.1f}%)")
+    if extra is not None:
+        summary += "\n" + extra(prof)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
         f.write(table + "\n" + summary + "\n")
@@ -1590,9 +1628,10 @@ def _val_dataset() -> dict:
             "io_backend": {"type": "disk"}}
 
 
-def _pipeline_opt(total_iter: int, auto_resume: bool) -> dict:
+def _pipeline_opt(total_iter: int, auto_resume: bool, root=PIPE) -> dict:
     """RECIPE with its datasets pointed at the synthetic PNGs, 8 steps,
-    validation (PSNR-Y, crop 4) every 4, checkpoints every 4."""
+    validation (PSNR-Y, crop 4) every 4, checkpoints every 4; the
+    experiment under `root`."""
     train_ds = {"name": "synthetic DF2K", "type": "PairedImageDataset",
                 "dataroot_gt": os.path.join(DATA, "train", "gt"),
                 "dataroot_lq": os.path.join(DATA, "train", "lq"),
@@ -1602,7 +1641,7 @@ def _pipeline_opt(total_iter: int, auto_resume: bool) -> dict:
     opt = json.loads(json.dumps(RECIPE))
     opt.update(num_gpu=1, auto_resume=auto_resume,
                datasets={"train": train_ds, "val_1": _val_dataset()},
-               path={"experiments_root": os.path.join(PIPE, "exp"),
+               path={"experiments_root": os.path.join(root, "exp"),
                      "pretrain_network_g": None, "param_key_g": "params_ema",
                      "strict_load_g": True, "resume_state": None},
                logger={"print_freq": 1, "save_checkpoint_freq": 4,
@@ -1730,6 +1769,473 @@ def pipeline() -> dict:
           f"(subprocess, {t4 - t3:.1f} s): outputs 4x their LQ; phase "
           f"{time.perf_counter() - t0:.1f} s")
     return {k: first[k] + resumed[k] + tested[k] for k in KERNELS}
+
+
+# -- phase 7b: the GAN stage ---------------------------------------------------
+
+GAN = os.path.join("build", "chip_smoke_gan")
+# the S2 recipe of options/MambaSISR15GAN_x4.yml (G from an S1 checkpoint's
+# EMA, L1 + VGG19 perceptual + vanilla GAN, UNetDiscriminatorSN, two Adams)
+GAN_RECIPE = {
+    "name": "MambaSISR15GAN_x4", "model_type": "MambaSISRGANModel",
+    "scale": 4, "manual_seed": 0, "is_train": True,
+    "network_g": RECIPE["network_g"],
+    "network_d": {"type": "UNetDiscriminatorSN", "num_in_ch": 3,
+                  "num_feat": 64, "skip_connection": True},
+    "train": {"ema_decay": 0.999,
+              "optim_g": {"type": "Adam", "lr": 1e-4, "weight_decay": 0,
+                          "betas": [0.9, 0.99]},
+              "optim_d": {"type": "Adam", "lr": 1e-4, "weight_decay": 0,
+                          "betas": [0.9, 0.99]},
+              "scheduler": {"type": "MultiStepLR", "milestones": [150000],
+                            "gamma": 0.5},
+              "total_iter": 300000, "warmup_iter": -1,
+              "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0,
+                            "reduction": "mean"},
+              "perceptual_opt": {
+                  "type": "PerceptualLoss",
+                  "layer_weights": {"conv1_2": 0.1, "conv2_2": 0.1,
+                                    "conv3_4": 1, "conv4_4": 1,
+                                    "conv5_4": 1},
+                  "vgg_type": "vgg19", "use_input_norm": True,
+                  "perceptual_weight": 1.0, "style_weight": 0,
+                  "range_norm": False, "criterion": "l1"},
+              "gan_opt": {"type": "GANLoss", "gan_type": "vanilla",
+                          "real_label_val": 1.0, "fake_label_val": 0.0,
+                          "loss_weight": 1.0},
+              "net_d_iters": 1, "net_d_init_iters": 0},
+    "val": {"window_size": 8},
+}
+GAN_D_KEYS = {"l_d_real", "l_d_fake", "out_d_real", "out_d_fake", "lr"}
+GAN_G_KEYS = {"l_g_pix", "l_g_percep", "l_g_gan"}
+
+
+def _gan_opt(pretrain=None, network_g=None) -> dict:
+    opt = json.loads(json.dumps(GAN_RECIPE))
+    opt["network_g"].update(network_g or {})
+    opt["path"] = {"models": os.path.join(GAN, "models"),
+                   "training_states": os.path.join(GAN, "state"),
+                   "pretrain_network_g": pretrain,
+                   "param_key_g": "params_ema", "strict_load_g": True}
+    return opt
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _copies(tensors) -> list:
+    return [t.detach().clone() for t in tensors]
+
+
+def _moved(before, after) -> bool:
+    """Whether every tensor of `after` differs from its copy in `before`."""
+    return all(not torch.equal(a, b) for a, b in zip(before, after))
+
+
+def _still(net, before) -> list:
+    """The parameters of `net` equal to their copies in `before`, but the
+    channel scans' conv_cout.bias (its exact gradient is 0)."""
+    return [k for (k, p), b in zip(net.named_parameters(), before)
+            if torch.equal(p, b) and not k.endswith("conv_cout.bias")]
+
+
+@contextlib.contextmanager
+def step_events(model, log: list):
+    """CUDA events around the model's G and D steps: (name, start, end)
+    appended to `log` for each step taken."""
+    for name in ("_g_step", "_d_step"):
+        def run(*a, _fn=getattr(model, name), _name=name, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = _fn(*a, **kw)
+            e1.record()
+            log.append((_name, e0, e1))
+            return out
+        setattr(model, name, run)
+    try:
+        yield
+    finally:
+        for name in ("_g_step", "_d_step"):
+            delattr(model, name)
+
+
+@contextlib.contextmanager
+def module_ranges(mods: dict):
+    """Each module's forward inside `record_function(tag)`, for
+    `device_by_module`."""
+    for tag, mod in mods.items():
+        def run(*a, _fwd=mod.forward, _tag=tag, **kw):
+            with torch.profiler.record_function(_tag):
+                return _fwd(*a, **kw)
+        mod.forward = run
+    try:
+        yield
+    finally:
+        for mod in mods.values():
+            del mod.forward
+
+
+def device_by_module(prof, tags) -> dict:
+    """Device ms of the profiled kernels by module and class: a kernel
+    belongs to the module whose tagged forward range holds the op that
+    launched it, or, in the backward, to the module whose forward made
+    the autograd node that launched it (the profiler's own link: the
+    node's sequence number and forward thread). The rest is "other"
+    (outside every range: the losses, Adam, EMA) or "backward" (a
+    backward node whose forward is in no range)."""
+    def owner(e, fwd=None):
+        """The tag of e's forward range; in a backward (scope 1), that of
+        the innermost backward function whose forward is known: a
+        recompute inside a Function's backward goes to the Function."""
+        in_bw = False
+        while e is not None:
+            if e.scope == 1:
+                in_bw = True
+                t = (fwd or {}).get((e.sequence_nr, e.fwd_thread))
+                if t is not None:
+                    return t
+            elif not in_bw and e.name in tags:
+                return e.name
+            e = e.cpu_parent
+        return "backward" if in_bw else None
+
+    events = prof.events()
+    fwd = {}
+    for e in events:
+        t = owner(e) if e.sequence_nr >= 0 else None
+        if t in tags:
+            fwd.setdefault((e.sequence_nr, e.thread), t)
+    out = {}
+    for e in events:
+        if not e.kernels:
+            continue
+        t = owner(e, fwd) or "other"
+        for k in e.kernels:
+            cls = next((c for c, keys in KERNEL_CLASSES
+                        if any(n in k.name for n in keys)),
+                       "elementwise and reductions")
+            row = out.setdefault(t, {})
+            row[cls] = row.get(cls, 0.0) + k.duration / 1e3
+    return out
+
+
+def _by_module_lines(prof) -> str:
+    rows = device_by_module(prof, ("G", "D", "VGG"))
+    return "\n".join(
+        f"[gan] device ms by module, {t}: " + ", ".join(
+            f"{c} {v:.1f}" for c, v in sorted(row.items(),
+                                              key=lambda kv: -kv[1]))
+        + f" (sum {sum(row.values()):.1f})"
+        for t, row in sorted(rows.items()))
+
+
+def gan() -> dict:
+    """Phase 7b: the S2 GAN stage at the recipe's full width. Returns the
+    launches of its main path (the timed, profiled and gated iterations
+    and the pipeline), not those of the card-against-CPU comparison."""
+    t0 = time.perf_counter()
+    shutil.rmtree(GAN, ignore_errors=True)
+    # 1. G from an S1 checkpoint's EMA, through the recipe's load path
+    seeded = build_network(GAN_RECIPE["network_g"], device="cpu", seed=7)
+    ckpt = os.path.join(GAN, "s1", "net_g_s1.pth")
+    save_network(ckpt, seeded.state_dict(), seeded.state_dict())
+    model = build_model(_gan_opt(ckpt))
+    for k, v in model.net_g.state_dict().items():
+        if not torch.equal(v.cpu(), seeded.state_dict()[k]):
+            raise SystemExit(f"FAIL gan: {k} not loaded from the checkpoint")
+    del seeded
+    step = expected_launches(model.net_g, train=True)
+    fwd = expected_launches(model.net_g, train=False)
+    print(f"[gan] predicted launches per G step: {_nonzero(step)}; per "
+          f"gated iteration: {_nonzero(fwd)}")
+    model.feed_data(_train_batch())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 2-3. 1 warm-up and 5 timed iterations, each checked
+    nets = (model.net_g, model.net_d)
+    start = [_copies(n.parameters()) for n in nets]
+    events, times = [], []
+    total = dict.fromkeys(KERNELS, 0)
+    with step_events(model, events):
+        for it in range(1, 7):
+            u = _copies(m.weight_u for m in model.net_d.sn_convs())
+            reset_launches()
+            t1 = time.perf_counter()
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            counts = launches()
+            total = {k: total[k] + counts[k] for k in KERNELS}
+            log = model.get_current_log()
+            if counts != step:
+                raise SystemExit(f"FAIL gan: iteration {it} launches "
+                                 f"{counts}, predicted {step}")
+            if set(log) != GAN_D_KEYS | GAN_G_KEYS or not all(
+                    np.isfinite(v) for v in log.values()):
+                raise SystemExit(f"FAIL gan: iteration {it} log {log}")
+            if not _moved(u, (m.weight_u for m in model.net_d.sn_convs())):
+                raise SystemExit(f"FAIL gan: iteration {it} left a "
+                                 "spectral norm's u as it was")
+            print(f"[gan] iteration {it}: {1e3 * times[-1]:.1f} ms; " +
+                  ", ".join(f"{k} {v:.5f}" for k, v in log.items()))
+    still = [k for n, before in zip(nets, start) for k in _still(n, before)]
+    if still:
+        raise SystemExit(f"FAIL gan: parameters that did not move: {still}")
+    split = {"_g_step": [], "_d_step": []}
+    for name, e0, e1 in events[2:]:  # after iteration 1's two steps
+        split[name].append(e0.elapsed_time(e1))
+    iter_ms = 1e3 * statistics.median(times[1:])
+    print(f"[gan] ms per iteration (median of 2-6): {iter_ms:.1f}; GT MP/s "
+          f"{8 * 256 * 256 / iter_ms / 1e3:.3f}; G step "
+          f"{statistics.median(split['_g_step']):.1f} ms, D step "
+          f"{statistics.median(split['_d_step']):.1f} ms (CUDA events); "
+          f"first iteration {1e3 * times[0]:.1f} ms; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"per iteration {_nonzero(step)}; card {nvidia_smi_line()}")
+
+    # the profiled iteration: classes, idle share, G / D / VGG split
+    reset_launches()
+    with module_ranges({"G": model.net_g, "D": model.net_d,
+                        "VGG": model.cri_perceptual}):
+        profile("gan", lambda: model.optimize_parameters(7),
+                extra=_by_module_lines)
+    counts = launches()
+    if counts != step:
+        raise SystemExit(f"FAIL gan: profiled launches {counts}")
+    total = {k: total[k] + counts[k] for k in KERNELS}
+
+    # 4. a gated iteration: G's no-grad forward, no G update
+    model.net_d_init_iters = 8
+    g_before = _copies(model.net_g.state_dict().values())
+    ema_before = _copies(model.net_g_ema.state_dict().values())
+    d_before = _copies(model.net_d.parameters())
+    reset_launches()
+    model.optimize_parameters(8)
+    torch.cuda.synchronize()
+    counts = launches()
+    log = model.get_current_log()
+    if counts != fwd or set(log) != GAN_D_KEYS:
+        raise SystemExit(f"FAIL gan: gated iteration launches {counts} "
+                         f"(predicted {fwd}), log {log}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            g_before + ema_before, list(model.net_g.state_dict().values())
+            + list(model.net_g_ema.state_dict().values()))) or not _moved(
+                d_before, model.net_d.parameters()):
+        raise SystemExit("FAIL gan: the gated iteration moved G or not D")
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    print(f"[gan] gated iteration (net_d_init_iters 8): launches "
+          f"{_nonzero(counts)}; "
+          "G and its EMA unchanged, D moved")
+    del model, start, g_before, ema_before, d_before
+    torch.cuda.empty_cache()
+
+    gan_card_vs_cpu()
+    counts = gan_pipeline(ckpt, step, fwd)
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    shutil.rmtree(GAN)
+    print(f"[gan] phase 7b {time.perf_counter() - t0:.1f} s; launches "
+          f"{_nonzero(total)}")
+    return total
+
+
+def _g_upstream(model, out, layers=None):
+    """d (the G step's loss) / d out at `out`: pixel, perceptual (only
+    its `layers`, if given) and GAN terms, D frozen, its u not stored."""
+    out = out.detach().requires_grad_()
+    vgg = model.cri_perceptual
+    weights = vgg.layer_weights
+    if layers is not None:
+        vgg.layer_weights = {k: weights[k] for k in layers}
+    try:
+        total, _ = model._loss_terms(out, model.gt, prefix="l_g_")
+    finally:
+        vgg.layer_weights = weights
+    model.net_d.requires_grad_(False)
+    total = total + model.cri_gan(model.net_d(out), True, is_disc=False)
+    model.net_d.requires_grad_(True)
+    return torch.autograd.grad(total, out)[0]
+
+
+def _rel_max(got, ref) -> float:
+    return ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _worst_grad(pairs, top) -> tuple:
+    """The largest gradient error relative to its tensor's largest entry
+    over (name, got, ref) triples; conv_cout.bias (exact gradient 0) must
+    be ~0 on both sides instead (phase 4b's rule)."""
+    worst, checked = (0.0, ""), 0
+    for k, g, r in pairs:
+        if g is None or r is None or not torch.isfinite(g).all():
+            raise SystemExit(f"FAIL gan card vs CPU: {k} has no finite "
+                             "gradient")
+        g = g.cpu()
+        if k.endswith("conv_cout.bias"):
+            if max(g.abs().max().item(), r.abs().max().item()) > 1e-5 * top:
+                raise SystemExit(f"FAIL gan card vs CPU: {k} not ~0")
+            continue
+        worst = max(worst, ((g - r).abs().max().item()
+                            / r.abs().max().item(), k))
+        checked += 1
+    return worst, checked
+
+
+def gan_card_vs_cpu():
+    """5. The GAN step at reduced depth (MambaSISR6 widths, [1,1,1,1] + 1;
+    D and VGG19 at full width), batch 2 of 32x32 LQ / 128x128 GT, through
+    the kernels on the card and through the port's CPU path (the plain
+    versions) from the same weights, u and batch.
+
+    VGG19's max-pools and ReLUs are kinks: where the two paths' fp32
+    roundings (a few 1e-6 of the features) put a window's two largest
+    entries, or an activation and zero, in the other order, d loss / d
+    output changes by a few percent of its largest entry over that
+    position's receptive field. Past the second pool (conv3_4 onward)
+    that happens on every input, with cuDNN or without it (its own
+    algorithms add 1e-4 to 1e-3 at conv3_4), and moves G's gradients by a
+    few 1e-3. So each part is held where it is well posed: G's forward
+    within phase 4's 1e-3; d loss / d output at the card's output, card
+    against CPU, of the pixel, GAN (through D) and perceptual terms up
+    to conv2_2 within GRAD_BAR of its largest entry (the recipe's five
+    layers printed); G's backward of one upstream gradient, kernels
+    against CPU, every tensor within GRAD_BAR of its largest entry; then
+    one iteration on each, every logged loss within 1e-3 relative (D's
+    mean predictions within 1e-3 of max(|x|, 1)), every D gradient within
+    GRAD_BAR of its largest entry, every u within GRAD_BAR; the
+    iteration's G gradients printed."""
+    t0 = time.perf_counter()
+    opt = _gan_opt(network_g={"num_blocks": [1, 1, 1, 1],
+                              "num_refinement_blocks": 1})
+    card = build_model(opt)
+    host = build_model(opt, device="cpu")
+    for a, b in ((card.net_g, host.net_g), (card.net_g_ema, host.net_g_ema),
+                 (card.net_d, host.net_d)):
+        b.load_state_dict({k: v.cpu() for k, v in a.state_dict().items()})
+    gt = np.random.RandomState(3).rand(2, 128, 128, 3).astype(np.float32)
+    batch = {"lq": gt.reshape(2, 32, 4, 32, 4, 3).mean((2, 4)), "gt": gt}
+    for m in (card, host):
+        m.feed_data(batch)
+
+    # G's forward, the upstream gradient at the card's output, G's backward
+    out_c, out_h = card.net_g(card.lq), host.net_g(host.lq)
+    fwd_err = check_close("gan G output card vs CPU", out_c.detach().cpu(),
+                          out_h.detach(), 1e-3, 1e-3)
+    shallow = ("conv1_2", "conv2_2")
+    up_err = _rel_max(_g_upstream(card, out_c, shallow),
+                      _g_upstream(host, out_c.detach().cpu(), shallow))
+    up_c = _g_upstream(card, out_c)
+    up_h = _g_upstream(host, out_c.detach().cpu())
+    up_all = _rel_max(up_c, up_h)
+    up_norm = ((up_c.cpu() - up_h).norm() / up_h.norm()).item()
+    out_c.backward(up_c)
+    out_h.backward(up_c.cpu())
+    top = max(p.grad.abs().max().item() for p in host.net_g.parameters())
+    (g_err, g_at), g_n = _worst_grad(
+        ((k, p.grad, q.grad) for (k, p), q in zip(
+            card.net_g.named_parameters(), host.net_g.parameters())), top)
+
+    # one iteration on each from the same state
+    logs = []
+    for m in (card, host):
+        m.optimize_parameters(1)
+        logs.append(m.get_current_log())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    log_err = {k: abs(logs[0][k] - ref) / (abs(ref) if k.startswith("l")
+                                           else max(abs(ref), 1.0))
+               for k, ref in logs[1].items()}
+    top_d = max(p.grad.abs().max().item() for p in host.net_d.parameters())
+    (d_err, d_at), d_n = _worst_grad(
+        ((k, p.grad, q.grad) for (k, p), q in zip(
+            card.net_d.named_parameters(), host.net_d.parameters())), top_d)
+    (it_err, it_at), _ = _worst_grad(
+        ((k, p.grad, q.grad) for (k, p), q in zip(
+            card.net_g.named_parameters(), host.net_g.parameters())), top)
+    u_err = max((a.weight_u.cpu() - b.weight_u).abs().max().item()
+                / b.weight_u.abs().max().item()
+                for a, b in zip(card.net_d.sn_convs(), host.net_d.sn_convs()))
+    print(f"[gan] card vs CPU, MambaSISR6 widths at [1,1,1,1]+1, D and VGG19 "
+          f"at full width, 2 x 32x32 LQ / 128x128 GT: G output max abs err "
+          f"{fwd_err:.3e} (tol 1e-3); d loss / d output at the card's "
+          f"output, perceptual up to conv2_2: {up_err:.3e} of its largest "
+          f"entry (bar {GRAD_BAR}); the recipe's five layers (printed): "
+          f"{up_all:.3e} of its largest entry, {up_norm:.3e} in the L2 "
+          f"norm; G's backward of the latter, {g_n} "
+          f"tensors, worst {g_err:.3e} at {g_at} (bar {GRAD_BAR}); one "
+          f"iteration: logged values within {max(log_err.values()):.2e} "
+          f"(tol 1e-3), {d_n} D gradient tensors worst {d_err:.3e} at "
+          f"{d_at}, u {u_err:.3e} (bar {GRAD_BAR}), G gradients (printed) "
+          f"worst {it_err:.3e} at {it_at}; {1e3 * (t1 - t0):.0f} ms with "
+          "the builds")
+    bad = [k for k, v in log_err.items() if v > 1e-3]
+    if bad or max(up_err, g_err, d_err, u_err) > GRAD_BAR:
+        raise SystemExit(f"FAIL gan card vs CPU: logged {bad}, upstream "
+                         f"{up_err:.3e}, G backward {g_err:.3e}, D "
+                         f"{d_err:.3e}, u {u_err:.3e}")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def _gan_pipeline_opt(total_iter: int, auto_resume: bool, ckpt: str):
+    """The GAN recipe with its datasets pointed at phase 7's synthetic
+    PNGs, validation (PSNR-Y) and checkpoints every 2 iterations."""
+    opt = _pipeline_opt(total_iter, auto_resume,
+                        root=os.path.join(GAN, "pipeline"))
+    base = json.loads(json.dumps(GAN_RECIPE))
+    base["train"]["total_iter"] = total_iter
+    opt.update(name=base["name"], model_type=base["model_type"],
+               network_d=base["network_d"], train=base["train"])
+    opt["path"].update(pretrain_network_g=ckpt)
+    opt["logger"]["save_checkpoint_freq"] = 2
+    opt["val"]["val_freq"] = 2
+    return opt
+
+
+def gan_pipeline(ckpt: str, step: dict, fwd: dict) -> dict:
+    """6. `train_pipeline` with the GAN recipe on phase 7's synthetic PNG
+    pairs: 2 iterations, validation before, at 2 and at the end, net_g,
+    net_d and the state at 2; then auto-resume takes iteration 3."""
+    if not os.path.isdir(DATA):
+        write_dataset()
+    exp = os.path.join(GAN, "pipeline", "exp")
+    reset_launches()
+    model = train_pipeline(".", _gan_pipeline_opt(2, False, ckpt),
+                           device="cuda")
+    first = launches()
+    names = sorted(f for f in os.listdir(exp) if f.startswith("train_"))
+    with open(os.path.join(exp, names[-1])) as f:
+        log = f.read()
+    want = {k: 2 * step[k] + 3 * 2 * fwd[k] for k in KERNELS}
+    psnrs = _numbers(log, "# psnr:")
+    if first != want or len(psnrs) != 3 or "l_g_percep:" not in log:
+        raise SystemExit(f"FAIL gan pipeline: launches {first} (predicted "
+                         f"{want}), PSNR {psnrs}")
+    for path in ("models/net_g_2.pth", "models/net_d_2.pth",
+                 "training_states/2.state"):
+        if not os.path.isfile(os.path.join(exp, path)):
+            raise SystemExit(f"FAIL gan pipeline: no {path}")
+    iter_ms = 1e3 * model.timers["iter"].get_avg_time()
+    del model
+    reset_launches()
+    train_pipeline(".", _gan_pipeline_opt(3, True, ckpt), device="cuda")
+    resumed = launches()
+    names = sorted(f for f in os.listdir(exp) if f.startswith("train_"))
+    with open(os.path.join(exp, names[-1])) as f:
+        log = f.read()
+    want = {k: step[k] + 2 * fwd[k] for k in KERNELS}
+    if "Resuming training from epoch 0, iter 2." not in log \
+            or resumed != want or not os.path.isfile(
+                os.path.join(exp, "models", "net_d_3.pth")):
+        raise SystemExit(f"FAIL gan pipeline: resume: launches {resumed} "
+                         f"(predicted {want}); log:\n{log[-2000:]}")
+    print(f"[gan] train_pipeline with the GAN recipe: 2 iterations, "
+          f"validation PSNR-Y {[round(v, 4) for v in psnrs]} dB (iters 0, "
+          f"2, end), ms per iteration {iter_ms:.1f}; net_g_2, net_d_2, "
+          f"2.state written; auto-resume at 2 to 3")
+    return {k: first[k] + resumed[k] for k in KERNELS}
 
 
 # -- phase 8: the scan-design probes -------------------------------------------
@@ -2362,6 +2868,7 @@ def main():
     train_counts = train(shape_ms)
     pipe_counts = pipeline()
     torch.cuda.empty_cache()
+    gan_counts = gan()
     t8 = time.perf_counter()
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
@@ -2387,14 +2894,17 @@ def main():
                   f"({terms['exp2'] / ex2_rate * 1e3:.4f} ms), "
                   f"{finish_bound(terms)['bound_ms']:.4f} ms without")
         if name in MODEL_KERNELS:
-            # launched on its own path: serve, train and the pipeline
-            n = serve_counts[name] + train_counts[name] + pipe_counts[name]
+            # launched on its own path: serve, train, the pipeline and
+            # the GAN stage
+            n = (serve_counts[name] + train_counts[name] + pipe_counts[name]
+                 + gan_counts[name])
             if n == 0 or pipe_counts[name] == 0:
                 raise SystemExit(f"FAIL: {name} never launched on a main "
                                  "path")
             counts = dict(launches=n, launches_serve=serve_counts[name],
                           launches_train=train_counts[name],
-                          launches_pipeline=pipe_counts[name])
+                          launches_pipeline=pipe_counts[name],
+                          launches_gan=gan_counts[name])
         else:
             # launched on its own path: the probes
             if probe_counts[name] == 0:

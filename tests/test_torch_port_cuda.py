@@ -1313,3 +1313,66 @@ def test_ld_fused_refuses_what_it_cannot_take(cuda):
     args[0].requires_grad_()
     with pytest.raises(RuntimeError, match="has no backward"):
         cuda_probes.ld_fused(*args)
+
+
+def _gan_model(cuda):
+    """A tiny S2 GAN model on the card: OSSNet dim 40, D num_feat 8, L1 +
+    VGG19 perceptual + vanilla GAN, on 2 x 16x16 LQ / 64x64 GT."""
+    import numpy as np
+
+    from vmambair_torch.train import build_model
+
+    opt = {"name": "t_gan", "model_type": "MambaSISRGANModel",
+           "is_train": True, "scale": 4, "manual_seed": 0,
+           "network_g": dict(type="OSSNet", dim=40, num_blocks=[1, 1, 1, 1],
+                             num_refinement_blocks=1, scale=4),
+           "network_d": {"type": "UNetDiscriminatorSN", "num_feat": 8},
+           "path": {}, "val": {"window_size": 8},
+           "train": {"ema_decay": 0.999,
+                     "optim_g": {"type": "Adam", "lr": 1e-4},
+                     "optim_d": {"type": "Adam", "lr": 1e-4},
+                     "pixel_opt": {"type": "L1Loss"},
+                     "perceptual_opt": {"type": "PerceptualLoss",
+                                        "layer_weights": {"conv3_4": 1.0}},
+                     "gan_opt": {"type": "GANLoss", "gan_type": "vanilla",
+                                 "loss_weight": 0.1}}}
+    m = build_model(opt, device=cuda)
+    rng = np.random.RandomState(0)
+    m.feed_data({"lq": rng.rand(2, 16, 16, 3).astype(np.float32),
+                 "gt": rng.rand(2, 64, 64, 3).astype(np.float32)})
+    return m
+
+
+def test_gan_iteration_launches_the_generators_kernels(cuda):
+    """A GAN iteration's G step launches what the dispatch predicts for a
+    training step and nothing else; a gated iteration G's no-grad
+    forward; every logged value finite."""
+    import numpy as np
+
+    import chip_smoke
+
+    m = _gan_model(cuda)
+    for it, train in ((1, True), (2, False)):
+        m.net_d_init_iters = 0 if train else 2
+        chip_smoke.reset_launches()
+        m.optimize_parameters(it)
+        torch.cuda.synchronize()
+        assert chip_smoke.launches() == chip_smoke.expected_launches(
+            m.net_g, train=train), it
+        log = m.get_current_log()
+        assert ("l_g_gan" in log) == train
+        assert all(np.isfinite(v) for v in log.values()), log
+
+
+def test_gan_g_step_raises_where_a_kernel_cannot_take_a_gradient(
+        cuda, monkeypatch):
+    """With the GDFN's autograd Function swapped for its bare kernel
+    wrapper (which has no backward), the G step raises instead of
+    training G around a detached GDFN."""
+    from vmambair_torch.models import layers
+
+    m = _gan_model(cuda)
+    monkeypatch.setattr(layers, "gdfn_residual_fused",
+                        cuda_effn.gdfn_residual_fwd)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        m.optimize_parameters(1)

@@ -152,7 +152,7 @@ def test_psnr_and_ssim_match_jax(crop, y):
 
 def test_learned_metrics_and_other_backends_raise():
     for t in ("calculate_lpips", "calculate_fid"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        with pytest.raises(NotImplementedError, match="learned metrics .* not ported"):
             calculate_metric({"type": t}, None, None)
     for backend in ("lmdb", "pack"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -268,7 +268,7 @@ def test_misc_and_options(tmp_path):
     assert opt["num_gpu"] == 1 and opt["manual_seed"] >= 1
     assert opt["datasets"]["val_1"] == {"phase": "val", "scale": 4}
     assert opt["path"]["models"] == str(tmp_path / "experiments/x/models")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="data parallelism is not ported"):
         options.finalize_options({"name": "x", "num_gpu": 2}, str(tmp_path))
     d = {}
     options.set_nested(d, "train:total_iter", "1e3")

@@ -187,7 +187,7 @@ def test_put_batch_keeps_device_tensors():
 @pytest.mark.parametrize("key", ["profile_dir"])
 def test_profiler_option_raises(tmp_path, key):
     opt = {"name": "x", "train": {key: str(tmp_path)}, "path": {}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="step profiler .* not ported"):
         pipeline.train_pipeline(str(tmp_path), opt, device="cpu")
 
 

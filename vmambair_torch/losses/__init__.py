@@ -1,5 +1,6 @@
 """Losses of the port (PyTorch, NCHW); counterpart of
-`vmambair_tpu/losses/__init__.py` for the pixel losses."""
+`vmambair_tpu/losses/__init__.py` for the pixel, GAN and VGG19 perceptual
+losses (the DISTS / VGG16 parts are not ported yet)."""
 
 from ..utils.registry import LOSS_REGISTRY, build_from_cfg
 from .basic import (
@@ -12,6 +13,8 @@ from .basic import (
     mse_loss,
     psnr_loss,
 )
+from .gan import GANLoss
+from .perceptual import PerceptualLoss, vgg19_features, vgg_features
 
 
 def build_loss(opt: dict):
@@ -20,6 +23,7 @@ def build_loss(opt: dict):
 
 
 __all__ = [
-    "L1Loss", "MSELoss", "CharbonnierLoss", "PSNRLoss", "build_loss",
+    "L1Loss", "MSELoss", "CharbonnierLoss", "PSNRLoss", "GANLoss",
+    "PerceptualLoss", "vgg_features", "vgg19_features", "build_loss",
     "LOSS_REGISTRY", "l1_loss", "mse_loss", "charbonnier_loss", "psnr_loss",
 ]

@@ -1,8 +1,8 @@
 """Validation metrics, resolved by YAML `val.metrics.<name>.type` strings.
 
 The port's counterpart of `vmambair_tpu/metrics/__init__.py`: PSNR and SSIM
-are ported; the learned metrics (LPIPS, DISTS, FID, NIQE) are not yet
-(`ROADMAP.md` Queue 1 item 13) and raise when a config asks for one.
+are ported; the learned metrics (`metrics/lpips.py`, `dists.py`, `fid.py`,
+`niqe.py`) are not yet and raise when a config asks for one.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ def metric_report_key(name: str, opt: dict) -> str:
 def _check(opt: dict) -> None:
     if opt.get("type") in _NOT_PORTED:
         raise NotImplementedError(
-            f"metric {opt['type']}: the learned metrics are not ported to "
-            "vmambair_torch yet (ROADMAP.md Queue 1 item 13)")
+            f"metric {opt['type']}: the learned metrics (metrics/lpips.py, "
+            "dists.py, fid.py, niqe.py) are not ported to vmambair_torch "
+            "yet")
 
 
 def calculate_metric(opt: dict, *args):

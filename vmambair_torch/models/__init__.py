@@ -2,7 +2,8 @@
 
 Counterpart of `vmambair_tpu/models/__init__.py`. The reference names its
 arch in YAML `network_g.type`; the same names work here. This slice ports
-`OSSNet` and the `MambaSISR6` preset (x4 SISR); the other presets follow.
+`OSSNet`, the `MambaSISR6` preset (x4 SISR) and the GAN stage's
+`UNetDiscriminatorSN`; the other presets follow.
 """
 
 from __future__ import annotations
@@ -11,11 +12,13 @@ import torch
 
 from ..utils.registry import ARCH_REGISTRY
 
+from .discriminator import SNConv2d, UNetDiscriminatorSN
 from .layers import Conv2d, FeedForward, LayerNorm2d
 from .oss import OSS
 from .unet import MamberBlock, OSSNet
 
 ARCH_REGISTRY.register(OSSNet)
+ARCH_REGISTRY.register(UNetDiscriminatorSN)
 
 
 @ARCH_REGISTRY.register(name="MambaSISR6")
@@ -50,10 +53,11 @@ def _normalize(cfg: dict) -> dict:
 
 
 def init_weights(model: torch.nn.Module, gen: torch.Generator):
-    """Draws every convolution and scan parameter from `gen`, in module
-    order (torch's default conv init, the reference's SSM init)."""
+    """Draws every convolution and scan parameter (and every spectral
+    norm's u) from `gen`, in module order (torch's default conv init, the
+    reference's SSM init)."""
     for m in model.modules():
-        if isinstance(m, (Conv2d, OSS)):
+        if isinstance(m, (Conv2d, OSS, SNConv2d)):
             m.reset_parameters(gen)
     return model
 
@@ -78,6 +82,8 @@ __all__ = [
     "MamberBlock",
     "OSS",
     "OSSNet",
+    "SNConv2d",
+    "UNetDiscriminatorSN",
     "build_network",
     "init_weights",
 ]

@@ -167,3 +167,10 @@ class Upsampler(nn.Sequential):
 def nearest_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     """F.interpolate(mode='nearest') for an integer scale, NCHW."""
     return x.repeat_interleave(scale, 2).repeat_interleave(scale, 3)
+
+
+def bilinear_upsample_x2(x: torch.Tensor) -> torch.Tensor:
+    """F.interpolate(scale_factor=2, mode='bilinear', align_corners=False),
+    NCHW: JAX's `jax.image.resize(method="bilinear")` to twice the size."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear",
+                         align_corners=False)

@@ -1,9 +1,10 @@
 """Training layer of the port: model wrappers, schedules, checkpoints.
 
-Counterpart of `vmambair_tpu/train/__init__.py` for the S1 (pixel-loss)
-stage; `train/pipeline.py` holds `train_pipeline` and `test_pipeline`
-(the entry points `train_torch.py` and `test_torch.py`). The GAN stage is
-not ported yet.
+Counterpart of `vmambair_tpu/train/__init__.py` for the S1 (pixel and
+perceptual loss) and S2 (GAN) stages; `train/pipeline.py` holds
+`train_pipeline` and `test_pipeline` (the entry points `train_torch.py`
+and `test_torch.py`). The RealSR stage (`RealESRGANModel`) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from ..utils.registry import MODEL_REGISTRY
 from . import checkpoint
 from .base_model import BaseModel, build_optimizer, ema_update, set_lr
 from .schedulers import SCHEDULERS, build_scheduler
+from .gan_model import SRGANModel
 from .sr_model import ImageRestorationModel, SRModel
 
 logger = logging.getLogger("vmambair_torch")
@@ -29,6 +31,7 @@ def build_model(opt: dict, device="cuda"):
 
 __all__ = [
     "build_model", "BaseModel", "SRModel", "ImageRestorationModel",
+    "SRGANModel",
     "build_optimizer", "build_scheduler", "ema_update", "set_lr",
     "SCHEDULERS", "checkpoint", "MODEL_REGISTRY",
 ]

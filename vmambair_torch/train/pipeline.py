@@ -130,7 +130,7 @@ def train_pipeline(root_path: str, opt: Optional[Dict[str, Any]] = None,
     if opt["train"].get("profile_dir"):
         raise NotImplementedError(
             "train.profile_dir: the step profiler (utils/profiling.py) is "
-            "not ported to vmambair_torch yet (ROADMAP.md Queue 1 item 14)")
+            "not ported to vmambair_torch yet")
     set_random_seed(int(opt["manual_seed"]))
 
     # auto-resume: resolve the state and point pretrain_network_g at the

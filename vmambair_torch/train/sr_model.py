@@ -1,14 +1,15 @@
 """SRModel / ImageCleanModel: single-network restoration training.
 
 Counterpart of `vmambair_tpu/train/sr_model.py:43-302`, on one device. A
-step is forward, pixel loss, backward (through the scan and GDFN kernels'
-autograd Functions on CUDA), an optional global-norm clip, the optimizer
-step and the EMA lerp. `feed_data` takes the JAX package's contract: NHWC
-float32 arrays, which land on the device as NCHW through `put_batch`, the
-device prefetcher's hook; tensors already on the device (what `put_batch`
-returns) are taken as they are. `test` pads to the window, or runs chop
-inference through `RestorationUpscaler` when `val.tile` is set. Weights
-come from
+step is forward, the pixel and perceptual losses (`pixel_opt`,
+`perceptual_opt`: either or both), backward (through the scan and GDFN
+kernels' autograd Functions on CUDA), an optional global-norm clip, the
+optimizer step and the EMA lerp. `feed_data` takes the JAX package's
+contract: NHWC float32 arrays, which land on the device as NCHW through
+`put_batch`, the device prefetcher's hook; tensors already on the device
+(what `put_batch` returns) are taken as they are. `test` pads to the
+window, or runs chop inference through `RestorationUpscaler` when
+`val.tile` is set. Weights come from
 `torch.Generator().manual_seed(manual_seed)` (`build_network`); mixup draws
 from a host generator seeded the same way.
 """
@@ -66,7 +67,7 @@ def _is_on(t: torch.Tensor, device: torch.device) -> bool:
 
 @MODEL_REGISTRY.register(name="SRModel")
 class SRModel(BaseModel):
-    """Single-generator restoration model with a pixel loss."""
+    """Single-generator restoration model (pixel + optional perceptual)."""
 
     def __init__(self, opt: Dict[str, Any], device="cuda"):
         super().__init__(opt, device)
@@ -93,18 +94,37 @@ class SRModel(BaseModel):
         self.mixup = bool(train_opt.get("mixup", mixing.get("mixup", False)))
         self.mixup_beta = float(mixing.get("mixup_beta", 1.2))
         self.host_rng = np.random.RandomState(self.seed)
-        pixel_opt = train_opt.get("pixel_opt")
-        if train_opt.get("perceptual_opt"):
-            raise NotImplementedError(
-                "perceptual_opt: the perceptual loss is not ported yet")
-        if not pixel_opt:
-            raise ValueError("train.pixel_opt is required")
-        self.cri_pix = build_loss(dict(pixel_opt))
+        self._init_losses(train_opt)
+        if self.cri_pix is None and self.cri_perceptual is None:
+            raise ValueError("Both pixel and perceptual losses are None.")
         self.grad_clip = (float(train_opt.get("grad_clip", 0.01))
                           if train_opt.get("use_grad_clip") else None)
         self.optimizer = build_optimizer(self.net_g.parameters(),
                                          dict(train_opt["optim_g"]))
         self.schedule = self._make_schedule(train_opt)
+
+    def _init_losses(self, train_opt):
+        """`cri_pix` and `cri_perceptual` from their YAML blocks (None
+        where absent); VGG19's buffers go to the model's device."""
+        pixel_opt = train_opt.get("pixel_opt")
+        self.cri_pix = build_loss(dict(pixel_opt)) if pixel_opt else None
+        percep_opt = train_opt.get("perceptual_opt")
+        self.cri_perceptual = (build_loss(dict(percep_opt)).to(self.device)
+                               if percep_opt else None)
+
+    def _loss_terms(self, output, gt, prefix="l_"):
+        """(total, {name: loss}) of the pixel and perceptual terms, named
+        `{prefix}pix`, `{prefix}percep` and `{prefix}style` as in JAX."""
+        losses = OrderedDict()
+        if self.cri_pix is not None:
+            losses[prefix + "pix"] = self.cri_pix(output, gt)
+        if self.cri_perceptual is not None:
+            l_percep, l_style = self.cri_perceptual(output, gt)
+            if l_percep is not None:
+                losses[prefix + "percep"] = l_percep
+            if l_style is not None:
+                losses[prefix + "style"] = l_style
+        return sum(losses.values()), losses
 
     def put_batch(self, data: Dict[str, Any],
                   keys=("lq", "gt")) -> Dict[str, Any]:
@@ -132,16 +152,18 @@ class SRModel(BaseModel):
         if self.mixup:
             lq, gt = mixup_batch(self.host_rng, lq, gt, self.mixup_beta)
         self.optimizer.zero_grad(set_to_none=True)
-        l_pix = self.cri_pix(self.net_g(lq), gt)
-        l_pix.backward()
+        total, losses = self._loss_terms(self.net_g(lq), gt)
+        total.backward()
         if self.grad_clip:
             torch.nn.utils.clip_grad_norm_(self.net_g.parameters(),
                                            self.grad_clip)
         self.optimizer.step()
         if self.net_g_ema is not None:
             ema_update(self.net_g_ema, self.net_g, self.ema_decay)
-        # the loss stays a device scalar: no wait on the card here
-        self.log_dict = OrderedDict(l_pix=l_pix.detach(), lr=float(lr))
+        # the losses stay device scalars: no wait on the card here
+        self.log_dict = OrderedDict((k, v.detach())
+                                    for k, v in losses.items())
+        self.log_dict["lr"] = float(lr)
 
     def eval_net(self) -> torch.nn.Module:
         return self.net_g_ema if self.net_g_ema is not None else self.net_g
@@ -182,11 +204,16 @@ class SRModel(BaseModel):
         save_network(self._net_path("net_g", current_iter),
                      self.net_g.state_dict(), ema)
         if current_iter != -1:
-            states = {"optimizer": self.optimizer.state_dict()}
-            if ema is not None:
-                states["params_ema"] = ema
             save_training_state(self._state_path(current_iter),
-                                current_iter, epoch, **states)
+                                current_iter, epoch,
+                                **self._training_states())
+
+    def _training_states(self) -> Dict[str, Any]:
+        """What a training state holds besides iter and epoch."""
+        states = {"optimizer": self.optimizer.state_dict()}
+        if self.net_g_ema is not None:
+            states["params_ema"] = self.net_g_ema.state_dict()
+        return states
 
     def load_net_g(self, path: str, param_key: Optional[str] = None):
         path_opt = self.opt.get("path") or {}
@@ -198,11 +225,14 @@ class SRModel(BaseModel):
 
     def resume_training(self, state_path: str) -> Dict[str, int]:
         st = load_training_state(state_path)
+        self._load_training_states(st)
+        return {"iter": int(st["iter"]), "epoch": int(st["epoch"])}
+
+    def _load_training_states(self, st: Dict[str, Any]):
         if "optimizer" in st and self.optimizer is not None:
             self.optimizer.load_state_dict(st["optimizer"])
         if "params_ema" in st and self.net_g_ema is not None:
             self.net_g_ema.load_state_dict(st["params_ema"])
-        return {"iter": int(st["iter"]), "epoch": int(st["epoch"])}
 
 
 @MODEL_REGISTRY.register(name="MambaSISRModel")

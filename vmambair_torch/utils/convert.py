@@ -4,7 +4,9 @@
 (reference torch state dict -> flax tree): it maps an OSSNet flax params
 tree (nested dicts of numpy arrays, without the top-level "params" key)
 onto the port's state dict, whose names and shapes are the reference
-arch's. `load_network` reads a torch `.pth` written by
+arch's; `jax_disc_to_torch` does the same for the GAN stage's
+`UNetDiscriminatorSN` (params and its spectral norms' batch_stats).
+`load_network` reads a torch `.pth` written by
 `scripts/convert_jax_to_torch.py` (or any reference checkpoint).
 """
 
@@ -14,6 +16,8 @@ import re
 
 import numpy as np
 import torch
+
+from ..models.discriminator import l2_normalize
 
 
 def _t(a) -> torch.Tensor:
@@ -116,6 +120,43 @@ def jax_to_torch(params: dict) -> dict:
             _conv(sd, "tail.1", entry)
         else:
             raise KeyError(f"jax_to_torch: no mapping for {fname!r}")
+    return sd
+
+
+_DISC_SN = re.compile(r"^SpectralNorm_(\d+)$")
+
+
+def jax_disc_to_torch(params: dict, batch_stats: dict) -> dict:
+    """UNetDiscriminatorSN's flax `params` and `batch_stats` (numpy trees,
+    without their top-level keys) -> the port's state dict: conv0 and
+    conv9 (`{conv: {kernel, bias}}`) to `.weight` / `.bias`, conv1-8's
+    HWIO kernels to `.weight_orig`, `SpectralNorm_{k}`'s u (1, O) and
+    sigma to `conv{k+1}.weight_u` (O,) and `.weight_sigma`, and
+    `.weight_v` the v of the power step from that u."""
+    sd: dict = {}
+    for fname, entry in params.items():
+        if fname in ("conv0", "conv9"):
+            _conv(sd, fname, entry)
+        elif re.fullmatch(r"conv[1-8]", fname):
+            sd[f"{fname}.weight_orig"] = _oihw(entry["kernel"])
+        else:
+            raise KeyError(f"jax_disc_to_torch: no mapping for {fname!r}")
+    for sname, entry in batch_stats.items():
+        m = _DISC_SN.match(sname)
+        if not m:
+            raise KeyError(f"jax_disc_to_torch: no mapping for {sname!r}")
+        conv = f"conv{int(m.group(1)) + 1}"
+        for key, value in entry.items():
+            if key == f"{conv}/kernel/u":
+                sd[f"{conv}.weight_u"] = _t(np.asarray(value).reshape(-1))
+            elif key == f"{conv}/kernel/sigma":
+                sd[f"{conv}.weight_sigma"] = _t(np.asarray(value).reshape(()))
+            else:
+                raise KeyError(f"jax_disc_to_torch: no mapping for "
+                               f"{sname}/{key}")
+        w = sd[f"{conv}.weight_orig"]
+        sd[f"{conv}.weight_v"] = l2_normalize(
+            sd[f"{conv}.weight_u"][None] @ w.reshape(w.shape[0], -1))[0]
     return sd
 
 

@@ -1,8 +1,11 @@
 """Seeding, experiment directories, file scans, resume discovery, timers.
 
 The port's copy of `vmambair_tpu/utils/misc.py`. `set_random_seed` also
-seeds torch; `check_resume` points the generator at the port's
-`net_g_<iter>.pth` checkpoints (`train/checkpoint.py`), not JAX's `.ckpt`.
+seeds torch; `check_resume` points the nets at the port's
+`net_g_<iter>.pth` / `net_d_<iter>.pth` checkpoints (`train/checkpoint.py`),
+not JAX's `.ckpt`, and, as the reference trainer does, over a pretrained
+path the options give, from `params` (JAX's copy keeps that path and
+key: a resumed GAN run would restart G from its S1 checkpoint).
 """
 
 from __future__ import annotations
@@ -85,17 +88,23 @@ def find_latest_state(state_dir: str) -> Optional[str]:
 
 
 def check_resume(opt: dict, resume_iter: int):
-    """Points `pretrain_network_g` (and `_d`) at the checkpoint of the
-    resumed iteration, `net_g_<iter>.pth`, where the option is unset."""
+    """On resume, points `pretrain_network_g` (and `_d`) at the resumed
+    iteration's `net_g_<iter>.pth` (`net_d_<iter>.pth`) where it exists,
+    over a path the options give (the GAN stage's S1 checkpoint would
+    restart G from there), and `param_key_g` from `params_ema` to
+    `params`: the weights the resumed optimizer state belongs to. The
+    reference trainer's `check_resume` does both."""
     if not opt["path"].get("resume_state"):
         return
     for net in ("network_g", "network_d"):
-        if net in opt and opt["path"].get(f"pretrain_{net}") is None:
-            name = net.replace("network_", "net_")
-            candidate = osp.join(opt["path"]["models"],
-                                 f"{name}_{resume_iter}.pth")
-            if osp.exists(candidate):
-                opt["path"][f"pretrain_{net}"] = candidate
+        name = net.replace("network_", "net_")
+        candidate = osp.join(opt["path"]["models"],
+                             f"{name}_{resume_iter}.pth")
+        if net in opt and osp.exists(candidate):
+            opt["path"][f"pretrain_{net}"] = candidate
+            key = net.replace("network_", "param_key_")
+            if opt["path"].get(key) == "params_ema":
+                opt["path"][key] = "params"
 
 
 class AvgTimer:

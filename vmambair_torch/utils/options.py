@@ -5,7 +5,7 @@ the YAML (importing `yaml` only there: a caller that builds the options
 dict itself, as `chip_smoke.py` does, needs no YAML parser) and takes the
 reference's flags plus `--device`; `finalize_options` and `dict2str` work
 on dicts alone. `num_gpu` resolves to 1: data parallelism is not ported
-yet (`ROADMAP.md` Queue 1 item 9).
+yet (the JAX package's `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ def resolve_num_gpu(num_gpu) -> int:
         return 1
     raise NotImplementedError(
         f"num_gpu {num_gpu}: data parallelism is not ported to "
-        "vmambair_torch yet (ROADMAP.md Queue 1 item 9); use num_gpu 1")
+        "vmambair_torch yet (the JAX package's parallel/mesh.py); use "
+        "num_gpu 1")
 
 
 def finalize_options(opt: Dict, root_path: str, is_train: bool = True):
