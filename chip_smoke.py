@@ -207,8 +207,9 @@ from vmambair_torch import _build
 from vmambair_torch.models import MamberBlock, build_network
 from vmambair_torch.ops import cuda_effn, cuda_probes, cuda_scan
 from vmambair_torch.tools import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS,
-                                  SFU_NOMINAL, ab, hold, kdualnum, keffn,
-                                  kldio, kpeak, kprobe, kseq, kvariants)
+                                  SFU_NOMINAL, TF32_TC_FLOPS, ab, hold,
+                                  kdualnum, keffn, kldio, kpeak, kprobe, kseq,
+                                  kvariants)
 from vmambair_torch.train import build_model
 from vmambair_torch.train.checkpoint import save_network
 from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
@@ -378,6 +379,11 @@ K4_RAGGED_SHAPES = ((2, 77, 8, 2, 16, "channel"), (2, 77, 6, 2, 5, "pair"),
                     (1, 300, 24, 2, 200, "channel"),
                     (2, 256, 64, 2, 16, "pair"))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
+# K2's fp32 route past the envelope: its split-TF32 products keep fp32's
+# accuracy, so it is held to the fp32 bar of its CPU model (tests/
+# test_torch_port_k2_tiles.py), which a single-pass TF32 product misses
+# (`k2f_control`)
+K2F_TOL = (1e-5, 1e-5)
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
 OUT_DIR = "chiprun_out"
@@ -522,14 +528,14 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(bytes_moved, fp32_ops, bf16_mma=0, exp2=0) -> dict:
+def bound(bytes_moved, fp32_ops, bf16_mma=0, exp2=0, tf32_mma=0) -> dict:
     """The terms of the least time the card could take for a call: the
     bytes over the HBM rate and the operations over their peak rates (ms),
     and the count of SFU exp2s, whose term `finish_bound` adds once phase 8
     has measured the ex2 rate to set beside the nominal one."""
     return dict(bytes_ms=bytes_moved / HBM_BPS * 1e3,
-                ops_ms=(fp32_ops / FP32_FLOPS + bf16_mma / BF16_TC_FLOPS)
-                * 1e3, exp2=exp2)
+                ops_ms=(fp32_ops / FP32_FLOPS + bf16_mma / BF16_TC_FLOPS
+                        + tf32_mma / TF32_TC_FLOPS) * 1e3, exp2=exp2)
 
 
 def finish_bound(terms, ex2_rate=None) -> dict:
@@ -742,10 +748,16 @@ def _bwd_bound(args, dy):
 
 def _gdfn_bound(args):
     """K2's count, keffn's (`keffn.work`): x read and y written once, the
-    weights once; the projections on the tensor cores for bf16."""
+    weights once; the projections on the tensor cores, in bf16 for bf16
+    and as three TF32 products each for fp32."""
     x, w_out = args[0], args[5]
     b, c, h, w = x.shape
-    return bound(*keffn.work((b, h, w, c), x.dtype, w_out.shape[1]))
+    return _gdfn_work_bound((b, h, w, c), x.dtype, w_out.shape[1])
+
+
+def _gdfn_work_bound(shape, dtype, hid=None):
+    by, fp32_ops, bf16_mma, tf32_mma = keffn.work(shape, dtype, hid)
+    return bound(by, fp32_ops, bf16_mma, tf32_mma=tf32_mma)
 
 
 def kernels_vs_plain() -> tuple[dict, dict]:
@@ -765,6 +777,13 @@ def kernels_vs_plain() -> tuple[dict, dict]:
 
     def fwd_cmp(label, dtype):
         return lambda got, ref: check_close(label, got, ref, *TOL[dtype])
+
+    def k2_cmp(label, dtype):
+        if dtype != torch.float32:
+            return fwd_cmp(label, dtype)
+        return lambda got, ref: max(
+            check_close(label, got, ref, *TOL[dtype]),
+            check_close(label + " (fp32 bar)", got, ref, *K2F_TOL))
 
     def pair_cmp(label, dtype):
         return lambda got, ref: max(
@@ -828,7 +847,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             add("gdfn_residual_fused", lab, dtype,
                 lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
                 lambda a=a: cuda_effn.gdfn_residual_ref(*a),
-                fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a),
+                k2_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a),
                 timed=True, key=(b, c, h, w, dtype), plain_timed=True)
         for (b, c, h, w) in K2_RAGGED_SHAPES:
             a = _gdfn_case(b, c, h, dtype, gen, w)
@@ -836,7 +855,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             add("gdfn_residual_fused", lab, dtype,
                 lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
                 lambda a=a: cuda_effn.gdfn_residual_ref(*a),
-                fwd_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
+                k2_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
     # K5 and K6 at the five MamberBlock shapes of a served forward (the
     # first, 30 of the 50 blocks, is the main shape); K5's bf16 rows (its
     # tensor-core route) and its fp32 row at (8,96,64,64) (the S1 step's
@@ -1025,6 +1044,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
     del cases, k3_calls
     k1_deterministic(gen)
     k2_deterministic(gen)
+    k2f_control(gen)
     k3_recorded_bits()
     torch.cuda.empty_cache()
     return stats, shape_ms
@@ -1102,18 +1122,88 @@ def k1_deterministic(gen):
 
 
 def k2_deterministic(gen):
-    """Two K2 calls on the same inputs at the served forward's main shape
-    (the tensor-core route) and at the S1 step's (the fp32 route) give the
-    same bits."""
-    for (b, c, h, w), dtype in ((K2_SERVE_SHAPES[0], torch.bfloat16),
-                                (K2_STEP_SHAPES[1], torch.float32)):
+    """Two K2 calls on the same inputs give the same bits: at the served
+    forward's main shape (the bf16 route), at the S1 step's (the fp32
+    route, one block a tile) and at the step's three levels where the fp32
+    route splits the hidden channels over a cluster (its members' partial
+    tiles summed in rank order); and the fp32 route's packing kernel gives
+    its plain version's bits."""
+    cases = [(K2_SERVE_SHAPES[0], torch.bfloat16)] + [
+        (shape, torch.float32) for shape in K2_STEP_SHAPES[1:]]
+    for (b, c, h, w), dtype in cases:
         a = _gdfn_case(b, c, h, dtype, gen, w)
         if not torch.equal(cuda_effn.gdfn_residual_fwd(*a),
                            cuda_effn.gdfn_residual_fwd(*a)):
             raise SystemExit(f"FAIL K2 ({b},{c},{h},{w}) {dtype}: two calls "
                              "gave different bits")
-    print("[kernels] K2 at (8,96,128,128) bf16 and (8,96,64,64) fp32: two "
-          "calls each, the same bits")
+    splits = [f"({b},{c},{h},{w}) " + str(cuda_effn.k2f_plan(
+        b, c, h, w, int(2.66 * c), "cuda")[2])
+        for (b, c, h, w) in K2_STEP_SHAPES]
+    # the fp32 route's packing kernel against its plain version, bit for bit
+    for (b, c, h, w) in K2_STEP_SHAPES:
+        _, _, _, w_in, w_dw, w_out = _gdfn_case(b, c, 1, torch.float32, gen)
+        hid = w_out.shape[1]
+        cls = cuda_effn.k2f_class(c)
+        want = cuda_effn.pack_gdfn_f32_weights(w_in, w_dw, w_out, cls)
+        got = torch.full_like(want, float("nan"))
+        _build.launch("vmt_gdfn_f32_pack", got.device, w_in.data_ptr(),
+                      w_dw.data_ptr(), w_out.data_ptr(), got.data_ptr(), c,
+                      hid, cls)
+        if not torch.equal(got, want):
+            raise SystemExit(f"FAIL K2 fp32 packing C={c}: not the plain "
+                             "version's bits")
+    print("[kernels] K2 at (8,96,128,128) bf16 and at the S1 step's "
+          "(8,96,64,64), (8,96,32,32), (8,192,16,16), (8,384,8,8) fp32: two "
+          "calls each, the same bits; the fp32 packing kernel at the step's "
+          "five widths, its plain version's bits; the fp32 route's blocks "
+          "per tile: " + ", ".join(splits))
+    # the card's count behind those splits (`cuda_effn._resident`)
+    dev = torch.device("cuda")
+    print("[kernels] K2 fp32 clusters of 2 / 4 / 8 blocks the card holds at "
+          "once: " + "; ".join(
+              f"class {cls} (C {c}) " + " / ".join(
+                  str(cuda_effn._resident(dev, False, cls, c, s))
+                  for s in (2, 4, 8))
+              for cls, c in ((0, 48), (1, 96), (2, 192), (3, 384))))
+
+
+def _tf32_rn(t):
+    """fp32 rounded to TF32's 10 mantissa bits, to nearest (ties away)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def gdfn_single_tf32(x, ln_w, ln_b, w_in, w_dw, w_out, eps=1e-5):
+    """The control for K2's fp32 bar: the plain version with both 1x1
+    projections' operands rounded to TF32 and their products summed in
+    fp32, the result of a single-pass TF32 kernel (or of a split-TF32 one
+    that drops the lo terms). TF32 off, so cuDNN adds it in fp32."""
+    zn = cuda_effn._layer_norm(x, ln_w, ln_b, eps)
+    hid = w_out.shape[1]
+    y = F.conv2d(_tf32_rn(zn), _tf32_rn(w_in)[:, :, None, None])
+    y = F.conv2d(y, w_dw[:, None], padding=1, groups=2 * hid)
+    g = F.gelu(y[:, :hid]) * y[:, hid:]
+    return x + F.conv2d(_tf32_rn(g), _tf32_rn(w_out)[:, :, None, None])
+
+
+def k2f_control(gen):
+    """K2's fp32 bar (K2F_TOL) can tell a single-pass TF32 result from
+    the plain fp32 one: at each of the S1 step's shapes, the control
+    (`gdfn_single_tf32`) must miss it."""
+    rows = []
+    for (b, c, h, w) in K2_STEP_SHAPES:
+        a = _gdfn_case(b, c, h, torch.float32, gen, w)
+        ref = cuda_effn.gdfn_residual_ref(*a)
+        err = (gdfn_single_tf32(*a) - ref).abs()
+        off = (err > K2F_TOL[1] + K2F_TOL[0] * ref.abs()).float().mean()
+        if off.item() == 0:
+            raise SystemExit(f"FAIL K2 fp32 bar at ({b},{c},{h},{w}): the "
+                             "single-pass TF32 control passes it")
+        rows.append(f"({b},{c},{h},{w}) max abs err {err.max().item():.3e},"
+                    f" {off.item():.4f} of the elements off")
+    print(f"[kernels] K2 fp32 bar (rtol {K2F_TOL[0]}, atol {K2F_TOL[1]}): "
+          "the single-pass TF32 control misses it at every step shape: "
+          + "; ".join(rows))
 
 
 # -- phase 4: the model, kernels vs plain --------------------------------------
@@ -1359,7 +1449,10 @@ KERNEL_CLASSES = (
     ("K1/K1c fused scan", ("oss_scan_fused", "OssFusedScan")),
     # K4's grids: seg_scan_kernel and seg_scan_combine of its policy
     ("K4/K4c scan", ("SelectiveScanFwd",)),
-    ("K2 GDFN", ("gdfn_kernel", "gdfn_mma_kernel")),
+    # the fp32 route's packing kernel (k2f::pack_kernel) runs before each
+    # of its launches
+    ("K2 GDFN", ("gdfn_f32_kernel", "gdfn_mma_kernel",
+                 "k2f::pack_kernel")),
     ("K5 OSS front", ("oss_front_kernel", "oss_front_mma_kernel")),
     ("K6 OSS tail", ("oss_tail_kernel",)),
     # cuDNN's FFT algorithms among them: their transforms, pointwise
@@ -2660,7 +2753,7 @@ def keffn_kprobe_vs_plain(stats):
             if st["ms"] is None:
                 st["ms"], st["plain_ms"] = time_ms(call), time_ms(plain,
                                                                   reps=3)
-                st["terms"] = bound(*keffn.work(shape, dtype))
+                st["terms"] = _gdfn_work_bound(shape, dtype)
                 line += (f"; kernel {st['ms']:.3f} ms, plain "
                          f"{st['plain_ms']:.3f} ms")
             print(line)

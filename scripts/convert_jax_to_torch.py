@@ -1,14 +1,21 @@
 #!/usr/bin/env python
-"""Convert a JAX OSSNet checkpoint (flax msgpack `.ckpt`) to a torch `.pth`
-for the PyTorch port (`vmambair_torch`).
+"""Convert a JAX checkpoint (flax msgpack `.ckpt`) to a torch `.pth` for
+the PyTorch port (`vmambair_torch`).
 
-Runs where JAX/flax are installed: it reads the `{"params", "params_ema"}`
-payload that `vmambair_tpu/train/checkpoint.py::save_network` writes and
-stores the same keys as torch state dicts in the reference arch's naming
-(`vmambair_torch/utils/convert.py::jax_to_torch`).
+Reads the `{"params", "params_ema"}` payload that
+`vmambair_tpu/train/checkpoint.py::save_network` writes, with msgpack alone
+(no flax, no JAX: `vmambair_torch/utils/convert.py::read_flax_checkpoint`),
+and stores the same keys as torch state dicts in the reference arch's
+naming: G (`net_g_<iter>.ckpt`, an OSSNet) through `jax_to_torch`, D
+(`net_d_<iter>.ckpt`, the GAN stage's UNetDiscriminatorSN) through
+`jax_disc_to_torch`. `--net` names which; by default the payload's keys
+decide. The port's loaders read a `.ckpt` themselves; this script is for
+a machine without msgpack, or to keep a `.pth`.
 
     python scripts/convert_jax_to_torch.py --ckpt net_g_300000.ckpt \
         --output net_g_300000.pth
+    python scripts/convert_jax_to_torch.py --ckpt net_d_300000.ckpt \
+        --output net_d_300000.pth --net d
 """
 
 import argparse
@@ -22,16 +29,18 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--ckpt", required=True)
     p.add_argument("--output", required=True)
+    p.add_argument("--net", choices=("g", "d"), default=None,
+                   help="the network the checkpoint holds (default: by "
+                        "its keys)")
     args = p.parse_args(argv)
 
     import torch
-    from flax import serialization
 
-    from vmambair_torch.utils.convert import jax_to_torch
+    from vmambair_torch.utils.convert import (flax_to_state_dict,
+                                              read_flax_checkpoint)
 
-    with open(args.ckpt, "rb") as f:
-        payload = serialization.msgpack_restore(f.read())
-    out = {k: jax_to_torch(v) for k, v in payload.items()
+    payload = read_flax_checkpoint(args.ckpt)
+    out = {k: flax_to_state_dict(v, args.net) for k, v in payload.items()
            if k in ("params", "params_ema")}
     if not out:
         raise SystemExit(f"{args.ckpt}: no params / params_ema entry")

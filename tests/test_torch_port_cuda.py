@@ -9,7 +9,9 @@ Shapes are small and ragged (L not a multiple of the kernels' chunk, odd
 image sizes, N above one register batch) to reach the kernels' edges.
 Tolerances: fp32 within the reference CUDA envelope (rtol 6e-4, atol
 2e-3), bf16 within 3e-2 / 5e-2; gradients and the scan backward within 5x
-the fp32 envelope (rtol 3e-3, atol 1e-2). No JAX here.
+the fp32 envelope (rtol 3e-3, atol 1e-2); K2's fp32 route (split-TF32
+products) also within its CPU model's fp32 bar (rtol 1e-5, atol 1e-5),
+which a single-pass TF32 product misses. No JAX here.
 """
 
 import pytest
@@ -24,6 +26,7 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=6e-4, atol=2e-3),
        torch.bfloat16: dict(rtol=3e-2, atol=5e-2)}
 GRAD_TOL = dict(rtol=3e-3, atol=1e-2)
+K2F_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -92,13 +95,18 @@ def _gdfn_args(cuda, b, c, h, w, dtype):
     return args
 
 
-# K2 at every width class of its tensor-core route (C 48, 96, 192, 384),
+# K2 at every width class of its tensor-core routes (C 48, 96, 192, 384),
 # at a ragged C in each (40, 72, 136, 264: no multiple of 16 or of the
 # class's width), at H and W no multiple of the tiles (8 x 16, 8 x 8, 4 x
-# 8; an odd W takes the element-wise halo load), and at batch 1
+# 8; an odd W takes the element-wise halo load), at batch 1, and at the
+# S1 step's three levels where the fp32 route splits the hidden channels
+# over a cluster (of 2, 2 and 4 blocks on an H100; the small shapes above
+# split too)
+GDFN_SPLIT_SHAPES = [(8, 96, 32, 32), (8, 192, 16, 16), (8, 384, 8, 8)]
 GDFN_SHAPES = [(2, 48, 13, 19), (2, 96, 8, 8), (2, 384, 5, 7),
                (1, 192, 13, 19), (1, 40, 9, 33), (1, 72, 17, 10),
-               (2, 136, 7, 11), (1, 264, 6, 10), (1, 20, 30, 2)]
+               (2, 136, 7, 11), (1, 264, 6, 10), (1, 20, 30, 2),
+               *GDFN_SPLIT_SHAPES]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -107,18 +115,41 @@ def test_gdfn_kernel_matches_plain(cuda, b, c, h, w, dtype):
     args = _gdfn_args(cuda, b, c, h, w, dtype)
     got = cuda_effn.gdfn_residual_fused(*args)
     assert got.dtype == dtype
-    _close(got, cuda_effn.gdfn_residual_ref(*args), dtype)
+    ref = cuda_effn.gdfn_residual_ref(*args)
+    _close(got, ref, dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, **K2F_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gdfn_kernel_is_deterministic(cuda, dtype):
     """Two calls on the same inputs give the same bits, at every width
-    class (no atomics: each output is summed by one thread in a fixed
+    class and at the cluster splits (no atomics: each output is summed by
+    one thread in a fixed order, a cluster's partial tiles in rank
     order)."""
-    for b, c, h, w in GDFN_SHAPES[:4]:
+    for b, c, h, w in GDFN_SHAPES[:4] + GDFN_SPLIT_SHAPES:
         args = _gdfn_args(cuda, b, c, h, w, dtype)
         assert torch.equal(cuda_effn.gdfn_residual_fwd(*args),
                            cuda_effn.gdfn_residual_fwd(*args)), (c, h, w)
+
+
+@pytest.mark.parametrize("c,hid", [(48, 127), (40, 106), (96, 255),
+                                   (136, 361), (384, 1021), (8, 21)])
+def test_gdfn_f32_packing_kernel_matches_plain(cuda, c, hid):
+    """The fp32 route's packing kernel (`vmt_gdfn_f32_pack`) writes the
+    slot images of `pack_gdfn_f32_weights` bit for bit, pads included."""
+    from vmambair_torch import _build
+    g = torch.Generator().manual_seed(c)
+    w_in, w_dw, w_out = (torch.randn(*s, generator=g).to(cuda) for s in (
+        (2 * hid, c), (2 * hid, 3, 3), (c, hid)))
+    cls = cuda_effn.k2f_class(c)
+    want = cuda_effn.pack_gdfn_f32_weights(w_in, w_dw, w_out, cls)
+    got = torch.full_like(want, float("nan"))
+    _build.launch("vmt_gdfn_f32_pack", got.device, w_in.data_ptr(),
+                  w_dw.data_ptr(), w_out.data_ptr(), got.data_ptr(), c, hid,
+                  cls)
+    assert got.shape[1] == cuda_effn.k2f_slot(c, cls)
+    assert torch.equal(got, want)
 
 
 def test_tiny_ossnet_forward_launches_kernels(cuda):

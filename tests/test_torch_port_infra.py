@@ -225,10 +225,12 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
     stubbed: it names an exported function and passes exactly its
     signature's arguments (a pointer as an int or None, an int or long
     long as an int, a float as a float), the stream added by `launch`."""
-    from vmambair_torch.ops import cuda_probes
+    from vmambair_torch.ops import cuda_effn, cuda_probes
 
     calls = []
     monkeypatch.setattr(cuda_probes, "on_cpu", lambda *ts: False)
+    # keffn's fp32 split asks the card's cluster residency: none here
+    monkeypatch.setattr(cuda_effn, "_resident", lambda *a: 0)
     monkeypatch.setattr(_build, "launch",
                         lambda name, dev, *a: calls.append((name, a)))
     u = torch.zeros(1, 2, 40, 4)
@@ -265,7 +267,8 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
         "vmt_scan_stack_fwd", "vmt_scan_stack_fwd", "vmt_scan_stack_fwd",
         "vmt_scan_dual_fwd", "vmt_scan_dual_fwd", "vmt_scan_dual_fwd",
         "vmt_scan_dual_fwd",
-        "vmt_gdfn_tanh_nhwc_f32_fwd", "vmt_probe_transpose",
+        "vmt_gdfn_f32_pack", "vmt_gdfn_tanh_nhwc_f32_fwd",
+        "vmt_probe_transpose",
         "vmt_probe_proj",
         "vmt_oss_scan_fused_ld_fwd"]
     for name, a in calls:

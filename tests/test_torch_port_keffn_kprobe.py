@@ -169,16 +169,25 @@ def test_keffn_cli_prints_its_rows(capsys):
 
 
 def test_keffn_bound_counts_as_k2s():
-    """keffn's work at 128x128x48 bf16: the projections' 2 (2h C + h C)
-    flops per pixel on the tensor cores, the rest on the CUDA cores, x and
-    y once and the fp32 weights."""
-    by, fp32_ops, mma = port_keffn.work((8, 128, 128, 48), torch.bfloat16)
+    """keffn's work at 128x128x48: the projections' 2 (2h C + h C) flops
+    per pixel on the tensor cores (bf16 in bf16; for fp32 three TF32
+    products each, the split-TF32 route's), the rest on the CUDA cores, x
+    and y once and the fp32 weights."""
+    shape = (8, 128, 128, 48)
+    by, fp32_ops, mma, tf32_mma = port_keffn.work(shape, torch.bfloat16)
     px, c, hid = 8 * 128 * 128, 48, 127
-    assert mma == 2 * px * 3 * hid * c
+    assert mma == 2 * px * 3 * hid * c and tf32_mma == 0
     assert fp32_ops == px * (36 * hid + 20 * hid + 10 * c)
     assert by == 2 * px * c * 2 + 4 * (2 * c + 3 * hid * c + 18 * hid)
-    ms, by_what = port_keffn.bound_ms((8, 128, 128, 48), torch.bfloat16)
+    ms, by_what = port_keffn.bound_ms(shape, torch.bfloat16)
     assert by_what == "operations" and ms > 0
+    by32, ops32, mma32, tf32_32 = port_keffn.work(shape, torch.float32)
+    assert (ops32, mma32, tf32_32) == (fp32_ops, 0, 3 * mma)
+    assert by32 == by + 2 * px * c * 2
+    ms32, _ = port_keffn.bound_ms(shape, torch.float32)
+    assert ms32 == pytest.approx(max(
+        by32 / port_keffn.HBM_BPS,
+        ops32 / port_keffn.FP32_FLOPS + tf32_32 / 495e12) * 1e3)
 
 
 # -- kprobe ---------------------------------------------------------------------

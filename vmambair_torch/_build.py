@@ -156,16 +156,22 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _F, _P,          # B C H W hp cls eps stream
     ],
     "vmt_gdfn_residual_f32_fwd": [
-        _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw..wout_t
-        _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
+        _P, _P, _P, _P, _P,                      # x, y, lnw, lnb, wimg
+        _I, _I, _I, _I, _I, _I, _I, _F, _P,      # B C H W hp cls split eps st
     ],
     "vmt_gdfn_tanh_nhwc_fwd": [
         _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw, lnb, packed w
         _I, _I, _I, _I, _I, _I, _F, _P,          # B C H W hp cls eps stream
     ],
+    "vmt_gdfn_f32_pack": [
+        _P, _P, _P, _P, _I, _I, _I, _P,          # w_in w_dw w_out wimg C hid
+    ],                                           # cls stream
+    "vmt_gdfn_f32_resident": [
+        _I, _I, _I, _I, _P, _P,                  # cls C split nhwc out stream
+    ],
     "vmt_gdfn_tanh_nhwc_f32_fwd": [
-        _P, _P, _P, _P, _P, _P, _P,              # x, y, lnw..wout_t
-        _I, _I, _I, _I, _I, _F, _P,              # B C H W hid eps stream
+        _P, _P, _P, _P, _P,                      # x, y, lnw, lnb, wimg
+        _I, _I, _I, _I, _I, _I, _I, _F, _P,      # B C H W hp cls split eps st
     ],
     "vmt_probe_transpose": [
         _P, _I, _P, _LL, _I, _P,                 # u dt y rows D stream

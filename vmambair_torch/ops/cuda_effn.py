@@ -20,7 +20,11 @@ version (`*_ref`); a CUDA tensor goes to the kernel (`csrc/gdfn.cu`,
 counts each kernel's launches. K2 and K5 take bf16 activations on the
 tensor cores, their weights packed per hidden or channel tile
 (`pack_gdfn_weights`, `pack_front_weights`, for the width class
-`k2_class` or `k5_class` picks), and fp32 activations on the CUDA cores.
+`k2_class` or `k5_class` picks). K2 takes fp32 activations on the tensor
+cores too, in split TF32 (weights packed in fp32 for `k2f_class` as the
+images of its ring slots, `pack_gdfn_f32_weights`; a cluster of
+`k2f_split` blocks per tile where the grid is small); K5 takes them on
+the CUDA cores.
 The wrappers have no backward. `*_fused` are the differentiable entry
 points: without a gradient to record, one forward
 launch; otherwise an autograd Function whose forward is the same launch
@@ -37,6 +41,8 @@ H and W, and a width past their shared memory raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
@@ -53,6 +59,12 @@ TAIL_MAX_C = 768   # K6: the pixel tile of every channel in shared memory
 # TW and its hidden tile HT
 K2_CLASSES = ((48, 8, 16, 32), (96, 8, 16, 16), (192, 8, 8, 32),
               (384, 4, 8, 16))
+# K2's fp32 width classes (csrc/gdfn.cu, k2f::Fc0-3): the largest C, the
+# output tile TH x TW, the hidden tile HT, the blocks an SM holds and the
+# ways the in-projection's k-steps are split over the warps
+K2F_CLASSES = ((48, 8, 16, 16, 2, 1), (96, 8, 16, 16, 1, 1),
+               (192, 8, 8, 16, 1, 1), (384, 4, 8, 8, 1, 8))
+K2F_MAX_SPLIT = 8  # the portable cluster size
 # K5's width classes on the tensor cores (csrc/oss_front.cu, k5::Fc0-3):
 # the largest C each takes, its output tile TH x TW and its channel tile ET
 K5_CLASSES = ((48, 8, 16, 16), (96, 8, 16, 32), (192, 8, 8, 16),
@@ -71,9 +83,56 @@ def k2_class(c: int) -> int:
     return next(i for i, k in enumerate(K2_CLASSES) if c <= k[0])
 
 
-def pack_gdfn_weights(w_in, w_dw, w_out, cls: int, dtype=torch.bfloat16):
-    """K2's weights for its tensor-core route, per hidden tile of the width
-    class `cls`, rounded to `dtype`. w_in (2 hid, C), w_dw (2 hid, 3, 3),
+def k2f_class(c: int) -> int:
+    """The width class K2's fp32 route takes for C channels."""
+    return next(i for i, k in enumerate(K2F_CLASSES) if c <= k[0])
+
+
+def k2f_split(b: int, h: int, w: int, cls: int, nt: int, resident) -> int:
+    """The blocks of a cluster that share one output tile in K2's fp32
+    route, each taking every split-th of the nt hidden tiles: the largest
+    power of two up to 8 and nt at which the card still holds the tiles'
+    clusters all at once (one wave), 1 where it does not at 2.
+    `resident(split)`: the clusters of `split` blocks the card holds at
+    once (on the card, the kernel's own count by the occupancy API,
+    `_resident`)."""
+    _, th, tw, _, _, _ = K2F_CLASSES[cls]
+    tiles = b * -(-h // th) * -(-w // tw)
+    split = 1
+    while (2 * split <= min(K2F_MAX_SPLIT, nt)
+           and tiles <= resident(2 * split)):
+        split *= 2
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: torch.device, nhwc: bool, cls: int, c: int,
+              split: int) -> int:
+    """The clusters of `split` blocks of K2's fp32 kernel (class cls, C
+    channels; keffn's NHWC one if nhwc) that the card holds at once, by
+    the CUDA occupancy API."""
+    out = ctypes.c_int(0)
+    _build.launch("vmt_gdfn_f32_resident", device, cls, c, split, int(nhwc),
+                  ctypes.addressof(out))
+    return out.value
+
+
+def k2f_plan(b: int, c: int, h: int, w: int, hid: int, device,
+             nhwc: bool = False) -> tuple[int, int, int]:
+    """(class, hidden tiles, split) of K2's fp32 route for a launch on the
+    CUDA `device`, split by the card's own cluster residency."""
+    cls = k2f_class(c)
+    nt = -(-hid // K2F_CLASSES[cls][3])
+    dev = torch.device(device)
+    return cls, nt, k2f_split(b, h, w, cls, nt,
+                              lambda s: _resident(dev, nhwc, cls, c, s))
+
+
+def pack_gdfn_weights(w_in, w_dw, w_out, cls: int, dtype=torch.bfloat16,
+                      classes=K2_CLASSES):
+    """K2's weights for its tensor-core routes, per hidden tile of the
+    width class `cls` of `classes` (K2_CLASSES for bf16, K2F_CLASSES for
+    fp32), rounded to `dtype`. w_in (2 hid, C), w_dw (2 hid, 3, 3),
     w_out (C, hid) as `gdfn_residual_fwd` takes them. With HT the class's
     hidden tile, hp = hid rounded up to HT, KP = C rounded up to 16 and CP
     the class's largest C, returns
@@ -84,7 +143,7 @@ def pack_gdfn_weights(w_in, w_dw, w_out, cls: int, dtype=torch.bfloat16):
       win_p's row order;
     zero past hid, past C and past CP (a padded hidden channel gives
     gelu(0) * 0 = 0)."""
-    cp, _, _, ht = K2_CLASSES[cls]
+    cp, ht = classes[cls][0], classes[cls][3]
     c2, c = w_in.shape
     hid = c2 // 2
     hp, kp = -(-hid // ht) * ht, -(-c // 16) * 16
@@ -104,13 +163,36 @@ def pack_gdfn_weights(w_in, w_dw, w_out, cls: int, dtype=torch.bfloat16):
     return (win_p.view(nt, 2 * ht, kp), wout_p, wdw_p.view(nt, 2 * ht, 9))
 
 
+def k2f_slot(c: int, cls: int) -> int:
+    """The floats of one ring slot of K2's fp32 route: 2 HT (KP + 4) + CP
+    (HT + 4) + 18 HT, KP = C rounded up to 16."""
+    cp, _, _, ht, _, _ = K2F_CLASSES[cls]
+    return 2 * ht * (-(-c // 16) * 16 + 4) + cp * (ht + 4) + 18 * ht
+
+
+def pack_gdfn_f32_weights(w_in, w_dw, w_out, cls: int):
+    """K2's weights for its fp32 route: per hidden tile of the fp32 width
+    class `cls`, the image of the kernel's ring slot, which one bulk copy
+    moves to shared memory. Returns (hp / HT, `k2f_slot`) fp32:
+    `pack_gdfn_weights`' three tiles (fp32, K2F_CLASSES), W_in's rows and
+    W_out's padded with 4 zeros each, one after another. The plain
+    version of the wrapper's packing kernel (`vmt_gdfn_f32_pack`)."""
+    win_p, wout_p, wdw_p = pack_gdfn_weights(w_in, w_dw, w_out, cls,
+                                             torch.float32, K2F_CLASSES)
+    nt = win_p.shape[0]
+    return torch.cat([F.pad(win_p, (0, 4)).view(nt, -1),
+                      F.pad(wout_p, (0, 4)).view(nt, -1),
+                      wdw_p.view(nt, -1)], 1)
+
+
 def launch_gdfn(entry: str, x, dims, ln_w, ln_b, w_in, w_dw, w_out, eps):
     """Launches K2's kernel `entry` (`vmt_gdfn_residual` for NCHW images,
-    `vmt_gdfn_tanh_nhwc` for keffn's) on x, `dims` = (B, C, H, W): bf16
-    activations on the tensor cores with the weights packed for C's width
-    class, fp32 ones on the CUDA cores (`_f32_fwd`) with the weights
-    transposed. Weights in K2's layouts (`gdfn_residual_fwd`), rounded to
-    x's dtype; returns y, shaped as x."""
+    `vmt_gdfn_tanh_nhwc` for keffn's) on x, `dims` = (B, C, H, W), with
+    the weights packed for C's width class: bf16 activations in bf16
+    products, fp32 ones (`_f32_fwd`) in split TF32 with a cluster of
+    `k2f_split` blocks per tile. Weights in K2's layouts
+    (`gdfn_residual_fwd`), rounded to x's dtype; returns y, shaped as
+    x."""
     dtype_code(x, "x")
     b, c, h, w = dims
     hid = w_out.shape[1]
@@ -126,14 +208,19 @@ def launch_gdfn(entry: str, x, dims, ln_w, ln_b, w_in, w_dw, w_out, eps):
             wout_p.data_ptr(), wdw_p.data_ptr(), b, c, h, w,
             wout_p.shape[0] * wout_p.shape[2], cls, float(eps))
         return y
-    cdt = x.dtype
-    win_t = f32(w_in.to(cdt).t())
-    wdw = f32(w_dw.to(cdt).reshape(2 * hid, 9))
-    wout_t = f32(w_out.to(cdt).t())
+    # the slot images by one packing kernel (pack_gdfn_f32_weights' layout)
+    cls, nt, split = k2f_plan(b, c, h, w, hid, x.device, "nhwc" in entry)
+    wimg = torch.empty(nt, k2f_slot(c, cls), dtype=torch.float32,
+                       device=x.device)
+    # held by name until the launch: a copy freed earlier could be reused
+    # by the next one's allocation before the packing kernel reads it
+    wi, wd, wo = f32(w_in), f32(w_dw), f32(w_out)
+    _build.launch("vmt_gdfn_f32_pack", x.device, wi.data_ptr(),
+                  wd.data_ptr(), wo.data_ptr(), wimg.data_ptr(), c, hid, cls)
     _build.launch(
         entry + "_f32_fwd", x.device, x.data_ptr(), y.data_ptr(),
-        lnw.data_ptr(), lnb.data_ptr(), win_t.data_ptr(), wdw.data_ptr(),
-        wout_t.data_ptr(), b, c, h, w, hid, float(eps))
+        lnw.data_ptr(), lnb.data_ptr(), wimg.data_ptr(), b, c, h, w,
+        nt * K2F_CLASSES[cls][3], cls, split, float(eps))
     return y
 
 

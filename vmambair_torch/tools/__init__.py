@@ -31,11 +31,12 @@ from __future__ import annotations
 import torch
 
 # H100 SXM rates from NVIDIA's data sheet: HBM bytes/s, fp32 FLOP/s outside
-# the tensor cores, bf16 dense tensor-core FLOP/s (chip_smoke.py's bounds
-# use them too)
+# the tensor cores, bf16 and TF32 dense tensor-core FLOP/s (chip_smoke.py's
+# bounds use them too)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 # a rate no data sheet gives: the SFU's nominal 16 exp2 per clock per SM
 # (compute capability 9.0) at 132 SMs and 1.98 GHz
 SFU_NOMINAL = 16 * 132 * 1.98e9

@@ -31,8 +31,8 @@ import torch
 from ..ops.cuda_effn import gdfn_residual_fwd
 from ..ops.cuda_probes import (gdfn_tanh_composite, gdfn_tanh_nhwc,
                                gdfn_tanh_ref)
-from . import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS, check_envelope, device_of,
-               max_err, race)
+from . import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS, TF32_TC_FLOPS,
+               check_envelope, device_of, max_err, race)
 
 # the TPU probe's shapes (tools/keffn.py:211-212), (B, H, W, C), and its
 # interpret shape
@@ -71,13 +71,15 @@ def k2_args(params: dict) -> tuple:
             params["w_dw"].permute(2, 0, 1), params["w_out"].t())
 
 
-def work(shape, dtype, hid: int = None) -> tuple[int, float, float]:
-    """(bytes, fp32 operations, bf16 tensor-core operations) of one call of
-    a GDFN residual at (B, H, W, C) (K2's and keffn's; hid defaults to
-    int(2.66 C)): x read and y written once, the fp32 weights read once;
-    the two projections' 2 (2h C + h C) flops per pixel on the tensor cores
-    for bf16 (on the CUDA cores for fp32), the depthwise conv, the gate and
-    the LayerNorm (2h 18 + h 20 + 10 C) on the CUDA cores."""
+def work(shape, dtype, hid: int = None) -> tuple[int, float, float, float]:
+    """(bytes, fp32 operations, bf16 tensor-core operations, TF32
+    tensor-core operations) of one call of a GDFN residual at (B, H, W, C)
+    (K2's and keffn's; hid defaults to int(2.66 C)): x read and y written
+    once, the fp32 weights read once; the two projections' 2 (2h C + h C)
+    flops per pixel on the tensor cores, in bf16 for bf16 and three times
+    over in TF32 for fp32 (the kernel's split-TF32 products are three TF32
+    ones per fp32 product); the depthwise conv, the gate and the LayerNorm
+    (2h 18 + h 20 + 10 C) on the CUDA cores."""
     b, h, w, c = shape
     hid = hid or int(c * 2.66)
     px = b * h * w
@@ -86,16 +88,17 @@ def work(shape, dtype, hid: int = None) -> tuple[int, float, float]:
     by = 2 * px * c * torch.finfo(dtype).bits // 8 + 4 * (
         2 * c + 3 * hid * c + 18 * hid)
     if dtype == torch.bfloat16:
-        return by, other, mma
-    return by, other + mma, 0
+        return by, other, mma, 0
+    return by, other, 0, 3 * mma
 
 
 def bound_ms(shape, dtype) -> tuple[float, str]:
     """The least time the card could take: bytes over HBM or operations
     over their peaks, the larger; and which."""
-    by, fp32_ops, mma = work(shape, dtype)
+    by, fp32_ops, bf16_mma, tf32_mma = work(shape, dtype)
     t_b = by / HBM_BPS * 1e3
-    t_o = (fp32_ops / FP32_FLOPS + mma / BF16_TC_FLOPS) * 1e3
+    t_o = (fp32_ops / FP32_FLOPS + bf16_mma / BF16_TC_FLOPS
+           + tf32_mma / TF32_TC_FLOPS) * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 

@@ -10,7 +10,9 @@ Writes are atomic (a temporary file in the same directory, then
 `os.replace`), so a preempted run cannot leave a torn checkpoint. Loading
 falls back between `params` and `params_ema`, and a non-strict load skips
 missing keys and mismatched shapes with a warning, keeping the model's
-values there.
+values there. `load_network` also takes the JAX package's `.ckpt` (flax
+msgpack, read without flax; where it is missing, the `.pth` of the same
+stem: `utils/convert.py::read_network`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,13 @@ import tempfile
 
 import torch
 
+from ..utils.convert import read_network
+
 logger = logging.getLogger("vmambair_torch")
+# UNetDiscriminatorSN's spectral-norm state, which a JAX D checkpoint
+# lacks (the JAX package keeps it in the training state; a reference
+# torch checkpoint has u and v)
+_SN_STATE = (".weight_u", ".weight_v", ".weight_sigma")
 
 
 def _host(sd: dict) -> dict:
@@ -71,10 +79,12 @@ def merge_matching(target: dict, loaded: dict) -> dict:
 
 def load_network(path: str, net: torch.nn.Module, param_key: str = "params",
                  strict: bool = True) -> torch.nn.Module:
-    """Loads the `param_key` state dict of `path` into `net` (falling back
-    between `params` and `params_ema`); non-strict skips what does not
-    match."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    """Loads the `param_key` state dict of `path` (a `.pth`, or a `.ckpt`
+    by `read_network`'s rule) into `net` (falling back between `params`
+    and `params_ema`); non-strict skips what does not match. A JAX D
+    checkpoint without spectral-norm state keeps the net's u, v and sigma,
+    as JAX keeps its own."""
+    payload = read_network(path)
     if param_key not in payload:
         alt = "params_ema" if param_key == "params" else "params"
         if alt not in payload:
@@ -82,6 +92,14 @@ def load_network(path: str, net: torch.nn.Module, param_key: str = "params",
         logger.info("loading %s (requested %s absent)", alt, param_key)
         param_key = alt
     sd = payload[param_key]
+    kept = {k: v for k, v in net.state_dict().items()
+            if k.endswith(_SN_STATE)
+            and k.rsplit(".", 1)[0] + ".weight_orig" in sd
+            and k.rsplit(".", 1)[0] + ".weight_u" not in sd}
+    if kept:
+        logger.info("%s holds no spectral-norm state: keeping the net's "
+                    "for %d convolutions", path, len(kept) // 3)
+        sd = {**sd, **kept}
     if not strict:
         sd = merge_matching(net.state_dict(), sd)
     net.load_state_dict(sd, strict=True)

@@ -6,12 +6,23 @@ tree (nested dicts of numpy arrays, without the top-level "params" key)
 onto the port's state dict, whose names and shapes are the reference
 arch's; `jax_disc_to_torch` does the same for the GAN stage's
 `UNetDiscriminatorSN` (params and its spectral norms' batch_stats).
-`load_network` reads a torch `.pth` written by
-`scripts/convert_jax_to_torch.py` (or any reference checkpoint).
+
+`read_flax_checkpoint` reads the JAX package's checkpoints (flax's
+msgpack `.ckpt`, `vmambair_tpu/train/checkpoint.py::save_network`)
+without flax or JAX: flax's format is msgpack with two extension types,
+ext 1 an ndarray packed as (shape, dtype name, bytes) and ext 3 a numpy
+scalar the same way, and arrays past 2^30 bytes split into chunks
+(`flax.serialization.msgpack_restore`, `_unchunk_array_leaves_in_place`).
+`flax_to_state_dict` maps one of its trees to the port's state dict, G's
+or D's by its keys; `read_network` takes a `.pth` or a `.ckpt` path by
+`resolve_checkpoint`'s rule; `load_network` returns the state dict to
+serve.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import re
 
 import numpy as np
@@ -160,10 +171,119 @@ def jax_disc_to_torch(params: dict, batch_stats: dict) -> dict:
     return sd
 
 
+logger = logging.getLogger("vmambair_torch")
+
+CONVERTER = "scripts/convert_jax_to_torch.py"
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+def _ndarray(msgpack, data: bytes) -> np.ndarray:
+    """flax's ext payload: msgpack (shape, dtype name, C-order bytes). A
+    bfloat16 leaf (numpy has no such dtype) widens to float32 exactly."""
+    shape, name, buf = msgpack.unpackb(data, raw=True)
+    name = name.decode()
+    if name == "bfloat16":
+        bits = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def _unchunk(tree):
+    """flax's chunked arrays ({_CHUNKED: True, "shape": {"0": ..},
+    "chunks": {"0": ..}}) back to arrays, in place."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    for k, v in tree.items():
+        tree[k] = _unchunk(v)
+    return tree
+
+
+def read_flax_checkpoint(path: str) -> dict:
+    """A flax msgpack checkpoint as nested dicts of numpy arrays, read with
+    msgpack alone (no flax, no JAX). Raises ImportError naming the
+    converter where msgpack is not installed."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is a flax msgpack checkpoint, and reading it needs the "
+            f"msgpack package, which is not installed here; convert it "
+            f"where msgpack is: python {CONVERTER} --ckpt {path} "
+            f"--output <file>.pth") from e
+
+    def ext_hook(code, data):
+        if code == 1:
+            return _ndarray(msgpack, data)
+        if code == 2:
+            real, imag = msgpack.unpackb(data)
+            return complex(real, imag)
+        if code == 3:
+            return _ndarray(msgpack, data)[()]
+        return msgpack.ExtType(code, data)
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+    return _unchunk(tree)
+
+
+def is_disc_tree(tree: dict) -> bool:
+    """Whether a flax tree is UNetDiscriminatorSN's: its variables
+    (`params` and `batch_stats`) or its params alone (conv0 .. conv9)."""
+    return ("params" in tree and "batch_stats" in tree) or "conv0" in tree
+
+
+def flax_to_state_dict(tree: dict, net: str | None = None) -> dict:
+    """One network's flax tree -> the port's state dict, for `net` "g"
+    (`jax_to_torch`) or "d" (`jax_disc_to_torch`: D's variables, or its
+    params alone without spectral-norm state, which the JAX package keeps
+    in the training state); by default the tree's keys decide."""
+    if net is None:
+        net = "d" if is_disc_tree(tree) else "g"
+    if net == "g":
+        return jax_to_torch(tree)
+    if "batch_stats" in tree:
+        return jax_disc_to_torch(tree["params"], tree["batch_stats"])
+    return jax_disc_to_torch(tree, {})
+
+
+def resolve_checkpoint(path: str) -> str:
+    """The file to read for `path`: a `.ckpt` that exists (flax msgpack),
+    else the `.pth` of the same stem beside it (what the port writes where
+    the JAX package wrote the `.ckpt`), said in the log; any other path as
+    it is. Raises FileNotFoundError naming both where neither exists."""
+    if not path.endswith(".ckpt") or os.path.exists(path):
+        return path
+    pth = path[:-len(".ckpt")] + ".pth"
+    if os.path.exists(pth):
+        logger.info("%s does not exist: loading %s, the port's checkpoint "
+                    "of the same stem", path, pth)
+        return pth
+    raise FileNotFoundError(f"neither {path} (a JAX checkpoint) nor {pth} "
+                            "(the port's of the same stem) exists")
+
+
+def read_network(path: str) -> dict:
+    """A checkpoint's payload as {key: the port's state dict}: a torch
+    file as `torch.load` gives it; a flax `.ckpt` ({"params",
+    "params_ema"} trees of the JAX package's `save_network`) converted by
+    `flax_to_state_dict`."""
+    path = resolve_checkpoint(path)
+    if not path.endswith(".ckpt"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return {k: flax_to_state_dict(v)
+            for k, v in read_flax_checkpoint(path).items()
+            if k in ("params", "params_ema")}
+
+
 def load_network(path: str) -> dict:
-    """A torch `.pth` -> state dict: `params_ema` if the checkpoint has it,
-    else `params`, else the checkpoint itself (a bare state dict)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    """A `.pth` or `.ckpt` (`read_network`) -> state dict: `params_ema` if
+    the checkpoint has it, else `params`, else the checkpoint itself (a
+    bare state dict)."""
+    ckpt = read_network(path)
     for key in ("params_ema", "params"):
         if key in ckpt:
             return ckpt[key]
