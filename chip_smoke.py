@@ -49,13 +49,18 @@ non-zero, and without a CUDA device the script stops before any result:
    launch (`torch.cuda._sleep(0)`, the practical floor at these sizes);
    both at the CUDA tests' ragged shapes too (L no multiple of 8, 32 or
    256, several segments, N below and over a pass of 16 states, 3
-   channels to a group), bf16 and fp32;
+   channels to a group), bf16 and fp32. For RealSR (MambaRealSR11): K4,
+   K4c and K3 at the direct channel scans (9, c, 2), c = 48, 96, 192,
+   384 (one channel to each of two groups), K4c and K3 at the latent
+   (9,64,768) both ways, and K1c, K3 and K2 (fp32) at every batch-9 shape
+   of its S1 step, each timed beside its bound;
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
 4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
    parameter's gradient through the kernels against the plain path on the
    card within 2e-3 of its largest entry, and every scan and GDFN
-   parameter's gradient non-zero and finite;
+   parameter's gradient non-zero and finite; then the same at
+   MambaRealSR11's widths (direct channel scans) on 9 x 64x64 LQ;
 5. serve  - full-size MambaSISR6 (bf16 activations, fp32 weights, seeded
    weights) answers 3 requests of a 512x256 image through
    `RestorationUpscaler.tile_process` (tile 128, tile_pad 0, tile_batch 8:
@@ -120,6 +125,27 @@ non-zero, and without a CUDA device the script stops before any result:
    `train_pipeline` with the GAN recipe on phase 7's PNGs: 2 iterations,
    validation (PSNR-Y), net_g, net_d and the state at 2, auto-resume
    to 3, the launches of both runs against the prediction.
+7c. realsr - both RealSR stages of MambaRealSR11 at full size (dim 48,
+   blocks [6,2,2,1] + 6, the recipes of `options/mambaSR11_x4.yml` and
+   `options/mambaSR11GAN_x4.yml`: 9 x 400x400 GT crops from
+   `RealESRGANDataset` over 12 synthetic PNGs in
+   `build/chip_smoke_realsr/` (9 of 480x480: the crop; 3 smaller: the
+   pad), the two-order synthesis to 256x256 GT / 64x64 LQ, queue 180,
+   fp32). The synthesis on the card against the same synthesis on the
+   CPU from the same draws and noise samples (3 seeds): the GT crops
+   equal, the USM sharpener's hard mask flipping only at ties and its
+   output within 1e-5 outside the flips' footprints, at most 2% of the
+   LQ's elements off (JPEG's rounds and the uint8 grid), at most 0.5% by
+   more than one uint8 step. 1 warm-up and 5 timed S1 steps (feed +
+   optimize: ms, GT MP/s, the synthesis's device and host ms, the queue's
+   ms, peak memory), each step's launches against the dispatch's
+   prediction (K1c 52, K4c 29, K3 81, K2 27); the full queue's shuffle
+   and swap; a profiled step with K1c, K2, K3 and K4c by shape; 1 warm-up
+   and 3 timed GAN iterations from the S1 checkpoint's EMA (G / D step
+   ms), one of them profiled (G / D / VGG19), D alone at batch 8, 9 and
+   16; `train_pipeline` with the S1 recipe (3 iterations, validation on
+   phase 7's pairs) and with the GAN recipe from its checkpoint (2
+   iterations), their launches against the prediction.
 8. probes - the scan-design probes (`vmambair_torch/tools/`) at
    MambaSISR6's full-resolution scan (B=8 tiles of 128x128, L=16384, G=2
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
@@ -178,7 +204,8 @@ with them off and once on, and phase 5 races served forwards with them off
 and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
-(for K1-K6 the launches in the serve, train, pipeline and GAN phases,
+(for K1-K6 the launches in the serve, train, pipeline, GAN and RealSR
+phases,
 for the probe kernels those of the probe paths of phases 8 to 10, which
 must be at least one each; a launch is one call of the kernel's wrapper, which for K1, K1c and
 `ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
@@ -193,6 +220,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -378,6 +406,16 @@ K4_RAGGED_SHAPES = ((2, 77, 8, 2, 16, "channel"), (2, 77, 6, 2, 5, "pair"),
                     (2, 77, 96, 4, 200, "pair"),
                     (1, 300, 24, 2, 200, "channel"),
                     (2, 256, 64, 2, 16, "pair"))
+# the RealSR S1 step (options/mambaSR11_x4.yml: MambaRealSR11, 9 x 64x64
+# LQ / 256x256 GT): K1c's (b, d, L) (decoder_level1 and refinement 24
+# launches, encoder_level1 12, levels 2 and 3 8 each), K2's (b, c, h, w)
+# (12 / 6 / 4 / 4 / 1 by level) and the direct channel scans' widths, each
+# a (9, c, 2) scan with one channel to each of its two groups
+K1C_REALSR_SHAPES = ((9, 96, 4096), (9, 48, 4096), (9, 96, 1024),
+                     (9, 192, 256))
+K2_REALSR_SHAPES = ((9, 96, 64, 64), (9, 48, 64, 64), (9, 96, 32, 32),
+                    (9, 192, 16, 16), (9, 384, 8, 8))
+DIRECT_WIDTHS = (48, 96, 192, 384)
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 # K2's fp32 route past the envelope: its split-TF32 products keep fp32's
 # accuracy, so it is held to the fp32 bar of its CPU model (tests/
@@ -973,6 +1011,80 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 timed=dtype == torch.float32,
                 key=(*a[0].shape, a[3].shape[2], rev))
 
+    # RealSR (MambaRealSR11): the direct channel scans (9, c, 2), K4 (its
+    # gated and validation forwards), K4c and K3 from its carries; K1c,
+    # K3 (both ways) and K2 at the S1 step's batch-9 shapes; fp32, timed
+    f32 = torch.float32
+    rs_scans = [(f"direct channel scan (9,{c},2) G=2", False,
+                 _scan_case(9, c, 2, f32, gen, lifted=False))
+                for c in DIRECT_WIDTHS]
+    rs_scans += [(f"latent (9,64,768) G=2 rev={rev}", rev,
+                  _scan_case(9, 64, 768, f32, gen)) for rev in (False, True)]
+    for lab, rev, a in rs_scans:
+        key = (*a[0].shape, a[3].shape[2], rev)
+        if "direct" in lab:
+            add("selective_scan", lab, f32,
+                lambda a=a: cuda_scan.selective_scan_fwd(
+                    *a, delta_softplus=True),
+                lambda a=a: cuda_scan.selective_scan_ref(
+                    *a, delta_softplus=True),
+                fwd_cmp(f"K4 {lab}", f32), _scan_bound(a, f32), timed=True,
+                key=(*key, f32), plain_timed=True)
+        add("selective_scan_carries", lab, f32,
+            lambda a=a, r=rev: cuda_scan.selective_scan_fwd_carries(
+                *a, delta_softplus=True, reverse=r),
+            lambda a=a, r=rev: cuda_scan.selective_scan_carries_ref(
+                *a, delta_softplus=True, reverse=r),
+            carries_cmp(f"K4c {lab}",
+                        lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
+                            *a, delta_softplus=True, reverse=r)),
+            _scan_bound(a, f32, carries=True), timed=True, key=(*key, f32),
+            plain_timed=True)
+        _, car = cuda_scan.selective_scan_fwd_carries(
+            *a, delta_softplus=True, reverse=rev)
+        dy = torch.randn(a[0].shape, generator=gen).to("cuda")
+        add("selective_scan_bwd", lab, f32,
+            lambda a=a, dy=dy, c=car, r=rev: cuda_scan.selective_scan_bwd(
+                *a, dy, c, delta_softplus=True, reverse=r),
+            lambda a=a, dy=dy, r=rev: cuda_scan.selective_scan_bwd_ref(
+                *a, dy, delta_softplus=True, reverse=r),
+            bwd_cmp(f"K3 {lab}"), _bwd_bound(a, dy), timed=True, key=key,
+            plain_timed=True)
+    for (b, d, L) in K1C_REALSR_SHAPES:
+        for rev in (False, True):
+            a = _fused_case(b, d, L, f32, gen)
+            lab = f"({b},2,{d},{L}) rev={rev}"
+            add("oss_scan_fused_carries", lab, f32,
+                lambda a=a, r=rev: cuda_scan.oss_scan_fused_fwd_carries(
+                    *a, reverse=r),
+                lambda a=a, r=rev: cuda_scan.oss_scan_fused_carries_ref(
+                    *a, reverse=r),
+                carries_cmp(f"K1c {lab}",
+                            lambda a=a, r=rev: cuda_scan
+                            .oss_scan_fused_fwd(*a, reverse=r)),
+                _fused_bound(a, carries=True), timed=True)
+            _, car = cuda_scan.oss_scan_fused_fwd_carries(*a, reverse=rev)
+            s_, _ = cuda_scan.fused_scan_inputs(*a)
+            dy = torch.randn(b, 2 * d, L, generator=gen).to(
+                "cuda").transpose(1, 2)
+            add("selective_scan_bwd", f"fused {lab}", f32,
+                lambda s=s_, dy=dy, c=car, r=rev: cuda_scan
+                .selective_scan_bwd(*s, dy, c, delta_softplus=True,
+                                    reverse=r),
+                lambda s=s_, dy=dy, r=rev: cuda_scan
+                .selective_scan_bwd_ref(*s, dy, delta_softplus=True,
+                                        reverse=r),
+                bwd_cmp(f"K3 fused {lab}"), _bwd_bound(s_, dy), timed=True,
+                key=(b, L, 2 * d, 2, rev))
+    for (b, c, h, w) in K2_REALSR_SHAPES:
+        a = _gdfn_case(b, c, h, f32, gen, w)
+        lab = f"({b},{c},{h},{w})"
+        add("gdfn_residual_fused", lab, f32,
+            lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
+            lambda a=a: cuda_effn.gdfn_residual_ref(*a),
+            k2_cmp(f"K2 {lab} {f32}", f32), _gdfn_bound(a), timed=True,
+            key=(b, c, h, w, f32), plain_timed=True)
+
     # K4 and K4c at the CUDA tests' ragged shapes, both ways, fp32 and bf16
     for dtype in (torch.float32, torch.bfloat16):
         for (b, L, D, G, N, lay) in K4_RAGGED_SHAPES:
@@ -1241,8 +1353,8 @@ def plain_ops():
             setattr(mod, name, fn)
 
 
-def _reduced_net(seed):
-    return build_network(dict(type="MambaSISR6", num_blocks=[1, 1, 1, 1],
+def _reduced_net(seed, arch="MambaSISR6"):
+    return build_network(dict(type=arch, num_blocks=[1, 1, 1, 1],
                               num_refinement_blocks=1), seed=seed)
 
 
@@ -1276,12 +1388,13 @@ def _grads(net, lq, gt):
     return {k: p.grad.detach().clone() for k, p in net.named_parameters()}
 
 
-def model_grads_vs_plain(fused: bool):
-    """Phase 4b; `fused`: with K5 and K6 on (their parameters' gradients
-    then come through the recompute backward of their Functions)."""
-    net = _reduced_net(3)
+def model_grads_vs_plain(fused: bool, arch="MambaSISR6", b=8):
+    """Phase 4b at `arch`'s widths on b 64x64 LQ; `fused`: with K5 and K6
+    on (their parameters' gradients then come through the recompute
+    backward of their Functions)."""
+    net = _reduced_net(3, arch)
     g = torch.Generator().manual_seed(4)
-    gt = torch.rand(8, 3, 256, 256, generator=g)
+    gt = torch.rand(b, 3, 256, 256, generator=g)
     lq = torch.nn.functional.avg_pool2d(gt, 4).cuda()
     gt = gt.cuda()
     with oss_switches(fused):
@@ -1326,7 +1439,7 @@ def model_grads_vs_plain(fused: bool):
         raise SystemExit(f"FAIL model grads: zero gradients at {zero} "
                          f"({len(kernel_params)} kernel tensors)")
     tag = "K5/K6 on" if fused else "K5/K6 off"
-    print(f"[grads] MambaSISR6 widths, depth [1,1,1,1]+1, 8x64x64 LQ, L1, "
+    print(f"[grads] {arch} widths, depth [1,1,1,1]+1, {b}x64x64 LQ, L1, "
           f"fp32, {tag}: {checked} parameter tensors within {GRAD_BAR} of "
           "their "
           f"largest entry (worst {worst[0]:.3e} at {worst[1]}); "
@@ -2331,6 +2444,490 @@ def gan_pipeline(ckpt: str, step: dict, fwd: dict) -> dict:
     return {k: first[k] + resumed[k] for k in KERNELS}
 
 
+# -- phase 7c: RealSR ----------------------------------------------------------
+
+REALSR = os.path.join("build", "chip_smoke_realsr")
+_KLIST = ["iso", "aniso", "generalized_iso", "generalized_aniso",
+          "plateau_iso", "plateau_aniso"]
+_KPROB = [0.45, 0.25, 0.12, 0.03, 0.12, 0.03]
+# the S1 recipe of options/mambaSR11_x4.yml (degradation ranges, the
+# RealESRGANDataset's kernel options, MambaRealSR11, L1, Adam 2e-4, EMA)
+REALSR_RECIPE = {
+    "name": "MambaRealSR11", "model_type": "MambaRealSR", "scale": 4,
+    "manual_seed": 0, "is_train": True, "gt_usm": False, "l1_gt_usm": False,
+    "resize_prob": [0.2, 0.7, 0.1], "resize_range": [0.15, 1.5],
+    "gaussian_noise_prob": 0.5, "noise_range": [1, 30],
+    "poisson_scale_range": [0.05, 3], "gray_noise_prob": 0.4,
+    "jpeg_range": [30, 95], "second_blur_prob": 0.8,
+    "resize_prob2": [0.3, 0.4, 0.3], "resize_range2": [0.3, 1.2],
+    "gaussian_noise_prob2": 0.5, "noise_range2": [1, 25],
+    "poisson_scale_range2": [0.05, 2.5], "gray_noise_prob2": 0.4,
+    "jpeg_range2": [30, 95], "gt_size": 256, "queue_size": 180,
+    "datasets": {"train": {
+        "name": "DF2K+OST", "type": "RealESRGANDataset",
+        "dataroot_gt": os.path.join(REALSR, "gt"), "meta_info": None,
+        "io_backend": {"type": "disk"},
+        "blur_kernel_size": 21, "kernel_list": _KLIST,
+        "kernel_prob": _KPROB, "sinc_prob": 0.1, "blur_sigma": [0.2, 3],
+        "betag_range": [0.5, 4], "betap_range": [1, 2],
+        "blur_kernel_size2": 21, "kernel_list2": _KLIST,
+        "kernel_prob2": _KPROB, "sinc_prob2": 0.1,
+        "blur_sigma2": [0.2, 1.5], "betag_range2": [0.5, 4],
+        "betap_range2": [1, 2], "final_sinc_prob": 0.8, "gt_size": 256,
+        "crop_pad_size": 400, "use_hflip": True, "use_rot": False,
+        "use_shuffle": True, "num_worker_per_gpu": 8,
+        "batch_size_per_gpu": 9, "dataset_enlarge_ratio": 1}},
+    "network_g": {"type": "MambaRealSR11", "inp_channels": 3,
+                  "out_channels": 3, "dim": 48, "num_blocks": [6, 2, 2, 1],
+                  "num_refinement_blocks": 6, "ffn_expansion_factor": 2.66,
+                  "bias": False, "LayerNorm_type": "WithBias"},
+    "path": {"pretrain_network_g": None, "param_key_g": "params_ema",
+             "strict_load_g": True, "resume_state": None},
+    "train": {"ema_decay": 0.999,
+              "optim_g": {"type": "Adam", "lr": 2e-4, "weight_decay": 0,
+                          "betas": [0.9, 0.99]},
+              "scheduler": {"type": "MultiStepLR",
+                            "milestones": [250000, 350000], "gamma": 0.5},
+              "total_iter": 500000, "warmup_iter": -1,
+              "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0,
+                            "reduction": "mean"}},
+    "val": {"window_size": 8},
+}
+
+
+def _realsr_gan_recipe() -> dict:
+    """The GAN recipe of options/mambaSR11GAN_x4.yml: the S1 recipe with
+    the per-loss USM GT, the 64-feature UNetDiscriminatorSN with skips,
+    L1 + VGG19 perceptual (l1) + vanilla GAN (weight 0.1), two Adams
+    1e-4."""
+    opt = json.loads(json.dumps(REALSR_RECIPE))
+    opt.pop("gt_usm")
+    opt.update(name="MambaRealSR11GAN", model_type="MambaRealSRGAN",
+               l1_gt_usm=True, percep_gt_usm=True, gan_gt_usm=False,
+               network_d=dict(GAN_RECIPE["network_d"]))
+    t = opt["train"]
+    t["optim_g"]["lr"] = 1e-4
+    t["optim_d"] = {"type": "Adam", "lr": 1e-4, "weight_decay": 0,
+                    "betas": [0.9, 0.99]}
+    t["scheduler"]["milestones"] = [400000]
+    t["total_iter"] = 400000
+    t["perceptual_opt"] = dict(GAN_RECIPE["train"]["perceptual_opt"])
+    t["gan_opt"] = dict(GAN_RECIPE["train"]["gan_opt"], loss_weight=0.1)
+    t.update(net_d_iters=1, net_d_init_iters=0)
+    return opt
+
+
+def write_realsr_dataset():
+    """12 GT PNGs: 9 of 480x480 (larger than crop_pad_size 400: the
+    crop), 3 smaller on one side or both (352x384, 300x448, 448x320: the
+    reflect-101 pad)."""
+    shutil.rmtree(os.path.join(REALSR, "gt"), ignore_errors=True)
+    rng = np.random.RandomState(3)
+    sizes = [(480, 480)] * 9 + [(352, 384), (300, 448), (448, 320)]
+    for i, (h, w) in enumerate(sizes):
+        imwrite(_synthetic_image(rng, h, w),
+                os.path.join(REALSR, "gt", f"{i:04d}.png"))
+
+
+def _realsr_batches(n, seed=0) -> list:
+    """n host batches of 9 from RealESRGANDataset over the PNGs, as the
+    loader collates them."""
+    from vmambair_torch.data import build_dataset
+    from vmambair_torch.data.loader import default_collate
+
+    ds = build_dataset(dict(REALSR_RECIPE["datasets"]["train"],
+                            phase="train", scale=4))
+    rng = random.Random(seed)
+    return [default_collate([ds.__getitem__((9 * j + i) % len(ds), rng=rng)
+                             for i in range(9)]) for j in range(n)]
+
+
+class Replay:
+    """A synthesis noise sampler that records its samples from a CPU
+    generator on the first run and, after `replay_on(device)`, replays
+    them copied to that device."""
+
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.seen, self.device = {}, None
+
+    def replay_on(self, device):
+        self.device = device
+
+    def _take(self, tag, make):
+        if self.device is None:
+            self.seen[tag] = make()
+        return self.seen[tag].to(self.device or "cpu")
+
+    def normal(self, shape, tag):
+        return self._take(tag, lambda: torch.randn(shape, generator=self.gen))
+
+    def poisson(self, rate, tag):
+        return self._take(tag, lambda: torch.poisson(rate, self.gen))
+
+
+def draws_to(d, device):
+    """The synthesis draws `d` with their per-image tensors on `device`."""
+    for nd in (d.noise1, d.noise2):
+        nd.sigma, nd.scale, nd.gray = (
+            t.to(device) for t in (nd.sigma, nd.scale, nd.gray))
+    d.q1, d.q2 = d.q1.to(device), d.q2.to(device)
+    return d
+
+
+def realsr_synthesis_vs_cpu(batch):
+    """The synthesis on the card against the same synthesis on the CPU
+    (fp32, TF32 off), with the same draws and noise samples, at full size
+    (9 x 400x400 GT, the dataset's kernels), for 3 seeds: the GT crops
+    equal, the USM GT under `usm_vs_cpu`'s rule, the LQ under the CPU
+    tests' rule for
+    JPEG's rounds and the uint8 grid (at most 2% of its elements differ
+    from the CPU's, at most 0.5% by more than one uint8 step)."""
+    from vmambair_torch.train import realesrgan_model as trm
+
+    gt = torch.from_numpy(batch["gt"]).permute(0, 3, 1, 2).contiguous()
+    kern = [torch.from_numpy(batch[k]) for k in trm.KERNEL_KEYS]
+    off = far = n = 0
+    for seed in range(3):
+        d = trm.Synthesis(REALSR_RECIPE, 4, 256, seed, "cpu").draw(9, 400,
+                                                                   400)
+        sampler = Replay(seed)
+        ref = trm.synthesize(gt, *kern, d, sampler, 4, 256)
+        sampler.replay_on("cuda")
+        got = trm.synthesize(gt.cuda(), *(k.cuda() for k in kern),
+                             draws_to(d, "cuda"), sampler, 4, 256)
+        if not torch.equal(got[0].cpu(), ref[0]):
+            raise SystemExit("FAIL realsr synthesis: GT crops differ")
+        flips, usm = usm_vs_cpu(gt, gt.cuda(), d.top * 4, d.left * 4,
+                                got[1], ref[1])
+        diff = (got[2].cpu() - ref[2]).abs()
+        o, f = int((diff > 1e-6).sum()), int((diff > 1.5 / 255).sum())
+        print(f"[realsr] synthesis card vs CPU, seed {seed} (s1 {d.s1:.3f} "
+              f"m{d.m1}, {'gauss' if d.noise1.gaussian else 'poisson'}, "
+              f"blur2 {d.blur2}, s2 {d.s2:.3f} m{d.m2}, "
+              f"{'gauss' if d.noise2.gaussian else 'poisson'}, sinc first "
+              f"{d.sinc_first}): {o} of {diff.numel()} LQ elements differ, "
+              f"{f} by more than one uint8 step; USM mask flips {flips}, "
+              f"USM GT off by {usm:.2e} outside their footprints")
+        off, far, n = off + o, far + f, n + diff.numel()
+    if off > 0.02 * n or far > 0.005 * n:
+        raise SystemExit(f"FAIL realsr synthesis: {off} / {far} of {n}")
+    print(f"[realsr] synthesis card vs CPU: {off / n:.5f} of the LQ "
+          f"elements differ, {far / n:.5f} by more than one uint8 step")
+
+
+def usm_vs_cpu(gt, gt_card, top, left, usm_card, usm_cpu):
+    """The USM sharpener's hard mask (|residual| * 255 > 10) on the card
+    against the CPU's: a mask element may flip only at a tie (|residual| *
+    255 within 1e-3 of 10), and the sharpened GT crops (at (top, left))
+    must agree within 1e-5 outside the 51x51 blur footprints of the
+    flips. Returns (flips, the largest difference outside them)."""
+    from vmambair_torch.ops import degradation as td
+
+    def residual(x):
+        return (x - td._gauss_blur(x, td.usm_kernel(50, x.device))).abs() \
+            * 255.0
+    r_cpu, r_card = residual(gt), residual(gt_card).cpu()
+    flip = (r_cpu > 10.0) != (r_card > 10.0)
+    if ((r_cpu[flip] - 10.0).abs() > 1e-3).any():
+        raise SystemExit("FAIL realsr synthesis: the USM mask flips away "
+                         "from its threshold")
+    foot = F.max_pool2d(flip.float(), 51, 1, 25) > 0
+    h, w = usm_cpu.shape[2:]
+    foot = foot[:, :, top:top + h, left:left + w]
+    off = (usm_card.cpu() - usm_cpu).abs()[~foot]
+    worst = off.max().item() if off.numel() else 0.0
+    if worst > 1e-5:
+        raise SystemExit(f"FAIL realsr synthesis: USM GT off by {worst:.2e} "
+                         "outside the footprints of its mask's flips")
+    return int(flip.sum()), worst
+
+
+@contextlib.contextmanager
+def synth_timers(model, log: dict):
+    """CUDA events and the host clock around the model's synthesis and its
+    queue: appended to log["synth"] and log["queue"] as (start, end,
+    host ms)."""
+    real = {"synth": model.synthesis,
+            "queue": model._dequeue_and_enqueue}
+
+    def timed(name):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = real[name](*a, **kw)
+            e1.record()
+            log.setdefault(name, []).append(
+                (e0, e1, 1e3 * (time.perf_counter() - t0)))
+            return out
+        return run
+
+    model.synthesis = timed("synth")
+    model._dequeue_and_enqueue = timed("queue")
+    try:
+        yield
+    finally:
+        model.synthesis = real["synth"]
+        del model._dequeue_and_enqueue
+
+
+def _med(log, name, idx):
+    rows = log[name][1:]  # after the warm-up
+    return statistics.median(r[0].elapsed_time(r[1]) if idx == 0 else r[2]
+                             for r in rows)
+
+
+def k1c_shapes(tally):
+    """K1c's calls by (b, d, L) of one direction pair."""
+    return counted_shapes(cuda_scan, "oss_scan_fused_fwd_carries",
+                          lambda u2, *a, **kw: tuple(
+                              u2.shape[i] for i in (0, 2, 3)), tally)
+
+
+def realsr(shape_ms) -> dict:
+    """Phase 7c: the RealSR stages of MambaRealSR11 at full size. Returns
+    the launches of its main path (the timed steps and iterations and the
+    two pipelines)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(REALSR, ignore_errors=True)
+    write_realsr_dataset()
+    batches = _realsr_batches(7)
+    print(f"[realsr] dataset written and 7 batches of 9 loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    realsr_synthesis_vs_cpu(batches[0])
+    total = dict.fromkeys(KERNELS, 0)
+
+    # the S1 step: feed (copies, synthesis, queue) and optimize
+    opt = json.loads(json.dumps(REALSR_RECIPE))
+    opt["path"].update(models=os.path.join(REALSR, "models"),
+                       training_states=os.path.join(REALSR, "state"))
+    model = build_model(opt)
+    step = expected_launches(model.net_g, train=True)
+    fwd = expected_launches(model.net_g, train=False)
+    print(f"[realsr] predicted launches per S1 step: {_nonzero(step)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log, times, losses = {}, [], []
+    with synth_timers(model, log):
+        for it in range(1, 7):  # step 1 warms up, steps 2-6 are timed
+            reset_launches()
+            t1 = time.perf_counter()
+            model.feed_data(batches[it])
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            counts = launches()
+            total = {k: total[k] + counts[k] for k in KERNELS}
+            losses.append(model.get_current_log()["l_pix"])
+            if counts != step or not np.isfinite(losses[-1]):
+                raise SystemExit(f"FAIL realsr: step {it} launches "
+                                 f"{counts} (predicted {step}), l_pix "
+                                 f"{losses[-1]}")
+            print(f"[realsr] step {it}: {1e3 * times[-1]:.1f} ms, l_pix "
+                  f"{losses[-1]:.6f}")
+    if tuple(model.lq.shape) != (9, 3, 64, 64) or tuple(
+            model.gt_usm.shape) != (9, 3, 256, 256):
+        raise SystemExit(f"FAIL realsr: lq {model.lq.shape}")
+    step_ms = 1e3 * statistics.median(times[1:])
+    print(f"[realsr] S1 step ms (feed + optimize, median of steps 2-6): "
+          f"{step_ms:.1f}; GT MP/s {9 * 256 * 256 / step_ms / 1e3:.3f}; "
+          f"synthesis device {_med(log, 'synth', 0):.2f} ms, host "
+          f"{_med(log, 'synth', 2):.2f} ms; queue (filling) device "
+          f"{_med(log, 'queue', 0):.3f} ms; first step "
+          f"{1e3 * times[0]:.1f} ms; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+          f"{nvidia_smi_line()}")
+    # the queue full: its shuffle and swap
+    lq, pair = model.lq, torch.cat([model.gt, model.gt_usm], 1)
+    while model._queue_ptr < model._queue_len:
+        model._dequeue_and_enqueue(lq, pair)
+    qlog = {}
+    with synth_timers(model, qlog):
+        for _ in range(4):
+            model._dequeue_and_enqueue(lq, pair)
+    torch.cuda.synchronize()
+    print(f"[realsr] queue of {model._queue_len} full, shuffle and swap: "
+          f"device {_med(qlog, 'queue', 0):.3f} ms, host "
+          f"{_med(qlog, 'queue', 2):.3f} ms")
+    # one step profiled, its launches by shape
+    tallies = {"K1c": {}, "K2": {}, "K3": {}, "K4c": {}}
+    reset_launches()
+    with k1c_shapes(tallies["K1c"]), k2_shapes(tallies["K2"]), k3_shapes(
+            tallies["K3"]), k4_shapes("selective_scan_fwd_carries",
+                                      tallies["K4c"]):
+        by_class = profile("realsr", lambda: (
+            model.feed_data(batches[0]), model.optimize_parameters(7)))
+    counts = launches()
+    if counts != step:
+        raise SystemExit(f"FAIL realsr: profiled launches {counts}")
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    print(f"[realsr] K1c per step by (b, d, L): {tallies['K1c']}")
+    shape_account("realsr", "K2", "step", tallies["K2"], shape_ms["K2"],
+                  by_class.get("K2 GDFN", 0.0))
+    shape_account("realsr", "K4c", "step", tallies["K4c"], shape_ms["K4c"],
+                  by_class.get("K4/K4c scan", 0.0))
+    shape_account("realsr", "K3", "step", tallies["K3"], shape_ms["K3"],
+                  by_class.get("K3 scan backward", 0.0))
+    ckpt = os.path.join(REALSR, "s1", "net_g_s1.pth")
+    save_network(ckpt, model.net_g.state_dict(),
+                 model.net_g_ema.state_dict())
+    del model, lq, pair
+    torch.cuda.empty_cache()
+
+    # the GAN stage from the S1 checkpoint's EMA: G / D step ms
+    gopt = _realsr_gan_recipe()
+    gopt["path"].update(models=os.path.join(REALSR, "gan_models"),
+                        training_states=os.path.join(REALSR, "gan_state"),
+                        pretrain_network_g=ckpt)
+    model = build_model(gopt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, times = [], []
+    with step_events(model, events):
+        for it in range(1, 5):  # iteration 1 warms up
+            reset_launches()
+            t1 = time.perf_counter()
+            model.feed_data(batches[it])
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            counts = launches()
+            total = {k: total[k] + counts[k] for k in KERNELS}
+            glog = model.get_current_log()
+            if counts != step or set(glog) != GAN_D_KEYS | GAN_G_KEYS or \
+                    not all(np.isfinite(v) for v in glog.values()):
+                raise SystemExit(f"FAIL realsr gan: iteration {it} launches "
+                                 f"{counts}, log {glog}")
+            print(f"[realsr] GAN iteration {it}: {1e3 * times[-1]:.1f} ms; "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in glog.items()))
+    split = {"_g_step": [], "_d_step": []}
+    for name, e0, e1 in events[2:]:
+        split[name].append(e0.elapsed_time(e1))
+    iter_ms = 1e3 * statistics.median(times[1:])
+    print(f"[realsr] GAN iteration ms (feed + optimize, median of 2-4): "
+          f"{iter_ms:.1f}; GT MP/s {9 * 256 * 256 / iter_ms / 1e3:.3f}; G "
+          f"step {statistics.median(split['_g_step']):.1f} ms, D step "
+          f"{statistics.median(split['_d_step']):.1f} ms (CUDA events); "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+          f"{nvidia_smi_line()}")
+    # one GAN iteration profiled: classes, idle share, G / D / VGG split
+    reset_launches()
+    with module_ranges({"G": model.net_g, "D": model.net_d,
+                        "VGG": model.cri_perceptual}):
+        profile("realsr_gan", lambda: (model.feed_data(batches[5]),
+                                       model.optimize_parameters(5)),
+                extra=_by_module_lines)
+    counts = launches()
+    if counts != step:
+        raise SystemExit(f"FAIL realsr gan: profiled launches {counts}")
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    d_by_batch(model.net_d)
+    del model
+    torch.cuda.empty_cache()
+
+    counts = realsr_pipelines(step, fwd)
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    shutil.rmtree(REALSR)
+    print(f"[realsr] phase 7c {time.perf_counter() - t0:.1f} s; launches "
+          f"{_nonzero(total)}")
+    return total
+
+
+def d_by_batch(net_d):
+    """D's forward and backward (its u stored) alone on b x 256x256, b =
+    8, 9, 16: CUDA-event medians, and at 9 the device kernels that take
+    the most time under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    def run(x):
+        net_d.zero_grad(set_to_none=True)
+        net_d(x, update_stats=True).mean().backward()
+
+    xs = {b: torch.rand(b, 3, 256, 256, device="cuda") for b in (8, 9, 16)}
+    ms = {b: time_ms(lambda x=x: run(x), reps=3) for b, x in xs.items()}
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(xs[9])
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -e.self_device_time_total)[:3]
+    print("[realsr] D forward + backward alone (ms): " + ", ".join(
+        f"batch {b} {v:.1f}" for b, v in ms.items()) + "; at batch 9 "
+        "the longest device kernels: " + "; ".join(
+            f"{e.key[:70]} {e.self_device_time_total / 1e3:.1f} ms in "
+            f"{e.count} launches" for e in top))
+    net_d.zero_grad(set_to_none=True)
+
+
+def realsr_pipelines(step, fwd) -> dict:
+    """`train_pipeline` with the S1 recipe (3 iterations, validation on
+    phase 7's pairs before, at 3 and at the end, a checkpoint at 3), then
+    with the GAN recipe from that checkpoint's EMA (2 iterations, a
+    checkpoint at 2)."""
+    if not os.path.isdir(DATA):
+        write_dataset()
+    exp = {k: os.path.join(REALSR, k, "exp") for k in ("s1", "gan")}
+    opt = json.loads(json.dumps(REALSR_RECIPE))
+    opt["datasets"]["val_1"] = _val_dataset()
+    opt["train"]["total_iter"] = 3
+    opt.update(num_gpu=1, auto_resume=False,
+               logger={"print_freq": 1, "save_checkpoint_freq": 3,
+                       "use_tb_logger": False})
+    opt["path"]["experiments_root"] = exp["s1"]
+    opt["val"] = {"window_size": 8, "val_freq": 3, "save_img": False,
+                  "metrics": {"psnr": {"type": "calculate_psnr",
+                                       "crop_border": 4,
+                                       "test_y_channel": True}}}
+    reset_launches()
+    model = train_pipeline(".", finalize_options(opt, ".", is_train=True),
+                           device="cuda")
+    s1 = launches()
+    s1_ms = 1e3 * model.timers["iter"].get_avg_time()
+    s1_data = 1e3 * model.timers["data"].get_avg_time()
+    del model
+    log = _last_log_in(exp["s1"])
+    want = {k: 3 * step[k] + 3 * 2 * fwd[k] for k in KERNELS}
+    psnrs = _numbers(log, "# psnr:")
+    ckpt = os.path.join(exp["s1"], "models", "net_g_3.pth")
+    if s1 != want or len(psnrs) != 3 or "Model [RealESRNetModel]" not in log \
+            or not os.path.isfile(ckpt):
+        raise SystemExit(f"FAIL realsr pipeline: launches {s1} (predicted "
+                         f"{want}), PSNR {psnrs}")
+    gopt = _realsr_gan_recipe()
+    gopt["train"]["total_iter"] = 2
+    gopt.update(num_gpu=1, auto_resume=False,
+                logger={"print_freq": 1, "save_checkpoint_freq": 2,
+                        "use_tb_logger": False})
+    gopt["path"].update(experiments_root=exp["gan"], pretrain_network_g=ckpt)
+    reset_launches()
+    model = train_pipeline(".", finalize_options(gopt, ".", is_train=True),
+                           device="cuda")
+    gan = launches()
+    gan_ms = 1e3 * model.timers["iter"].get_avg_time()
+    del model
+    log = _last_log_in(exp["gan"])
+    want = {k: 2 * step[k] for k in KERNELS}
+    if gan != want or "Model [RealESRGANModel]" not in log or \
+            "l_g_percep:" not in log or not os.path.isfile(
+                os.path.join(exp["gan"], "models", "net_d_2.pth")):
+        raise SystemExit(f"FAIL realsr GAN pipeline: launches {gan} "
+                         f"(predicted {want})")
+    print(f"[realsr] train_pipeline, S1 recipe: 3 iterations, validation "
+          f"PSNR-Y {[round(v, 4) for v in psnrs]} dB, ms per iteration "
+          f"{s1_ms:.1f}, data ms {s1_data:.1f}; GAN recipe from its "
+          f"net_g_3: 2 iterations, ms per iteration {gan_ms:.1f}")
+    return {k: s1[k] + gan[k] for k in KERNELS}
+
+
+def _last_log_in(log_dir: str) -> str:
+    names = sorted(f for f in os.listdir(log_dir)
+                   if f.startswith("train_") and f.endswith(".log"))
+    with open(os.path.join(log_dir, names[-1])) as f:
+        return f.read()
+
+
 # -- phase 8: the scan-design probes -------------------------------------------
 
 PROBE_SHAPE = kvariants.Shape(**kvariants.SHAPE)
@@ -2957,11 +3554,14 @@ def main():
     for fused in (False, True):
         model_vs_plain(fused)
         model_grads_vs_plain(fused)
+    model_grads_vs_plain(False, "MambaRealSR11", 9)
     serve_counts = serve(shape_ms)
     train_counts = train(shape_ms)
     pipe_counts = pipeline()
     torch.cuda.empty_cache()
     gan_counts = gan()
+    torch.cuda.empty_cache()
+    realsr_counts = realsr(shape_ms)
     t8 = time.perf_counter()
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
@@ -2990,14 +3590,15 @@ def main():
             # launched on its own path: serve, train, the pipeline and
             # the GAN stage
             n = (serve_counts[name] + train_counts[name] + pipe_counts[name]
-                 + gan_counts[name])
+                 + gan_counts[name] + realsr_counts[name])
             if n == 0 or pipe_counts[name] == 0:
                 raise SystemExit(f"FAIL: {name} never launched on a main "
                                  "path")
             counts = dict(launches=n, launches_serve=serve_counts[name],
                           launches_train=train_counts[name],
                           launches_pipeline=pipe_counts[name],
-                          launches_gan=gan_counts[name])
+                          launches_gan=gan_counts[name],
+                          launches_realsr=realsr_counts[name])
         else:
             # launched on its own path: the probes
             if probe_counts[name] == 0:

@@ -1407,3 +1407,142 @@ def test_gan_g_step_raises_where_a_kernel_cannot_take_a_gradient(
                         cuda_effn.gdfn_residual_fwd)
     with pytest.raises(RuntimeError, match="has no backward"):
         m.optimize_parameters(1)
+
+
+def test_oss_front_f32_takes_weights_that_need_a_copy(cuda):
+    """F5: K5's fp32 route with every weight a view that the wrapper must
+    copy (in_conv's weight a transposed view, the biases and the
+    depthwise weight strided) against its plain version. A copy freed
+    before the launch lets the next copy take its memory: both biases
+    fit one 512-byte block."""
+    x, lnw, lnb, w_in, b_in, w_dw, b_dw = _front_args(
+        cuda, 48, 48, 13, 19, torch.float32, 5)
+    views = (w_in.t().contiguous().t(),
+             torch.stack([b_in, -b_in], 1)[:, 0],
+             torch.stack([w_dw, -w_dw], -1)[..., 0],
+             torch.stack([b_dw, -b_dw], 1)[:, 0])
+    assert not any(v.is_contiguous() for v in views)
+    for _ in range(3):
+        xs, z = cuda_effn.oss_front_fwd(x, lnw, lnb, *views)
+        rxs, rz = cuda_effn.oss_front_ref(x, lnw, lnb, w_in, b_in, w_dw,
+                                          b_dw)
+        _close(xs, rxs, torch.float32)
+        _close(z, rz, torch.float32)
+
+
+@pytest.mark.parametrize("c", [48, 96, 192, 384])
+def test_direct_channel_scan_kernels_match_plain(cuda, c):
+    """MambaRealSR11's direct channel scan: (9, c, 2), one channel to each
+    of the two groups, on the model's channel-scan views. K4 and K4c
+    within the fp32 envelope of the plain scan (K4c's y equal to K4's,
+    its carries within the envelope); K3 from those carries within 5x
+    the envelope."""
+    args = _k4_args(cuda, 9, c, 2, 2, 16, torch.float32, c, "channel")
+    kw = dict(delta_softplus=True)
+    y = cuda_scan.selective_scan_fwd(*args, **kw)
+    _close(y, cuda_scan.selective_scan_ref(*args, **kw), torch.float32)
+    yc, car = cuda_scan.selective_scan_fwd_carries(*args, **kw)
+    assert torch.equal(y, yc)
+    _close(car, cuda_scan.selective_scan_carries_ref(*args, **kw)[1],
+           torch.float32)
+    dy = torch.randn(9, c, 2, device=cuda)
+    got = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+    for a, b in zip(got, cuda_scan.selective_scan_bwd_ref(*args, dy, **kw)):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_realsr_synthesis_on_the_card_matches_the_cpu(cuda):
+    """The two-order synthesis on the card against the same synthesis on
+    the CPU, with the same draws and noise samples, for 8 seeds: the GT
+    crops equal, the USM GT under `chip_smoke.usm_vs_cpu`'s rule (its hard
+    mask may flip only at a tie, the output within 1e-5 outside the
+    flips' blur footprints), and the LQ (past JPEG's rounds and
+    the uint8 grid) under the rule of the CPU tests: at most 2% of its
+    elements differ, at most 0.5% by more than one uint8 step."""
+    import chip_smoke
+    from realsr_cases import SYNTH, kernels
+    from vmambair_torch.train import realesrgan_model as trm
+
+    g = torch.Generator().manual_seed(0)
+    gt = torch.rand(2, 3, 64, 64, generator=g)
+    kern = [torch.from_numpy(k) for k in kernels(2, 1)]
+    off = far = n = 0
+    for seed in range(8):
+        d = trm.Synthesis(SYNTH, 4, 32, seed, "cpu").draw(2, 64, 64)
+        sampler = chip_smoke.Replay(seed)
+        ref = trm.synthesize(gt, *kern, d, sampler, 4, 32)
+        sampler.replay_on(cuda)
+        got = trm.synthesize(gt.to(cuda), *(k.to(cuda) for k in kern),
+                             chip_smoke.draws_to(d, cuda), sampler, 4, 32)
+        assert torch.equal(got[0].cpu(), ref[0])
+        chip_smoke.usm_vs_cpu(gt, gt.to(cuda), 4 * d.top, 4 * d.left,
+                              got[1], ref[1])
+        diff = (got[2].cpu() - ref[2]).abs()
+        off += int((diff > 1e-6).sum())
+        far += int((diff > 1.5 / 255).sum())
+        n += diff.numel()
+    print(f"synthesis, card against CPU: {off / n:.4f} of the LQ elements "
+          f"differ, {far / n:.4f} by more than one uint8 step")
+    assert off <= 0.02 * n and far <= 0.005 * n
+
+
+def _realsr_model(cuda, model_type="MambaRealSR"):
+    from realsr_cases import SYNTH
+    from vmambair_torch.train import build_model
+
+    opt = dict(SYNTH, name="t_realsr", model_type=model_type,
+               is_train=True, scale=4, manual_seed=0, gt_size=32,
+               queue_size=4, path={}, val={"window_size": 8},
+               network_g=dict(type="MambaRealSR11", dim=40,
+                              num_blocks=[1, 1, 1, 1],
+                              num_refinement_blocks=1),
+               train={"ema_decay": 0.999,
+                      "optim_g": {"type": "Adam", "lr": 1e-4},
+                      "pixel_opt": {"type": "L1Loss"}})
+    return build_model(opt, device=cuda)
+
+
+def _realsr_batch(seed):
+    import numpy as np
+
+    from realsr_cases import kernels
+    k1, k2, sinc = kernels(2, seed)
+    return {"gt": np.random.RandomState(seed).rand(2, 64, 64, 3).astype(
+        np.float32), "kernel1": k1, "kernel2": k2, "sinc_kernel": sinc}
+
+
+def test_realsr_feed_data_makes_no_host_sync(cuda):
+    """feed_data on the card (the copies, the synthesis, the queue's fill
+    and its shuffle) under `set_sync_debug_mode("error")`: any operation
+    that waits for the card raises."""
+    m = _realsr_model(cuda)
+    batches = [_realsr_batch(s) for s in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches:  # two fills of a queue of 4, then two swaps
+            m.feed_data(b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert m._queue_ptr == 4
+    assert m.lq.shape == (2, 3, 8, 8) and m.gt_usm.shape == (2, 3, 32, 32)
+    assert torch.isfinite(m.lq).all()
+
+
+def test_realsr_step_launches_the_training_kernels(cuda):
+    """A RealSR S1 step of MambaRealSR11 (direct channel scans) launches
+    what the dispatch predicts for a training step, with a finite
+    loss."""
+    import numpy as np
+
+    import chip_smoke
+
+    m = _realsr_model(cuda)
+    m.feed_data(_realsr_batch(0))
+    chip_smoke.reset_launches()
+    m.optimize_parameters(1)
+    torch.cuda.synchronize()
+    assert chip_smoke.launches() == chip_smoke.expected_launches(
+        m.net_g, train=True)
+    assert all(np.isfinite(v) for v in m.get_current_log().values())

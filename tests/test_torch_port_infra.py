@@ -47,7 +47,10 @@ def test_imports_with_jax_and_cv2_blocked():
             "vmambair_torch.tools.kpeak", "vmambair_torch.tools.keffn",
             "vmambair_torch.tools.kprobe", "vmambair_torch.tools.kldio",
             "vmambair_torch.tools.kdualnum",
-            "vmambair_torch.tools.ab"} <= set(mods)
+            "vmambair_torch.tools.ab", "vmambair_torch.ops.degradation",
+            "vmambair_torch.data.degradations",
+            "vmambair_torch.data.realesrgan_dataset",
+            "vmambair_torch.train.realesrgan_model"} <= set(mods)
     code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
         "import chip_smoke, inference_torch, train_torch, test_torch\n"
         "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"

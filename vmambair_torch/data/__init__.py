@@ -1,8 +1,9 @@
 """Data layer of the port: registry-built datasets and the loader factory.
 
 Counterpart of `vmambair_tpu/data/__init__.py` for the paired datasets of
-S1 training (`PairedImageDataset`, `SingleImageDataset`); the Real-ESRGAN,
-task and video datasets follow their slices.
+S1 training (`PairedImageDataset`, `SingleImageDataset`) and the RealSR
+datasets (`RealESRGANDataset`, `RealESRGANPairedDataset`); the task and
+video datasets follow their slices.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from ..utils.registry import DATASET_REGISTRY, build_from_cfg
 from .loader import (DataLoader, DevicePrefetcher, EnlargedSampler,
                      InfinitePrefetcher)
 from .paired_dataset import PairedImageDataset, SingleImageDataset
+from .realesrgan_dataset import RealESRGANDataset, RealESRGANPairedDataset
 
 logger = logging.getLogger("vmambair_torch")
 
@@ -53,4 +55,5 @@ def build_dataloader(dataset, dataset_opt: dict, num_replicas: int = 1,
 
 __all__ = ["build_dataset", "build_dataloader", "DataLoader",
            "EnlargedSampler", "InfinitePrefetcher", "DevicePrefetcher",
-           "PairedImageDataset", "SingleImageDataset", "DATASET_REGISTRY"]
+           "PairedImageDataset", "SingleImageDataset", "RealESRGANDataset",
+           "RealESRGANPairedDataset", "DATASET_REGISTRY"]

@@ -2,7 +2,8 @@
 
 The port's copy of the disk-backed part of `vmambair_tpu/data/data_util.py`
 (the lmdb helpers wait for the lmdb backend): it builds the
-[{lq_path, gt_path}] list a paired dataset iterates.
+[{lq_path, gt_path}] list a paired dataset iterates, and the GT-only list
+of the Real-ESRGAN dataset.
 """
 
 from __future__ import annotations
@@ -63,3 +64,18 @@ def paired_paths_from_meta_info_file(folders, keys, meta_info_file,
 
 def paths_from_folder(folder) -> List[str]:
     return [osp.join(folder, p) for p in sorted(scandir(folder))]
+
+
+def paths_from_folder_or_meta(folder, meta_info=None,
+                              io_type: str = "disk") -> List[str]:
+    """GT-only path list: meta-info lines (their first field) joined to the
+    folder, or a folder scan. lmdb keys wait for the lmdb backend."""
+    if io_type == "lmdb" or str(folder).endswith(".lmdb"):
+        raise NotImplementedError(
+            "lmdb datasets are not ported to vmambair_torch yet; use "
+            "io_backend type 'disk'")
+    if meta_info:
+        with open(meta_info) as f:
+            return [osp.join(folder, line.split(" ")[0].strip())
+                    for line in f if line.strip()]
+    return paths_from_folder(folder)

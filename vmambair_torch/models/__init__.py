@@ -1,9 +1,9 @@
-"""Model architectures and the MambaSISR6 preset.
+"""Model architectures and their presets.
 
 Counterpart of `vmambair_tpu/models/__init__.py`. The reference names its
-arch in YAML `network_g.type`; the same names work here. This slice ports
-`OSSNet`, the `MambaSISR6` preset (x4 SISR) and the GAN stage's
-`UNetDiscriminatorSN`; the other presets follow.
+arch in YAML `network_g.type`; the same names work here: `OSSNet`, the
+`MambaSISR6` (x4 SISR) and `MambaRealSR11` (real-world x4 SR) presets and
+the GAN stage's `UNetDiscriminatorSN`; the deraining presets follow.
 """
 
 from __future__ import annotations
@@ -31,6 +31,24 @@ def mamba_sisr6(**kw):
         num_blocks=(15, 1, 1, 1),
         num_refinement_blocks=15,
         channel_version="conv4",
+        channel_attn="mul",
+        tail="pixelshuffle",
+    )
+    cfg.update(kw)
+    return OSSNet(**_normalize(cfg))
+
+
+@ARCH_REGISTRY.register(name="MambaRealSR11")
+def mamba_realsr11(**kw):
+    """Real-world x4 SR generator at its shipped size
+    (`options/mambaSR11_x4.yml`): dim 48, blocks [6, 2, 2, 1], 6
+    refinement blocks, direct channel scan (one feature per channel)."""
+    cfg = dict(
+        scale=4,
+        dim=48,
+        num_blocks=(6, 2, 2, 1),
+        num_refinement_blocks=6,
+        channel_version="direct",
         channel_attn="mul",
         tail="pixelshuffle",
     )

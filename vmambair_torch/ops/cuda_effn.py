@@ -398,12 +398,15 @@ def oss_front_fwd(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
             z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), win_p.data_ptr(),
             aux_p.data_ptr(), b, c, e, h, w, cls, float(eps))
     else:
-        win_t = f32(w_in.t())
+        # each operand held by name until the launch: a copy that f32
+        # makes would otherwise be freed before the kernel reads it
+        win_t, bin_, wdw, bdw = (f32(w_in.t()), f32(b_in),
+                                 f32(w_dw.reshape(e, 9)), f32(b_dw))
         _build.launch(
             "vmt_oss_front_f32_fwd", x.device, x.data_ptr(), xs.data_ptr(),
             z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), win_t.data_ptr(),
-            f32(b_in).data_ptr(), f32(w_dw.reshape(e, 9)).data_ptr(),
-            f32(b_dw).data_ptr(), b, c, e, h, w, float(eps))
+            bin_.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), b, c, e, h, w,
+            float(eps))
     oss_front_fwd.launches += 1
     return xs, z
 

@@ -3,8 +3,8 @@
 Counterpart of `vmambair_tpu/train/__init__.py` for the S1 (pixel and
 perceptual loss) and S2 (GAN) stages; `train/pipeline.py` holds
 `train_pipeline` and `test_pipeline` (the entry points `train_torch.py`
-and `test_torch.py`). The RealSR stage (`RealESRGANModel`) is not ported
-yet.
+and `test_torch.py`); `train/realesrgan_model.py` the RealSR stages (the
+on-device degradation synthesis, `RealESRNetModel`, `RealESRGANModel`).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from . import checkpoint
 from .base_model import BaseModel, build_optimizer, ema_update, set_lr
 from .schedulers import SCHEDULERS, build_scheduler
 from .gan_model import SRGANModel
+from .realesrgan_model import RealESRGANModel, RealESRNetModel
 from .sr_model import ImageRestorationModel, SRModel
 
 logger = logging.getLogger("vmambair_torch")
@@ -31,7 +32,7 @@ def build_model(opt: dict, device="cuda"):
 
 __all__ = [
     "build_model", "BaseModel", "SRModel", "ImageRestorationModel",
-    "SRGANModel",
+    "SRGANModel", "RealESRNetModel", "RealESRGANModel",
     "build_optimizer", "build_scheduler", "ema_update", "set_lr",
     "SCHEDULERS", "checkpoint", "MODEL_REGISTRY",
 ]

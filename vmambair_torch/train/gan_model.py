@@ -83,14 +83,28 @@ class SRGANModel(SRModel):
         log["lr"] = float(lr)
         self.log_dict = log
 
+    # whether the G step's pass through D stores its spectral norms' u
+    g_step_updates_u = True
+
+    def _g_targets(self):
+        """(pixel target, perceptual target) of the G step."""
+        return self.gt, self.gt
+
+    def _d_real(self):
+        """D's real images."""
+        return self.gt
+
     def _g_step(self, lr):
         set_lr(self.optimizer, lr)
         self.optimizer.zero_grad(set_to_none=True)
         output = self.net_g(self.lq)
-        total, losses = self._loss_terms(output, self.gt, prefix="l_g_")
+        pix_gt, percep_gt = self._g_targets()
+        total, losses = self._loss_terms(output, pix_gt, prefix="l_g_",
+                                         percep_gt=percep_gt)
         self.net_d.requires_grad_(False)
         try:
-            fake_pred = self.net_d(output, update_stats=True)
+            fake_pred = self.net_d(output,
+                                   update_stats=self.g_step_updates_u)
         finally:
             self.net_d.requires_grad_(True)
         losses["l_g_gan"] = self.cri_gan(fake_pred, True, is_disc=False)
@@ -104,7 +118,7 @@ class SRGANModel(SRModel):
     def _d_step(self, fake, lr_d):
         set_lr(self.optimizer_d, lr_d)
         self.optimizer_d.zero_grad(set_to_none=True)
-        real_pred = self.net_d(self.gt, update_stats=True)
+        real_pred = self.net_d(self._d_real(), update_stats=True)
         l_d_real = self.cri_gan(real_pred, True, is_disc=True)
         fake_pred = self.net_d(fake, update_stats=True)
         l_d_fake = self.cri_gan(fake_pred, False, is_disc=True)

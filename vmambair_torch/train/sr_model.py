@@ -44,14 +44,20 @@ def mixup_batch(rng: np.random.RandomState, lq, gt, alpha=1.2):
     return lam * lq + (1 - lam) * lq[perm], lam * gt + (1 - lam) * gt[perm]
 
 
-def to_device_nchw(v, device) -> torch.Tensor:
-    """An NHWC float32 array -> an NCHW float32 tensor on `device`; to a
-    CUDA device from pinned memory without blocking the host (the copy
-    runs on the current stream)."""
-    t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+def to_device(v, device, dtype=np.float32) -> torch.Tensor:
+    """An array -> a tensor of `dtype` on `device`; to a CUDA device from
+    pinned memory without blocking the host (the copy runs on the current
+    stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(v, dtype))
     if device.type == "cuda":
         t = t.pin_memory()
-    return t.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+    return t.to(device, non_blocking=True)
+
+
+def to_device_nchw(v, device) -> torch.Tensor:
+    """An NHWC float32 array -> an NCHW float32 tensor on `device`, as
+    `to_device` copies it."""
+    return to_device(v, device).permute(0, 3, 1, 2).contiguous()
 
 
 def _is_on(t: torch.Tensor, device: torch.device) -> bool:
@@ -112,14 +118,16 @@ class SRModel(BaseModel):
         self.cri_perceptual = (build_loss(dict(percep_opt)).to(self.device)
                                if percep_opt else None)
 
-    def _loss_terms(self, output, gt, prefix="l_"):
+    def _loss_terms(self, output, gt, prefix="l_", percep_gt=None):
         """(total, {name: loss}) of the pixel and perceptual terms, named
-        `{prefix}pix`, `{prefix}percep` and `{prefix}style` as in JAX."""
+        `{prefix}pix`, `{prefix}percep` and `{prefix}style` as in JAX; the
+        perceptual terms against `percep_gt` where given, else `gt`."""
         losses = OrderedDict()
         if self.cri_pix is not None:
             losses[prefix + "pix"] = self.cri_pix(output, gt)
         if self.cri_perceptual is not None:
-            l_percep, l_style = self.cri_perceptual(output, gt)
+            l_percep, l_style = self.cri_perceptual(
+                output, gt if percep_gt is None else percep_gt)
             if l_percep is not None:
                 losses[prefix + "percep"] = l_percep
             if l_style is not None:
