@@ -53,7 +53,16 @@ non-zero, and without a CUDA device the script stops before any result:
    K4c and K3 at the direct channel scans (9, c, 2), c = 48, 96, 192,
    384 (one channel to each of two groups), K4c and K3 at the latent
    (9,64,768) both ways, and K1c, K3 and K2 (fp32) at every batch-9 shape
-   of its S1 step, each timed beside its bound;
+   of its S1 step, each timed beside its bound. For deraining (Mamber33,
+   fp32): K1c and K3 at the stage-1 step's fused shapes (8 x 128x128),
+   K4c and K3 at its latent (8,256,768) and at the conv2 channel scans
+   (8,c,4), K2 at its five shapes; stage 6 (1 x 384x384): K1c at
+   (1,2,48,147456) and (1,2,96,147456), K4c and K3 at the latent
+   (1,2304,768) over several segments, the channel scans (1,c,4) (K4
+   too), K2 at (1,48,384,384); a whole-image evaluation: K1 at
+   (1,2,96,262144) and K4 at (1,4096,768) (a 512x512 image), K2 at a
+   481x321 image's padded (1,48,328,488) and (1,384,41,61); each timed
+   beside its plain version and its bound;
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
 4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
@@ -146,6 +155,34 @@ non-zero, and without a CUDA device the script stops before any result:
    16; `train_pipeline` with the S1 recipe (3 iterations, validation on
    phase 7's pairs) and with the GAN recipe from its checkpoint (2
    iterations), their launches against the prediction.
+7d. derain - the deraining harness of Mamber33 at full size (dim 48,
+   blocks [3,5,7,9] + 2, conv2 channel scans, the recipe of
+   `options/Deraining_mamber33.yml`: AdamW 3e-4 with a global-norm clip
+   of 0.01, the cyclic cosine schedule, L1, fp32) on synthetic clean /
+   rainy PNG pairs written by the port's encoder into
+   `build/chip_smoke_derain/` (12 training pairs, 9 of 480x480 and 3
+   smaller than 384 on a side: the pad; evaluation pairs of 481x321 and
+   512x512). Loader batches of 8 x 384x384 through the progressive
+   schedule: each of the six stages after a warm-up step of its own
+   (stages 1 and 6 three timed steps, the others one): ms per step, GT
+   MP/s, peak memory, each step's launches (K1c 64, K4c 59, K3 123, K2
+   41, nothing else), finite losses; one stage-1 and one stage-2 step
+   profiled by class, stage 1's K1c, K2, K3 and K4c by shape (launches
+   times phase 3's ms against the profiler's class); `test` on each
+   whole evaluation image (the reflect pad to the window, the forward,
+   the crop), best of 2 after a first call, and its peak memory.
+   `train_pipeline` on the recipe
+   with iters [2,1,1,1,1,1] (every stage once), validation (PSNR-Y, SSIM-Y)
+   on the two whole images before, at 7 and after, a checkpoint at 7,
+   an auto-resume to 8; `test_pipeline` with the recipe of
+   `options/test_Deraining_mamber33.yml`, its five sets on the evaluation
+   pairs, from the run's checkpoint; each evaluation forward K1 64, K4
+   59, K2 41; ms and data ms per iteration. The kernels against the plain
+   path at Mamber33's and Mamber32's widths and the dual-pixel Mamber33's
+   (six channels in), depth [1,1,1,1] + 1: the forward on 2 x 64x64 and
+   on one 40x56 image within 1e-3, every gradient within 2e-3 of its
+   largest entry. Two `train_pipeline` iterations of that depth on each
+   task dataset (Gaussian denoising, 16-bit dual-pixel defocus, deblur).
 8. probes - the scan-design probes (`vmambair_torch/tools/`) at
    MambaSISR6's full-resolution scan (B=8 tiles of 128x128, L=16384, G=2
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
@@ -204,8 +241,8 @@ with them off and once on, and phase 5 races served forwards with them off
 and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
-(for K1-K6 the launches in the serve, train, pipeline, GAN and RealSR
-phases,
+(for K1-K6 the launches in the serve, train, pipeline, GAN, RealSR and
+deraining phases,
 for the probe kernels those of the probe paths of phases 8 to 10, which
 must be at least one each; a launch is one call of the kernel's wrapper, which for K1, K1c and
 `ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
@@ -416,6 +453,17 @@ K1C_REALSR_SHAPES = ((9, 96, 4096), (9, 48, 4096), (9, 96, 1024),
 K2_REALSR_SHAPES = ((9, 96, 64, 64), (9, 48, 64, 64), (9, 96, 32, 32),
                     (9, 192, 16, 16), (9, 384, 8, 8))
 DIRECT_WIDTHS = (48, 96, 192, 384)
+# Mamber33's deraining step (options/Deraining_mamber33.yml, fp32): K1c's
+# (b, d, L) at stage 1, 8 x 128x128 (level 1: encoder 3 blocks at 48,
+# decoder and refinement 5 at 96; level 2 10 blocks, level 3 14; 2 pairs
+# each), and at stage 6's level 1, 1 x 384x384; K2's (b, c, h, w) at
+# stage 1 (3 / 5 / 10 / 14 / 9 launches), at stage 6's level 1, and a
+# 481x321 evaluation image's padded level 1 and latent (488x328)
+DERAIN_K1C_SHAPES = ((8, 96, 16384), (8, 48, 16384), (8, 96, 4096),
+                     (8, 192, 1024), (1, 48, 147456), (1, 96, 147456))
+DERAIN_K2_SHAPES = ((8, 48, 128, 128), (8, 96, 128, 128), (8, 96, 64, 64),
+                    (8, 192, 32, 32), (8, 384, 16, 16), (1, 48, 384, 384),
+                    (1, 48, 328, 488), (1, 384, 41, 61))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 # K2's fp32 route past the envelope: its split-TF32 products keep fp32's
 # accuracy, so it is held to the fp32 bar of its CPU model (tests/
@@ -1085,6 +1133,105 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             k2_cmp(f"K2 {lab} {f32}", f32), _gdfn_bound(a), timed=True,
             key=(b, c, h, w, f32), plain_timed=True)
 
+    # Deraining (Mamber33, fp32): K1c and K3 at the stage-1 step's fused
+    # shapes (8 x 128x128), K4c and K3 at its latent pair and at the conv2
+    # channel scans (b, c, 4), K2 at its five shapes; stage 6 (1 x
+    # 384x384): K1c at level 1, K4c / K3 at the latent (1,2304,768) over
+    # several segments, the channel scans at batch 1, K2 at (1,48,384,384);
+    # a whole-image evaluation: K1 and K4 at a 512x512 image's level 1 and
+    # latent, K4 at (1,c,4), K2 at a 481x321 image's padded level 1 and
+    # latent; each timed beside its plain version and its bound
+    for (b, d, L) in DERAIN_K1C_SHAPES:
+        for rev in (False, True):
+            a = _fused_case(b, d, L, f32, gen)
+            lab = f"derain ({b},2,{d},{L}) rev={rev}"
+            add("oss_scan_fused_carries", lab, f32,
+                lambda a=a, r=rev: cuda_scan.oss_scan_fused_fwd_carries(
+                    *a, reverse=r),
+                lambda a=a, r=rev: cuda_scan.oss_scan_fused_carries_ref(
+                    *a, reverse=r),
+                carries_cmp(f"K1c {lab}",
+                            lambda a=a, r=rev: cuda_scan
+                            .oss_scan_fused_fwd(*a, reverse=r)),
+                _fused_bound(a, carries=True), timed=True,
+                key=None if rev else (b, d, L), plain_timed=not rev)
+            if b == 1:  # stage 6's level 1: K1c alone
+                continue
+            _, car = cuda_scan.oss_scan_fused_fwd_carries(*a, reverse=rev)
+            s_, _ = cuda_scan.fused_scan_inputs(*a)
+            dy = torch.randn(b, 2 * d, L, generator=gen).to(
+                "cuda").transpose(1, 2)
+            add("selective_scan_bwd", f"fused {lab}", f32,
+                lambda s=s_, dy=dy, c=car, r=rev: cuda_scan
+                .selective_scan_bwd(*s, dy, c, delta_softplus=True,
+                                    reverse=r),
+                lambda s=s_, dy=dy, r=rev: cuda_scan
+                .selective_scan_bwd_ref(*s, dy, delta_softplus=True,
+                                        reverse=r),
+                bwd_cmp(f"K3 fused {lab}"), _bwd_bound(s_, dy), timed=True,
+                key=(b, L, 2 * d, 2, rev), plain_timed=not rev)
+    dr_scans = [(f"derain latent ({b},{L},768) G=2 rev={rev}", rev,
+                 _scan_case(b, L, 768, f32, gen))
+                for b, L in ((8, 256), (1, 2304)) for rev in (False, True)]
+    dr_scans += [(f"derain channel scan ({b},{c},4) G=2", False,
+                  _scan_case(b, c, 4, f32, gen, lifted=False))
+                 for b in (8, 1) for c in DIRECT_WIDTHS]
+    for lab, rev, a in dr_scans:
+        key = (*a[0].shape, a[3].shape[2], rev)
+        if "channel" in lab and a[0].shape[0] == 1:  # the evaluation's
+            add("selective_scan", lab, f32,
+                lambda a=a: cuda_scan.selective_scan_fwd(
+                    *a, delta_softplus=True),
+                lambda a=a: cuda_scan.selective_scan_ref(
+                    *a, delta_softplus=True),
+                fwd_cmp(f"K4 {lab}", f32), _scan_bound(a, f32), timed=True,
+                key=(*key, f32), plain_timed=True)
+        add("selective_scan_carries", lab, f32,
+            lambda a=a, r=rev: cuda_scan.selective_scan_fwd_carries(
+                *a, delta_softplus=True, reverse=r),
+            lambda a=a, r=rev: cuda_scan.selective_scan_carries_ref(
+                *a, delta_softplus=True, reverse=r),
+            carries_cmp(f"K4c {lab}",
+                        lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
+                            *a, delta_softplus=True, reverse=r)),
+            _scan_bound(a, f32, carries=True), timed=True, key=(*key, f32),
+            plain_timed=True)
+        _, car = cuda_scan.selective_scan_fwd_carries(
+            *a, delta_softplus=True, reverse=rev)
+        dy = torch.randn(a[0].shape, generator=gen).to("cuda")
+        add("selective_scan_bwd", lab, f32,
+            lambda a=a, dy=dy, c=car, r=rev: cuda_scan.selective_scan_bwd(
+                *a, dy, c, delta_softplus=True, reverse=r),
+            lambda a=a, dy=dy, r=rev: cuda_scan.selective_scan_bwd_ref(
+                *a, dy, delta_softplus=True, reverse=r),
+            bwd_cmp(f"K3 {lab}"), _bwd_bound(a, dy), timed=True, key=key,
+            plain_timed=True)
+    for rev in (False, True):
+        a = _fused_case(1, 96, 512 * 512, f32, gen)
+        lab = f"derain evaluation (1,2,96,{512 * 512}) rev={rev}"
+        add("oss_scan_fused", lab, f32,
+            lambda a=a, r=rev: cuda_scan.oss_scan_fused_fwd(*a, reverse=r),
+            lambda a=a, r=rev: cuda_scan.oss_scan_fused_ref(*a, reverse=r),
+            fwd_cmp(f"K1 {lab}", f32), _fused_bound(a), timed=True,
+            plain_timed=not rev)
+        a = _scan_case(1, 4096, 768, f32, gen)
+        lab = f"derain evaluation latent (1,4096,768) G=2 rev={rev}"
+        add("selective_scan", lab, f32,
+            lambda a=a, r=rev: cuda_scan.selective_scan_fwd(
+                *a, delta_softplus=True, reverse=r),
+            lambda a=a, r=rev: cuda_scan.selective_scan_ref(
+                *a, delta_softplus=True, reverse=r),
+            fwd_cmp(f"K4 {lab}", f32), _scan_bound(a, f32), timed=True,
+            key=(1, 4096, 768, 2, rev, f32), plain_timed=True)
+    for (b, c, h, w) in DERAIN_K2_SHAPES:
+        a = _gdfn_case(b, c, h, f32, gen, w)
+        lab = f"derain ({b},{c},{h},{w})"
+        add("gdfn_residual_fused", lab, f32,
+            lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
+            lambda a=a: cuda_effn.gdfn_residual_ref(*a),
+            k2_cmp(f"K2 {lab} {f32}", f32), _gdfn_bound(a), timed=True,
+            key=(b, c, h, w, f32), plain_timed=True)
+
     # K4 and K4c at the CUDA tests' ragged shapes, both ways, fp32 and bf16
     for dtype in (torch.float32, torch.bfloat16):
         for (b, L, D, G, N, lay) in K4_RAGGED_SHAPES:
@@ -1110,8 +1257,10 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                     _scan_bound(a, dtype, carries=True))
 
     k3_calls = {}
-    shape_ms = {"K2": {}, "K3": {}, "K4": {}, "K4c": {}, "K5": {}}
-    by_name = {"selective_scan_bwd": "K3", "selective_scan": "K4",
+    shape_ms = {"K1c": {}, "K2": {}, "K3": {}, "K4": {}, "K4c": {},
+                "K5": {}}
+    by_name = {"oss_scan_fused_carries": "K1c",
+               "selective_scan_bwd": "K3", "selective_scan": "K4",
                "selective_scan_carries": "K4c", "oss_front_fused": "K5",
                "gdfn_residual_fused": "K2"}
     # the practical floor of a call at K4's smallest shapes, whose bound
@@ -1396,7 +1545,16 @@ def model_grads_vs_plain(fused: bool, arch="MambaSISR6", b=8):
     g = torch.Generator().manual_seed(4)
     gt = torch.rand(b, 3, 256, 256, generator=g)
     lq = torch.nn.functional.avg_pool2d(gt, 4).cuda()
-    gt = gt.cuda()
+    grads_vs_plain(net, lq, gt.cuda(), f"{arch} widths", fused)
+    del net
+    torch.cuda.empty_cache()
+
+
+def grads_vs_plain(net, lq, gt, label, fused=False):
+    """Every parameter's L1 gradient through the kernels against the plain
+    path on the card, within GRAD_BAR of its largest entry; every scan and
+    GDFN (and with `fused` K5 / K6) parameter's gradient non-zero and
+    finite; the launches the dispatch predicts for a step."""
     with oss_switches(fused):
         want = expected_launches(net, train=True)
         reset_launches()
@@ -1439,16 +1597,15 @@ def model_grads_vs_plain(fused: bool, arch="MambaSISR6", b=8):
         raise SystemExit(f"FAIL model grads: zero gradients at {zero} "
                          f"({len(kernel_params)} kernel tensors)")
     tag = "K5/K6 on" if fused else "K5/K6 off"
-    print(f"[grads] {arch} widths, depth [1,1,1,1]+1, {b}x64x64 LQ, L1, "
-          f"fp32, {tag}: {checked} parameter tensors within {GRAD_BAR} of "
-          "their "
-          f"largest entry (worst {worst[0]:.3e} at {worst[1]}); "
-          f"{len(kernel_params)} scan/GDFN{'/front/tail' if fused else ''} "
-          "tensors with non-zero finite "
-          f"gradients; launches {counts}; kernels {1e3 * (t1 - t0):.1f} ms,"
-          f" plain {1e3 * (t2 - t1):.1f} ms (first calls)")
-    del net, got, ref
-    torch.cuda.empty_cache()
+    print(f"[grads] {label}, depth [1,1,1,1]+1, "
+          f"{'x'.join(map(str, lq.shape))} LQ, L1, fp32, {tag}: {checked} "
+          f"parameter tensors within {GRAD_BAR} of their largest entry "
+          f"(worst {worst[0]:.3e} at {worst[1]}); {len(kernel_params)} "
+          f"scan/GDFN{'/front/tail' if fused else ''} tensors with "
+          f"non-zero finite gradients; launches {_nonzero(counts)}; kernels "
+          f"{1e3 * (t1 - t0):.1f} ms, plain {1e3 * (t2 - t1):.1f} ms (first "
+          "calls)")
+    del got, ref
 
 
 # -- phase 5: serve ------------------------------------------------------------
@@ -2928,6 +3085,435 @@ def _last_log_in(log_dir: str) -> str:
         return f.read()
 
 
+# -- phase 7d: deraining (Mamber33) --------------------------------------------
+
+DERAIN = os.path.join("build", "chip_smoke_derain")
+# options/Deraining_mamber33.yml (the script reads no YAML): Rain13K with
+# six progressive (patch, batch) stages, Mamber33 at full size, AdamW with
+# a global-norm clip, the cyclic cosine schedule, L1, no EMA
+DERAIN_RECIPE = {
+    "name": "Deraining_mamber33", "model_type": "ImageCleanModel",
+    "scale": 1, "num_gpu": "auto", "manual_seed": 100, "is_train": True,
+    "datasets": {
+        "train": {"name": "TrainSet", "type": "Dataset_PairedImage",
+                  "dataroot_gt": "datasets/Rain13K/target",
+                  "dataroot_lq": "datasets/Rain13K/input",
+                  "geometric_augs": True, "filename_tmpl": "{}",
+                  "io_backend": {"type": "disk"}, "use_shuffle": True,
+                  "num_worker_per_gpu": 8, "batch_size_per_gpu": 8,
+                  "mini_batch_sizes": [8, 5, 3, 2, 1, 1],
+                  "iters": [92000, 64000, 64000, 64000, 64000, 48000],
+                  "gt_size": 384, "gt_sizes": [128, 160, 192, 256, 320, 384],
+                  "dataset_enlarge_ratio": 1},
+        "val": {"name": "ValSet", "type": "Dataset_PairedImage",
+                "dataroot_gt": "datasets/test/Rain100L/target",
+                "dataroot_lq": "datasets/test/Rain100L/input",
+                "io_backend": {"type": "disk"}}},
+    "network_g": {"type": "Mamber33", "inp_channels": 3, "out_channels": 3,
+                  "dim": 48, "num_blocks": [3, 5, 7, 9],
+                  "num_refinement_blocks": 2, "ffn_expansion_factor": 2.66,
+                  "bias": False, "LayerNorm_type": "WithBias",
+                  "dual_pixel_task": False},
+    "path": {"pretrain_network_g": None, "strict_load_g": True,
+             "resume_state": None},
+    "train": {"total_iter": 396000, "warmup_iter": -1,
+              "use_grad_clip": True, "grad_clip": 0.01,
+              "scheduler": {"type": "CosineAnnealingRestartCyclicLR",
+                            "periods": [144000, 288000],
+                            "restart_weights": [1, 1],
+                            "eta_mins": [0.0003, 0.000001]},
+              "mixing_augs": {"mixup": False, "mixup_beta": 1.2,
+                              "use_identity": True},
+              "optim_g": {"type": "AdamW", "lr": 3e-4,
+                          "weight_decay": 1e-4, "betas": [0.9, 0.999]},
+              "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0,
+                            "reduction": "mean"}},
+    "val": {"window_size": 8, "val_freq": 4000, "save_img": False,
+            "rgb2bgr": True, "use_image": True, "max_minibatch": 8,
+            "metrics": {k: {"type": f"calculate_{k}", "crop_border": 0,
+                            "test_y_channel": True}
+                        for k in ("psnr", "ssim")}},
+    "logger": {"print_freq": 1000, "save_checkpoint_freq": 4000,
+               "use_tb_logger": True},
+}
+# options/test_Deraining_mamber33.yml: the five test sets
+DERAIN_TEST_SETS = ("Rain100L", "Rain100H", "Test100", "Test1200",
+                    "Test2800")
+DERAIN_TEST_RECIPE = {
+    "name": "test_Deraining_mamber33", "model_type": "ImageCleanModel",
+    "scale": 1, "num_gpu": 1, "manual_seed": 100,
+    "datasets": {f"test_{i}": {
+        "name": name, "type": "Dataset_PairedImage",
+        "dataroot_gt": f"datasets/test/{name}/target",
+        "dataroot_lq": f"datasets/test/{name}/input",
+        "io_backend": {"type": "disk"}}
+        for i, name in enumerate(DERAIN_TEST_SETS, 1)},
+    "network_g": {k: v for k, v in DERAIN_RECIPE["network_g"].items()
+                  if k != "dual_pixel_task"},
+    "path": {"pretrain_network_g":
+             "experiments/Deraining_mamber33/models/net_g_396000.ckpt",
+             "param_key_g": "params", "strict_load_g": True},
+    "val": {"window_size": 8, "save_img": True,
+            "metrics": DERAIN_RECIPE["val"]["metrics"]},
+}
+# launches of one Mamber33 training step and one evaluation forward
+# (41 MamberBlocks: 32 of width <= 256 take K1, the 9 latent ones K4 for
+# their pairs; every channel scan K4)
+DERAIN_STEP = {"oss_scan_fused_carries": 64, "selective_scan_carries": 59,
+               "selective_scan_bwd": 123, "gdfn_residual_fused": 41}
+DERAIN_FWD = {"oss_scan_fused": 64, "selective_scan": 59,
+              "gdfn_residual_fused": 41}
+# the progressive stages' first iterations (cumulative `iters` + 1)
+DERAIN_STAGE_ITERS = (1, 92001, 156001, 220001, 284001, 348001)
+
+
+def _rainy(gt, rng) -> np.ndarray:
+    """gt with seeded slanted bright streaks."""
+    h, w = gt.shape[:2]
+    seeds = rng.rand(h, w) > 0.997
+    streak = np.zeros((h, w), bool)
+    for k in range(16):
+        streak |= np.roll(np.roll(seeds, k, 0), k // 4, 1)
+    out = gt.astype(np.float32)
+    out[streak] = 0.4 * out[streak] + 0.6 * 235
+    return out.round().astype(np.uint8)
+
+
+def write_derain_dataset():
+    """Paired clean / rainy PNGs: 12 training pairs (9 of 480x480; 3
+    smaller than 384 on one side or both: the pad to gt_size), 2
+    evaluation pairs (481x321, whose sides pad to 488x328, and 512x512);
+    for the task datasets 3 16-bit dual-pixel triples (left, right, GT)
+    of 160x144 and 3 clean 8-bit images."""
+    shutil.rmtree(DERAIN, ignore_errors=True)
+    rng = np.random.RandomState(7)
+    sizes = {"train": [(480, 480)] * 9 + [(352, 480), (480, 300),
+                                          (320, 320)],
+             "test": [(321, 481), (512, 512)]}
+    for split, hw in sizes.items():
+        for i, (h, w) in enumerate(hw):
+            gt = _synthetic_image(rng, h, w)
+            imwrite(gt, os.path.join(DERAIN, split, "target", f"{i:04d}.png"))
+            imwrite(_rainy(gt, rng),
+                    os.path.join(DERAIN, split, "input", f"{i:04d}.png"))
+    for i in range(3):
+        gt = _synthetic_image(rng, 160, 144).astype(np.uint16) * 257
+        imwrite(gt, os.path.join(DERAIN, "dp", "gt", f"{i}.png"))
+        for k, shift in (("lqL", 1), ("lqR", -1)):
+            imwrite(np.roll(gt, shift, 1) // 2 + gt // 2,
+                    os.path.join(DERAIN, "dp", k, f"{i}.png"))
+        imwrite(_synthetic_image(rng, 160, 144),
+                os.path.join(DERAIN, "dn", f"{i}.png"))
+
+
+def _derain_data(split) -> dict:
+    return {"dataroot_gt": os.path.join(DERAIN, split, "target"),
+            "dataroot_lq": os.path.join(DERAIN, split, "input")}
+
+
+def _derain_batches(n, seed=0) -> list:
+    """n loader batches of 8 x 384x384 pairs from the YAML's training
+    dataset over the PNGs, as the loader collates them."""
+    from vmambair_torch.data import build_dataset
+    from vmambair_torch.data.loader import default_collate
+
+    ds = build_dataset(dict(DERAIN_RECIPE["datasets"]["train"],
+                            **_derain_data("train"), phase="train",
+                            scale=1))
+    rng = random.Random(seed)
+    return [default_collate([ds.__getitem__((8 * j + i) % len(ds), rng=rng)
+                             for i in range(8)]) for j in range(n)]
+
+
+def _derain_opt(root) -> dict:
+    opt = json.loads(json.dumps(DERAIN_RECIPE))
+    opt["path"].update(models=os.path.join(root, "models"),
+                       training_states=os.path.join(root, "state"))
+    return opt
+
+
+def derain(shape_ms) -> dict:
+    """Phase 7d: the deraining harness of Mamber33 at full size. Returns
+    the launches of its main path (the timed and profiled steps, the
+    pipelines and the task datasets' runs)."""
+    from vmambair_torch.train.pipeline import ProgressiveSchedule
+
+    t0 = time.perf_counter()
+    write_derain_dataset()
+    batches = _derain_batches(4)
+    print(f"[derain] dataset written and 4 batches of 8 x 384x384 loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    total = dict.fromkeys(KERNELS, 0)
+    model = build_model(_derain_opt(DERAIN))
+    step = expected_launches(model.net_g, train=True)
+    fwd = expected_launches(model.net_g, train=False)
+    if _nonzero(step) != DERAIN_STEP or _nonzero(fwd) != DERAIN_FWD:
+        raise SystemExit(f"FAIL derain: predicted launches {_nonzero(step)}"
+                         f" per step, {_nonzero(fwd)} per forward")
+    print(f"[derain] launches per step {DERAIN_STEP}, per evaluation "
+          f"forward {DERAIN_FWD}")
+    prog = ProgressiveSchedule(DERAIN_RECIPE["datasets"]["train"], 1)
+    prog_rng = np.random.RandomState(0)
+    stage_ms = {}
+    for stage, it0 in enumerate(DERAIN_STAGE_ITERS, 1):
+        # a warm-up step of its own (a new shape), then timed steps
+        n = 4 if stage in (1, 6) else 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for k in range(n):
+            model.feed_data(prog.apply(batches[k], it0 + k, prog_rng))
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            model.optimize_parameters(it0 + k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            counts = launches()
+            total = {key: total[key] + counts[key] for key in KERNELS}
+            losses.append(model.get_current_log()["l_pix"])
+            if counts != step or not np.isfinite(losses[-1]):
+                raise SystemExit(f"FAIL derain: stage {stage} step {k} "
+                                 f"launches {counts}, l_pix {losses[-1]}")
+        b, _, hh, ww = model.lq.shape
+        ms = 1e3 * statistics.median(times[1:])
+        stage_ms[stage] = ms
+        print(f"[derain] stage {stage} ({b} x {hh}x{ww}): ms per step "
+              f"{ms:.1f} (median of {n - 1} after a warm-up of "
+              f"{1e3 * times[0]:.1f}); GT MP/s {b * hh * ww / ms / 1e3:.3f};"
+              f" l_pix {[round(v, 5) for v in losses]}; lr "
+              f"{model.log_dict['lr']:.3e}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+              f"{nvidia_smi_line()}")
+    # one step of stage 1 and one of stage 2 profiled, by class and shape
+    for stage in (1, 2):
+        it = DERAIN_STAGE_ITERS[stage - 1]
+        reset_launches()
+        model.feed_data(prog.apply(batches[0], it, prog_rng))
+        model.optimize_parameters(it)  # the stage's shape warm again
+        model.feed_data(prog.apply(batches[1], it, prog_rng))
+        torch.cuda.synchronize()
+        tallies = {"K1c": {}, "K2": {}, "K3": {}, "K4c": {}}
+        with k1c_shapes(tallies["K1c"]), k2_shapes(tallies["K2"]), \
+                k3_shapes(tallies["K3"]), k4_shapes(
+                    "selective_scan_fwd_carries", tallies["K4c"]):
+            by_class = profile(f"derain_stage{stage}",
+                               lambda it=it: model.optimize_parameters(it))
+        counts = launches()
+        if counts != {key: 2 * step[key] for key in KERNELS}:
+            raise SystemExit(f"FAIL derain: launches {counts} in a step "
+                             "and its profiled one")
+        total = {key: total[key] + counts[key] for key in KERNELS}
+        if stage == 1:  # phase 3 timed stage 1's shapes
+            for name, cls in (("K1c", "K1/K1c fused scan"),
+                              ("K2", "K2 GDFN"), ("K4c", "K4/K4c scan"),
+                              ("K3", "K3 scan backward")):
+                shape_account("derain stage 1", name, "step", tallies[name],
+                              shape_ms[name], by_class.get(cls, 0.0))
+    # whole-image evaluation (`test`: reflect pad to the window, forward,
+    # crop) of the two evaluation images
+    reset_launches()
+    for i in range(2):
+        pair = {k: imread(os.path.join(DERAIN, "test", d, f"{i:04d}.png"),
+                          float32=True)[None, :, :, ::-1]
+                for k, d in (("lq", "input"), ("gt", "target"))}
+        model.feed_data(pair)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.test()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        if tuple(model.output.shape) != tuple(model.lq.shape) or not \
+                torch.isfinite(model.output).all():
+            raise SystemExit(f"FAIL derain: test output {model.output.shape}")
+        _, _, hh, ww = model.lq.shape
+        print(f"[derain] whole-image evaluation of {ww}x{hh}: "
+              f"{1e3 * min(times[1:]):.1f} ms (the first "
+              f"{1e3 * times[0]:.1f}); max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counts = launches()
+    if counts != {k: 6 * fwd[k] for k in KERNELS}:
+        raise SystemExit(f"FAIL derain: evaluation launches {counts}")
+    total = {key: total[key] + counts[key] for key in KERNELS}
+    del model
+    torch.cuda.empty_cache()
+    counts = derain_pipelines(step, fwd)
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    derain_vs_plain()
+    counts = task_pipelines()
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    shutil.rmtree(DERAIN)
+    print(f"[derain] phase 7d {time.perf_counter() - t0:.1f} s; stage ms "
+          f"{ {k: round(v, 1) for k, v in stage_ms.items()} }; launches "
+          f"{_nonzero(total)}")
+    return total
+
+
+def derain_pipelines(step, fwd) -> dict:
+    """`train_pipeline` with the deraining recipe on the PNGs (iters [2, 1,
+    1, 1, 1, 1]: every stage; validation on the two whole evaluation
+    images before the first step, at 7 and after the loop; a checkpoint
+    at 7), an auto-resume to 8, then `test_pipeline` with the test
+    recipe's five sets on the evaluation pairs, from that checkpoint."""
+    exp = os.path.join(DERAIN, "exp")
+
+    def opt_for(total_iter, auto_resume):
+        opt = json.loads(json.dumps(DERAIN_RECIPE))
+        opt["datasets"]["train"].update(_derain_data("train"),
+                                        iters=[2, 1, 1, 1, 1, 1])
+        opt["datasets"]["val"].update(_derain_data("test"))
+        opt["train"]["total_iter"] = total_iter
+        opt["val"]["val_freq"] = 7
+        opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 7,
+                         "use_tb_logger": False}
+        opt["path"]["experiments_root"] = exp
+        opt["auto_resume"] = auto_resume
+        return finalize_options(opt, ".", is_train=True)
+
+    reset_launches()
+    model = train_pipeline(".", opt_for(7, False), device="cuda")
+    first = launches()
+    iter_ms = 1e3 * model.timers["iter"].get_avg_time()
+    data_ms = 1e3 * model.timers["data"].get_avg_time()
+    del model
+    log = _last_log_in(exp)
+    want = {k: 7 * step[k] + 3 * 2 * fwd[k] for k in KERNELS}
+    psnrs = _numbers(log, "# psnr:")
+    stages = [f"Progressive stage {i}: gt_size {g}, batch {b}" in log
+              for i, (g, b) in enumerate(zip(
+                  DERAIN_RECIPE["datasets"]["train"]["gt_sizes"],
+                  DERAIN_RECIPE["datasets"]["train"]["mini_batch_sizes"]), 1)]
+    if first != want or not all(stages) or len(psnrs) != 3 or not \
+            np.isfinite(psnrs).all() or not os.path.isfile(
+                os.path.join(exp, "models", "net_g_7.pth")):
+        raise SystemExit(f"FAIL derain pipeline: launches {first} "
+                         f"(predicted {want}), stages {stages}, PSNR {psnrs}")
+    reset_launches()
+    model = train_pipeline(".", opt_for(8, True), device="cuda")
+    resumed = launches()
+    del model
+    log = _last_log_in(exp)
+    want = {k: step[k] + 2 * fwd[k] for k in KERNELS}
+    if resumed != want or "Resuming training from epoch" not in log:
+        raise SystemExit(f"FAIL derain pipeline: resume launches {resumed} "
+                         f"(predicted {want})")
+    opt = json.loads(json.dumps(DERAIN_TEST_RECIPE))
+    for ds in opt["datasets"].values():
+        ds.update(_derain_data("test"))
+    res = os.path.join(DERAIN, "results")
+    opt["path"].update(pretrain_network_g=os.path.join(
+        exp, "models", "net_g_8.pth"), results_root=res)
+    reset_launches()
+    t1 = time.perf_counter()
+    test_pipeline(".", finalize_options(opt, ".", is_train=False),
+                  device="cuda")
+    test_s = time.perf_counter() - t1
+    tested = launches()
+    want = {k: 2 * len(DERAIN_TEST_SETS) * fwd[k] for k in KERNELS}
+    outs = [imread(os.path.join(res, "visualization", name, f"{i:04d}.png"))
+            for name in DERAIN_TEST_SETS for i in range(2)]
+    if tested != want or [o.shape for o in outs[:2]] != [(321, 481, 3),
+                                                         (512, 512, 3)]:
+        raise SystemExit(f"FAIL derain test: launches {tested} (predicted "
+                         f"{want}), outputs {[o.shape for o in outs[:2]]}")
+    print(f"[derain] train_pipeline, the deraining recipe: 7 iterations "
+          f"through the six stages, validation PSNR-Y "
+          f"{[round(v, 4) for v in psnrs]} dB on the 481x321 and 512x512 "
+          f"images (before, at 7, after); ms per iteration {iter_ms:.1f}, "
+          f"data ms per iteration {data_ms:.1f}; auto-resume to 8; "
+          f"test_pipeline over the five sets (10 whole images) "
+          f"{test_s:.1f} s; launches {_nonzero(first)}, {_nonzero(resumed)}, "
+          f"{_nonzero(tested)}")
+    return {k: first[k] + resumed[k] + tested[k] for k in KERNELS}
+
+
+def derain_vs_plain():
+    """Mamber33's and Mamber32's widths at depth [1,1,1,1] + 1, fp32, and
+    the dual-pixel Mamber33 (six channels in): the forward through the
+    kernels against the plain path on the card within 1e-3 on 2 x 64x64
+    and on one 40x56 image, every gradient within GRAD_BAR of its largest
+    entry (`grads_vs_plain`)."""
+    g = torch.Generator().manual_seed(6)
+    for arch, kw in (("Mamber33", {}), ("Mamber32", {}),
+                     ("Mamber33", {"inp_channels": 6,
+                                   "dual_pixel_task": True})):
+        net = build_network(dict(type=arch, num_blocks=[1, 1, 1, 1],
+                                 num_refinement_blocks=1, **kw), seed=3)
+        c = kw.get("inp_channels", 3)
+        label = f"{arch} widths{' dual-pixel' if kw else ''}"
+        errs = []
+        for shape in ((2, c, 64, 64), (1, c, 40, 56)):
+            x = torch.rand(shape, generator=g).cuda()
+            with torch.inference_mode():
+                got = net(x)
+                with plain_ops():
+                    ref = net(x)
+            if got.shape != (shape[0], 3, *shape[2:]):
+                raise SystemExit(f"FAIL derain vs plain: {got.shape}")
+            errs.append(check_close(f"{label} {shape}", got, ref, 1e-3,
+                                    1e-3))
+        print(f"[derain] {label}, depth [1,1,1,1]+1, fp32: forward on "
+              f"2x{c}x64x64 and 1x{c}x40x56 against the plain path, max abs "
+              f"err {max(errs):.3e} (tol 1e-3)")
+        lq = torch.rand(2, c, 64, 64, generator=g).cuda()
+        grads_vs_plain(net, lq, torch.rand(2, 3, 64, 64, generator=g).cuda(),
+                       label)
+        del net
+    torch.cuda.empty_cache()
+
+
+def task_pipelines() -> dict:
+    """Two `train_pipeline` iterations of Mamber33 at depth [1,1,1,1] + 1
+    on each task dataset, from its PNGs through the port's codec:
+    Gaussian denoising (in_ch 3, a random sigma), dual-pixel defocus
+    (16-bit, six channels in, `dual_pixel_task`) and deblur."""
+    common = {"gt_size": 64, "geometric_augs": True, "use_shuffle": True,
+              "num_worker_per_gpu": 4, "batch_size_per_gpu": 4,
+              "io_backend": {"type": "disk"}}
+    cases = {
+        "Dataset_GaussianDenoising": (
+            {"dataroot_gt": os.path.join(DERAIN, "dn"), "in_ch": 3,
+             "sigma_type": "random", "sigma_range": [0, 50]}, {}),
+        "Dataset_DefocusDeblur_DualPixel_16bit": (
+            {k: os.path.join(DERAIN, "dp", v) for k, v in (
+                ("dataroot_lqL", "lqL"), ("dataroot_lqR", "lqR"),
+                ("dataroot_gt", "gt"))},
+            {"inp_channels": 6, "dual_pixel_task": True}),
+        "DeblurPairedDataset": (_derain_data("train"), {}),
+    }
+    total = dict.fromkeys(KERNELS, 0)
+    for name, (data, net_kw) in cases.items():
+        opt = json.loads(json.dumps(DERAIN_RECIPE))
+        opt.update(name=f"task_{name}", auto_resume=False,
+                   logger={"print_freq": 1, "use_tb_logger": False})
+        opt["datasets"] = {"train": dict(common, name=name, type=name,
+                                         **data)}
+        opt["network_g"].update(num_blocks=[1, 1, 1, 1],
+                                num_refinement_blocks=1, **net_kw)
+        opt["train"]["total_iter"] = 2
+        opt["path"]["experiments_root"] = os.path.join(DERAIN, "task", name)
+        reset_launches()
+        model = train_pipeline(".", finalize_options(opt, ".",
+                                                     is_train=True),
+                               device="cuda")
+        counts = launches()
+        want = expected_launches(model.net_g, train=True)
+        loss = model.get_current_log()["l_pix"]
+        shape = tuple(model.lq.shape)
+        del model
+        if counts != {k: 2 * want[k] for k in KERNELS} or not np.isfinite(
+                loss) or shape != (4, 3 * (1 + bool(net_kw)), 64, 64):
+            raise SystemExit(f"FAIL derain task {name}: launches {counts}, "
+                             f"l_pix {loss}, lq {shape}")
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        print(f"[derain] task dataset {name}: 2 iterations, lq {shape}, "
+              f"l_pix {loss:.5f}")
+    return total
+
+
 # -- phase 8: the scan-design probes -------------------------------------------
 
 PROBE_SHAPE = kvariants.Shape(**kvariants.SHAPE)
@@ -3562,6 +4148,9 @@ def main():
     gan_counts = gan()
     torch.cuda.empty_cache()
     realsr_counts = realsr(shape_ms)
+    torch.cuda.empty_cache()
+    derain_counts = derain(shape_ms)
+    torch.cuda.empty_cache()
     t8 = time.perf_counter()
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
@@ -3587,10 +4176,11 @@ def main():
                   f"({terms['exp2'] / ex2_rate * 1e3:.4f} ms), "
                   f"{finish_bound(terms)['bound_ms']:.4f} ms without")
         if name in MODEL_KERNELS:
-            # launched on its own path: serve, train, the pipeline and
-            # the GAN stage
+            # launched on its own path: serve, train, the pipeline, the
+            # GAN stage, RealSR and deraining
             n = (serve_counts[name] + train_counts[name] + pipe_counts[name]
-                 + gan_counts[name] + realsr_counts[name])
+                 + gan_counts[name] + realsr_counts[name]
+                 + derain_counts[name])
             if n == 0 or pipe_counts[name] == 0:
                 raise SystemExit(f"FAIL: {name} never launched on a main "
                                  "path")
@@ -3598,7 +4188,8 @@ def main():
                           launches_train=train_counts[name],
                           launches_pipeline=pipe_counts[name],
                           launches_gan=gan_counts[name],
-                          launches_realsr=realsr_counts[name])
+                          launches_realsr=realsr_counts[name],
+                          launches_derain=derain_counts[name])
         else:
             # launched on its own path: the probes
             if probe_counts[name] == 0:

@@ -1546,3 +1546,66 @@ def test_realsr_step_launches_the_training_kernels(cuda):
     assert chip_smoke.launches() == chip_smoke.expected_launches(
         m.net_g, train=True)
     assert all(np.isfinite(v) for v in m.get_current_log().values())
+
+
+# Mamber33's deraining regimes: the latent pair at stage 6 (1 x 384x384:
+# L = 2304, over several of K4's segments, with scratch; K3 at batch 1)
+# and at stage 1 (8, 256, 768); the conv2 channel scans (b, c, 4), two
+# channels to each of the two groups, at batch 8 and 1
+DERAIN_SCANS = [(1, 2304, 768, "pair"), (8, 256, 768, "pair"),
+                (8, 48, 4, "channel"), (8, 384, 4, "channel"),
+                (1, 96, 4, "channel"), (1, 192, 4, "channel")]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,L,D,layout", DERAIN_SCANS)
+def test_derain_scans_match_plain(cuda, b, L, D, layout, reverse):
+    """K4, K4c and K3 at the deraining step's and evaluation's new shapes,
+    on the model's views: K4 within the fp32 envelope, K4c's y equal to
+    K4's and its carries within the envelope, K3 from those carries within
+    5x the envelope."""
+    args = _k4_args(cuda, b, L, D, 2, 16, torch.float32, L + D, layout)
+    if L > 1024:
+        assert cuda_scan.k4_segment(b, D, 2, L) < L
+    kw = dict(delta_softplus=True, reverse=reverse)
+    y = cuda_scan.selective_scan_fwd(*args, **kw)
+    _close(y, cuda_scan.selective_scan_ref(*args, **kw), torch.float32)
+    yc, car = cuda_scan.selective_scan_fwd_carries(*args, **kw)
+    assert torch.equal(y, yc)
+    _close(car, cuda_scan.selective_scan_carries_ref(*args, **kw)[1],
+           torch.float32)
+    dy = torch.randn(b, L, D, device=cuda)
+    got = cuda_scan.selective_scan_bwd(*args, dy, car, **kw)
+    for a, r in zip(got, cuda_scan.selective_scan_bwd_ref(*args, dy, **kw)):
+        torch.testing.assert_close(a, r, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("Mamber33", {}), ("Mamber32", {}),
+    ("Mamber33", {"inp_channels": 6, "dual_pixel_task": True})],
+    ids=["Mamber33", "Mamber32", "dual_pixel"])
+def test_derain_net_through_the_kernels_matches_plain(cuda, arch, kw):
+    """The deraining nets at their full width, depth [1,1,1,1] + 1, fp32
+    (the dual-pixel one with six channels in): the forward through the
+    kernels against the plain path within 1e-3 on a non-square batch, and
+    every parameter's L1 gradient within 2e-3 of its largest entry, with
+    the launches of a training step (`chip_smoke.grads_vs_plain`)."""
+    import chip_smoke
+
+    net = build_network(dict(type=arch, num_blocks=[1, 1, 1, 1],
+                             num_refinement_blocks=1, **kw), device=cuda,
+                        seed=3)
+    c = kw.get("inp_channels", 3)
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(2, c, 40, 56, generator=g).to(cuda)
+    with torch.inference_mode():
+        chip_smoke.reset_launches()
+        got = net(x)
+        assert chip_smoke.launches() == chip_smoke.expected_launches(net)
+        with chip_smoke.plain_ops():
+            ref = net(x)
+    assert got.shape == (2, 3, 40, 56)
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
+    chip_smoke.grads_vs_plain(net, x, torch.rand(2, 3, 40, 56,
+                                                 generator=g).to(cuda),
+                              arch)

@@ -10,6 +10,7 @@ SSIM JAX's values to 1e-10 (the same float64 arithmetic).
 """
 
 import random
+import struct
 import zlib
 
 import cv2
@@ -97,16 +98,32 @@ def test_imwrite_writes_bgr_that_cv2_reads(tmp_path):
                                       img)
 
 
+def _palette_png(idx: np.ndarray) -> bytes:
+    """A palette PNG (colour type 3) of uint8 indices into a gray ramp."""
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    h, w = idx.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), idx], 1).tobytes()
+    ramp = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    return (img_util.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + chunk(b"PLTE", ramp) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
 def test_png_decoder_refuses_what_it_does_not_read(tmp_path, monkeypatch):
-    """A 16-bit PNG goes to cv2 where it is installed and raises a clear
-    error where it is not; a corrupt chunk raises."""
-    img = (np.arange(30).reshape(5, 6) * 1000).astype(np.uint16)
-    path = str(tmp_path / "d16.png")
-    cv2.imwrite(path, img)
-    np.testing.assert_array_equal(img_util.imread(path, "unchanged"), img)
+    """A palette PNG goes to cv2 where it is installed and raises a clear
+    error where it is not (16-bit PNGs the port reads itself:
+    `test_torch_port_task_data.py`); a corrupt chunk raises."""
+    idx = (np.arange(30).reshape(5, 6) * 7).astype(np.uint8)
+    path = tmp_path / "p8.png"
+    path.write_bytes(_palette_png(idx))
+    np.testing.assert_array_equal(img_util.imread(str(path), "unchanged"),
+                                  cv2.imread(str(path), cv2.IMREAD_UNCHANGED))
     monkeypatch.setattr(img_util, "_cv2", lambda: None)
-    with pytest.raises(img_util.UnsupportedPNG, match="bit depth 16"):
-        img_util.imread(path, "unchanged")
+    with pytest.raises(img_util.UnsupportedPNG, match="colour type 3"):
+        img_util.imread(str(path), "unchanged")
     with pytest.raises(ValueError, match="cv2"):
         img_util.imfrombytes(b"\xff\xd8 not a png")
     data = bytearray(img_util.png_encode(np.zeros((2, 2), np.uint8)))

@@ -1,9 +1,11 @@
 """Data layer of the port: registry-built datasets and the loader factory.
 
 Counterpart of `vmambair_tpu/data/__init__.py` for the paired datasets of
-S1 training (`PairedImageDataset`, `SingleImageDataset`) and the RealSR
-datasets (`RealESRGANDataset`, `RealESRGANPairedDataset`); the task and
-video datasets follow their slices.
+S1 training and deraining (`PairedImageDataset`, `SingleImageDataset`),
+the RealSR datasets (`RealESRGANDataset`, `RealESRGANPairedDataset`) and
+the task datasets (`DeblurPairedDataset`, `Dataset_GaussianDenoising`,
+`Dataset_DefocusDeblur_DualPixel_16bit`); the video datasets follow their
+slice.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from .loader import (DataLoader, DevicePrefetcher, EnlargedSampler,
                      InfinitePrefetcher)
 from .paired_dataset import PairedImageDataset, SingleImageDataset
 from .realesrgan_dataset import RealESRGANDataset, RealESRGANPairedDataset
+from .task_datasets import (DeblurPairedDataset, DualPixelDefocusDataset,
+                            GaussianDenoisingDataset)
 
 logger = logging.getLogger("vmambair_torch")
 
@@ -56,4 +60,6 @@ def build_dataloader(dataset, dataset_opt: dict, num_replicas: int = 1,
 __all__ = ["build_dataset", "build_dataloader", "DataLoader",
            "EnlargedSampler", "InfinitePrefetcher", "DevicePrefetcher",
            "PairedImageDataset", "SingleImageDataset", "RealESRGANDataset",
-           "RealESRGANPairedDataset", "DATASET_REGISTRY"]
+           "RealESRGANPairedDataset", "DeblurPairedDataset",
+           "GaussianDenoisingDataset", "DualPixelDefocusDataset",
+           "DATASET_REGISTRY"]

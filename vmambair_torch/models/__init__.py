@@ -2,8 +2,9 @@
 
 Counterpart of `vmambair_tpu/models/__init__.py`. The reference names its
 arch in YAML `network_g.type`; the same names work here: `OSSNet`, the
-`MambaSISR6` (x4 SISR) and `MambaRealSR11` (real-world x4 SR) presets and
-the GAN stage's `UNetDiscriminatorSN`; the deraining presets follow.
+`MambaSISR6` (x4 SISR), `MambaRealSR11` (real-world x4 SR) and `Mamber32`
+/ `Mamber33` (scale-1 deraining) presets and the GAN stage's
+`UNetDiscriminatorSN`.
 """
 
 from __future__ import annotations
@@ -51,6 +52,43 @@ def mamba_realsr11(**kw):
         channel_version="direct",
         channel_attn="mul",
         tail="pixelshuffle",
+    )
+    cfg.update(kw)
+    return OSSNet(**_normalize(cfg))
+
+
+@ARCH_REGISTRY.register(name="Mamber32")
+def mamber32(**kw):
+    """Deraining generator with additive channel attention
+    (`mamber32_arch.py`): scale 1, dim 48, blocks [3, 5, 7, 9], 2
+    refinement blocks, conv4 channel scan, the `output` conv plus the
+    input (or the dual-pixel skip with `dual_pixel_task`)."""
+    cfg = dict(
+        scale=1,
+        dim=48,
+        num_blocks=(3, 5, 7, 9),
+        num_refinement_blocks=2,
+        channel_version="conv4",
+        channel_attn="add",
+        tail="conv_residual",
+    )
+    cfg.update(kw)
+    return OSSNet(**_normalize(cfg))
+
+
+@ARCH_REGISTRY.register(name="Mamber33")
+def mamber33(**kw):
+    """Deraining generator of `options/Deraining_mamber33.yml`
+    (`mamber33_arch.py`): Mamber32 with multiplicative channel attention
+    and the conv2 channel scan (two features per channel)."""
+    cfg = dict(
+        scale=1,
+        dim=48,
+        num_blocks=(3, 5, 7, 9),
+        num_refinement_blocks=2,
+        channel_version="conv2",
+        channel_attn="mul",
+        tail="conv_residual",
     )
     cfg.update(kw)
     return OSSNet(**_normalize(cfg))

@@ -4,8 +4,12 @@ Counterpart of `vmambair_tpu/models/unet.py`, with the reference torch
 arch's attribute names (`MambaSISR6_arch.py`): a 3x3 patch embed; encoder
 levels at dims (D, 2D, 4D, 8D) with pixel-unshuffle downsampling; a decoder
 with skip concat and 1x1 channel reduce (level 1 runs at 2D with no
-reduce); refinement blocks; the x4 pixel-shuffle tail plus the
-nearest-upsampled input. This slice ports the pixel-shuffle (SR) tail.
+reduce); refinement blocks; then the task's tail: the SR tail (a
+pixel-shuffle upsampler and a 3x3 conv, plus the nearest-upsampled input)
+or the scale-1 restoration tail of the deraining archs
+(`mamber3{2,3}_arch.py`): a 3x3 `output` conv plus the input, or, for
+dual-pixel defocus deblurring, `skip_conv` (1x1) of the patch embedding
+added to the last features before `output`, with no input residual.
 """
 
 from __future__ import annotations
@@ -65,12 +69,15 @@ class OSSNet(nn.Module):
                  ffn_expansion_factor: float = 2.66, use_bias: bool = False,
                  ln_bias: bool = True, channel_version: str = "conv4",
                  channel_attn: str = "mul", tail: str = "pixelshuffle",
+                 dual_pixel_task: bool = False,
                  dtype: torch.dtype | None = None):
         super().__init__()
-        if tail != "pixelshuffle":
-            raise NotImplementedError(
-                f"tail {tail!r}: only the SR pixel-shuffle tail is ported")
+        if tail not in ("pixelshuffle", "conv_residual"):
+            raise ValueError(f"tail {tail!r}: 'pixelshuffle' (SR) or "
+                             "'conv_residual' (restoration)")
         self.scale = scale
+        self.tail_kind = tail
+        self.dual_pixel_task = dual_pixel_task and tail != "pixelshuffle"
         self.dtype = dtype
         nb = tuple(num_blocks)
 
@@ -97,14 +104,20 @@ class OSSNet(nn.Module):
         self.up2_1 = Upsample(dim * 2)
         self.decoder_level1 = blocks(dim * 2, nb[0])
         self.refinement = blocks(dim * 2, num_refinement_blocks)
-        self.tail = nn.Sequential(
-            Upsampler(scale, dim * 2),
-            Conv2d(dim * 2, out_channels, 3, bias=True))
+        if tail == "pixelshuffle":
+            self.tail = nn.Sequential(
+                Upsampler(scale, dim * 2),
+                Conv2d(dim * 2, out_channels, 3, bias=True))
+            return
+        if self.dual_pixel_task:
+            self.skip_conv = Conv2d(dim, dim * 2, 1, bias=use_bias)
+        self.output = Conv2d(dim * 2, out_channels, 3, bias=use_bias)
 
     def forward(self, inp_img):
         """inp_img: (B, C, H, W) in [0, 1]."""
         x = inp_img if self.dtype is None else inp_img.to(self.dtype)
-        enc1 = self.encoder_level1(self.patch_embed(x))
+        x1 = self.patch_embed(x)
+        enc1 = self.encoder_level1(x1)
         enc2 = self.encoder_level2(self.down1_2(enc1))
         enc3 = self.encoder_level3(self.down2_3(enc2))
         latent = self.latent(self.down3_4(enc3))
@@ -114,4 +127,8 @@ class OSSNet(nn.Module):
         d2 = self.decoder_level2(d2)
         d1 = self.decoder_level1(torch.cat([self.up2_1(d2), enc1], 1))
         d1 = self.refinement(d1)
-        return self.tail(d1) + nearest_upsample(inp_img, self.scale)
+        if self.tail_kind == "pixelshuffle":
+            return self.tail(d1) + nearest_upsample(inp_img, self.scale)
+        if self.dual_pixel_task:
+            return self.output(d1 + self.skip_conv(x1))
+        return self.output(d1) + inp_img

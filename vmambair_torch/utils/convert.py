@@ -102,6 +102,10 @@ _LEVELS = {
     "up2_1": "up2_1.body.0",
     "reduce_chan_level3": "reduce_chan_level3",
     "reduce_chan_level2": "reduce_chan_level2",
+    # the restoration tail (Mamber32/33): the output conv and the
+    # dual-pixel skip, Conv2d wrappers under the reference's names
+    "output": "output",
+    "skip_conv": "skip_conv",
 }
 _BLOCK = re.compile(
     r"^(encoder_level[123]|latent|decoder_level[123]|refinement)_(\d+)$")

@@ -2,11 +2,14 @@
 
 Counterpart of `vmambair_tpu/utils/img_util.py`, which is built on `cv2`;
 the machine with the card has no `cv2`, so the port reads and writes PNG
-itself, with `zlib` and numpy: 8-bit gray, gray + alpha, RGB and RGBA, all
-five row filters, no interlace. Decoded images come back as `cv2` gives
-them: BGR (BGRA) channel order, HWC uint8. Any other format (JPEG, 16-bit
-PNG, palette PNG, interlaced PNG) goes to `cv2` where it is installed and
-raises a clear error where it is not.
+itself, with `zlib` and numpy: 8- and 16-bit gray, gray + alpha, RGB and
+RGBA, all five row filters, no interlace. Decoded images come back as
+`cv2` gives them: BGR (BGRA) channel order, HWC, uint16 for a 16-bit file
+read "unchanged" and uint8 otherwise (a 16-bit sample's high byte), and a
+colour file read as "grayscale" with libpng's fixed-point weights, which
+`cv2.IMREAD_GRAYSCALE` uses. Any other format (JPEG, palette PNG,
+interlaced PNG) goes to `cv2` where it is installed and raises a clear
+error where it is not.
 
 Also the array helpers of the JAX module: `img2batch`, `batch2img`,
 `pad_to_multiple`, `padding` (numpy's `symmetric` mode: `cv2.BORDER_REFLECT`
@@ -24,14 +27,19 @@ from typing import List, Sequence, Union
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> channels, for 8-bit images
+# colour type -> channels
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+# libpng's RGB -> gray weights in 1/32768 (png_set_rgb_to_gray with
+# 0.299 / 0.587, which cv2's PNG reader asks for): 8-bit samples are
+# truncated, 16-bit ones rounded, then cut to their high byte
+_GRAY_RC, _GRAY_GC = 9797, 19234
+_GRAY_BC = 32768 - _GRAY_RC - _GRAY_GC
 
 
 class UnsupportedPNG(ValueError):
-    """A PNG the port's decoder does not read (it takes 8-bit gray, gray +
-    alpha, RGB and RGBA without interlace)."""
+    """A PNG the port's decoder does not read (it takes 8- and 16-bit gray,
+    gray + alpha, RGB and RGBA without interlace)."""
 
 
 def _cv2():
@@ -107,8 +115,9 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def png_decode(data: bytes) -> np.ndarray:
-    """An 8-bit PNG -> HW (gray) or HWC uint8 in the file's channel order
-    (gray + alpha, RGB, RGBA). Raises UnsupportedPNG for other PNGs."""
+    """An 8- or 16-bit PNG -> HW (gray) or HWC uint8 / uint16 in the file's
+    channel order (gray + alpha, RGB, RGBA). Raises UnsupportedPNG for
+    other PNGs."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     header, idat = None, []
@@ -120,18 +129,22 @@ def png_decode(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace:
+    if depth not in (8, 16) or ctype not in _CHANNELS or interlace:
         raise UnsupportedPNG(
             f"PNG of bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace}: the port's decoder reads 8-bit gray, gray + "
-            "alpha, RGB and RGBA without interlace")
-    bpp = _CHANNELS[ctype]
+            f"{interlace}: the port's decoder reads 8- and 16-bit gray, "
+            "gray + alpha, RGB and RGBA without interlace")
+    ch = _CHANNELS[ctype]
+    bpp = ch * depth // 8  # the filters work on bytes, a pixel's apart
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"PNG data of {raw.size} bytes for a {w}x{h} "
                          f"image of {bpp} bytes per pixel")
     img = _unfilter(raw, h, w, bpp)
-    return img[:, :, 0] if bpp == 1 else img
+    if depth == 16:  # big-endian samples
+        img = img.reshape(h, w, ch, 2).astype(np.uint16)
+        img = (img[..., 0] << 8) | img[..., 1]
+    return img[:, :, 0] if ch == 1 else img
 
 
 def _filter_rows(img: np.ndarray, ftype: int) -> np.ndarray:
@@ -149,13 +162,13 @@ def _filter_rows(img: np.ndarray, ftype: int) -> np.ndarray:
 
 
 def png_encode(img: np.ndarray, level: int = 3, ftype: int = 1) -> bytes:
-    """HW or HWC uint8 (1-4 channels, in PNG order: gray, gray + alpha,
-    RGB, RGBA) -> PNG bytes, every row with filter `ftype` (0-4: None,
-    Sub, Up, Average, Paeth), zlib level `level`."""
+    """HW or HWC uint8 or uint16 (1-4 channels, in PNG order: gray, gray +
+    alpha, RGB, RGBA) -> an 8- or 16-bit PNG's bytes, every row with filter
+    `ftype` (0-4: None, Sub, Up, Average, Paeth), zlib level `level`."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
+    if img.dtype not in (np.uint8, np.uint16):
         raise TypeError(f"png_encode: {img.dtype} image; the port writes "
-                        "8-bit PNG only")
+                        "8- and 16-bit PNG only")
     if img.ndim == 2:
         img = img[:, :, None]
     h, w, ch = img.shape
@@ -163,22 +176,40 @@ def png_encode(img: np.ndarray, level: int = 3, ftype: int = 1) -> bytes:
         raise ValueError(f"png_encode: {ch} channels")
     if ftype not in range(5):
         raise ValueError(f"png_encode: filter type {ftype}")
-    rows = _filter_rows(img, ftype).reshape(h, w * ch)
+    depth = 8 * img.dtype.itemsize
+    if depth == 16:  # big-endian samples, filtered as bytes
+        img = img.astype(">u2").view(np.uint8).reshape(h, w, 2 * ch)
+    rows = _filter_rows(img, ftype).reshape(h, -1)
     raw = np.concatenate([np.full((h, 1), ftype, np.uint8), rows], 1)
 
     def chunk(kind: bytes, payload: bytes) -> bytes:
         return (struct.pack(">I", len(payload)) + kind + payload
                 + struct.pack(">I", zlib.crc32(kind + payload)))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[ch], 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[ch], 0, 0, 0)
     return (PNG_SIGNATURE + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + chunk(b"IEND", b""))
 
 
+def _rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) RGB -> gray as libpng converts it for cv2's
+    IMREAD_GRAYSCALE: 8-bit truncated, 16-bit rounded and cut to 8 bits."""
+    r, g, b = (rgb[:, :, i].astype(np.int64) for i in range(3))
+    acc = _GRAY_RC * r + _GRAY_GC * g + _GRAY_BC * b
+    if rgb.dtype == np.uint16:
+        return (((acc + 16384) >> 15) >> 8).astype(np.uint8)
+    return (acc >> 15).astype(np.uint8)
+
+
 def _from_png(img: np.ndarray, flag: str) -> np.ndarray:
-    """A decoded PNG -> what cv2.imdecode gives for `flag` (a colour PNG
-    read as grayscale is left to cv2)."""
+    """A decoded PNG -> what cv2.imdecode gives for `flag`: a 16-bit image
+    stays uint16 only "unchanged", else its high bytes; a colour image read
+    as grayscale goes through libpng's weights."""
+    if flag == "grayscale" and img.ndim == 3 and img.shape[2] >= 3:
+        return _rgb_to_gray(img[:, :, :3])
+    if img.dtype == np.uint16 and flag != "unchanged":
+        img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:
         gray, alpha, col = img, None, None
     else:
@@ -187,8 +218,6 @@ def _from_png(img: np.ndarray, flag: str) -> np.ndarray:
         gray = img[:, :, 0] if ch == 2 else None
         col = img[:, :, 2::-1] if ch >= 3 else None  # RGB -> BGR
     if flag == "grayscale":
-        if gray is None:
-            raise UnsupportedPNG("a colour PNG read as grayscale")
         return gray
     if flag == "color" or (flag == "unchanged" and alpha is None):
         if col is None:
@@ -206,8 +235,10 @@ _CV2_FLAGS = {"color": "IMREAD_COLOR", "grayscale": "IMREAD_GRAYSCALE",
 
 def imfrombytes(content: bytes, flag: str = "color",
                 float32: bool = False) -> np.ndarray:
-    """Image bytes -> BGR HWC uint8 (float32 / 255 with `float32`);
-    `flag` is "color", "grayscale" or "unchanged", as for cv2."""
+    """Image bytes -> BGR HWC uint8 (float32 / 255 with `float32`); `flag`
+    is "color", "grayscale" or "unchanged", as for cv2 (a 16-bit PNG read
+    "unchanged" is uint16, and float32 still divides by 255, as
+    `astype(np.float32) / 255` of cv2's array does)."""
     if flag not in _CV2_FLAGS:
         raise ValueError(f"flag {flag!r}")
     img = None
@@ -240,13 +271,15 @@ def imread(path: str, flag: str = "color", float32: bool = False):
 def imwrite(img: np.ndarray, file_path: str, params=None,
             auto_mkdir: bool = True) -> bool:
     """Writes an HW / HWC BGR(A) image; `.png` with the port's encoder
-    (8-bit; `params` may hold cv2's `[IMWRITE_PNG_COMPRESSION (16),
-    level]`), any other extension through cv2."""
+    (uint8 or uint16 as 8- or 16-bit; `params` may hold cv2's
+    `[IMWRITE_PNG_COMPRESSION (16), level]`), any other extension through
+    cv2."""
     if auto_mkdir:
         os.makedirs(os.path.dirname(os.path.abspath(file_path)),
                     exist_ok=True)
     params = list(params or [])
-    if file_path.lower().endswith(".png") and img.dtype == np.uint8:
+    if file_path.lower().endswith(".png") and img.dtype in (np.uint8,
+                                                             np.uint16):
         level = params[params.index(16) + 1] if 16 in params[::2] else 3
         if img.ndim == 3 and img.shape[2] >= 3:  # BGR(A) -> RGB(A)
             img = np.concatenate([img[:, :, 2::-1], img[:, :, 3:]], 2)
@@ -256,9 +289,9 @@ def imwrite(img: np.ndarray, file_path: str, params=None,
     cv2 = _cv2()
     if cv2 is None:
         raise ValueError(
-            f"imwrite {file_path}: the port writes 8-bit PNG itself; this "
-            f"{img.dtype} image or extension needs cv2, which is not "
-            "installed")
+            f"imwrite {file_path}: the port writes 8- and 16-bit PNG "
+            f"itself; this {img.dtype} image or extension needs cv2, which "
+            "is not installed")
     return cv2.imwrite(file_path, img, params)
 
 
