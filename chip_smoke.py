@@ -183,6 +183,25 @@ non-zero, and without a CUDA device the script stops before any result:
    on one 40x56 image within 1e-3, every gradient within 2e-3 of its
    largest entry. Two `train_pipeline` iterations of that depth on each
    task dataset (Gaussian denoising, 16-bit dual-pixel defocus, deblur).
+7e. metrics - the learned metrics in whole-image validation:
+   `test_pipeline` with the seeded full-width MambaRealSR11 (the
+   network_g of `options/mambaSR11GAN_x4.yml`) on 4 synthetic pairs of
+   128x128 LQ / 512x512 GT written by the port's encoder into
+   `build/chip_smoke_metrics/`, `val.metrics` psnr and ssim (Y, crop 4),
+   lpips, dists and niqe (crop 4): the launches (K1 52, K4 29, K2 27 per
+   forward, nothing else), the reported keys (lpips_uncalibrated and
+   dists_uncalibrated on the seeded VGG16), peak memory; the first
+   forward again (batch 1, the launches of one) against the plain path,
+   the fp32 SR output within 1e-3; each metric again
+   on the card on the saved SR images (ms per 512x512 image, its mean
+   equal to the logged value), LPIPS and DISTS against the CPU on the
+   same uint8 images within 1e-4 of the CPU's value plus 1e-6, NIQE within
+   1e-3 with its gamma argmins equal but at ties (reported); InceptionV3
+   pool3 of the 4 SR and 4 GT images resized to 299 with a seeded `.npz`,
+   card against CPU within 1e-4 of the largest feature, its ms per batch
+   of 8, and the FID of SR against GT (scipy on the host) against the
+   exact distance of those 4 + 4 features (the rank-3 identity) within
+   1e-4 relative.
 8. probes - the scan-design probes (`vmambair_torch/tools/`) at
    MambaSISR6's full-resolution scan (B=8 tiles of 128x128, L=16384, G=2
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
@@ -241,8 +260,8 @@ with them off and once on, and phase 5 races served forwards with them off
 and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
-(for K1-K6 the launches in the serve, train, pipeline, GAN, RealSR and
-deraining phases,
+(for K1-K6 the launches in the serve, train, pipeline, GAN, RealSR,
+deraining and metrics phases,
 for the probe kernels those of the probe paths of phases 8 to 10, which
 must be at least one each; a launch is one call of the kernel's wrapper, which for K1, K1c and
 `ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
@@ -3514,6 +3533,249 @@ def task_pipelines() -> dict:
     return total
 
 
+# -- phase 7e: the learned metrics -------------------------------------------
+
+METRIC_DIR = os.path.join("build", "chip_smoke_metrics")
+# the validation metrics of phase 7e: PSNR and SSIM on Y (crop 4), LPIPS and
+# DISTS (the seeded VGG16: reported as <name>_uncalibrated), NIQE (crop 4)
+METRIC_OPTS = {
+    "psnr": {"type": "calculate_psnr", "crop_border": 4,
+             "test_y_channel": True},
+    "ssim": {"type": "calculate_ssim", "crop_border": 4,
+             "test_y_channel": True},
+    "lpips": {"type": "calculate_lpips"},
+    "dists": {"type": "calculate_dists"},
+    "niqe": {"type": "calculate_niqe", "crop_border": 4}}
+METRIC_KEYS = {"psnr", "ssim", "lpips_uncalibrated", "dists_uncalibrated",
+               "niqe"}
+# whole-image validation of the seeded full-width MambaRealSR11 (the
+# network_g of options/mambaSR11GAN_x4.yml) on 4 pairs of 128x128 LQ /
+# 512x512 GT, through test_pipeline
+METRIC_TEST_RECIPE = {
+    "name": "metrics_MambaRealSR11", "model_type": "SRModel", "scale": 4,
+    "num_gpu": 1, "manual_seed": 0,
+    "datasets": {"test_1": {
+        "name": "synthetic512", "type": "PairedImageDataset",
+        "dataroot_gt": os.path.join(METRIC_DIR, "gt"),
+        "dataroot_lq": os.path.join(METRIC_DIR, "lq"),
+        "io_backend": {"type": "disk"}}},
+    "network_g": REALSR_RECIPE["network_g"],
+    "path": {"pretrain_network_g": None, "param_key_g": "params_ema",
+             "strict_load_g": True,
+             "results_root": os.path.join(METRIC_DIR, "results")},
+    "val": {"window_size": 8, "save_img": True, "metrics": METRIC_OPTS}}
+# card against CPU on the same uint8 images, fp32 with TF32 off: LPIPS and
+# DISTS within 1e-4 of the CPU's value plus 1e-6; NIQE within 1e-3 of it,
+# its gamma argmins equal but at ties (`niqe.argmin_flips`); Inception's
+# pool3 features within 1e-4 of the largest feature
+LEARNED_TOL = (1e-4, 1e-6)
+NIQE_TOL = 1e-3
+INCEPTION_TOL = 1e-4
+# the validation's SR outputs (fp32, before quantising) through the kernels
+# against the plain path: phase 4's fp32 model tolerance, abs and rel
+SR_TOL = 1e-3
+# FID of SR against GT (`calculate_fid`, scipy's sqrtm) against the exact
+# distance of the same 4 + 4 features (`_fid_low_rank`), relative
+FID_TOL = 1e-4
+
+
+def write_metric_dataset():
+    """4 pairs of 512x512 GT and their 4x box-downsampled 128x128 LQ, as
+    PNG by the port's encoder."""
+    shutil.rmtree(METRIC_DIR, ignore_errors=True)
+    rng = np.random.RandomState(7)
+    for i in range(4):
+        gt = _synthetic_image(rng, 512, 512)
+        lq = gt.reshape(128, 4, 128, 4, 3).mean((1, 3)).round().astype(
+            np.uint8)
+        imwrite(gt, os.path.join(METRIC_DIR, "gt", f"{i:04d}.png"))
+        imwrite(lq, os.path.join(METRIC_DIR, "lq", f"{i:04d}.png"))
+
+
+def _metric_ms(opt, pairs) -> tuple:
+    """The metric of each (sr, gt) pair on the card, and the median host ms
+    of a call (the call returns a float: the card has finished)."""
+    from vmambair_torch.metrics import calculate_metric
+
+    vals, ts = [], []
+    for sr, gt in pairs:
+        t0 = time.perf_counter()
+        vals.append(calculate_metric(opt, sr, gt, device="cuda"))
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return vals, statistics.median(ts)
+
+
+def _fid_low_rank(f1: np.ndarray, f2: np.ndarray) -> float:
+    """The Frechet distance of two Gaussians fitted to n samples each, for
+    n below the dimension: with centred rows A, B, Sigma1 Sigma2 has the
+    nonzero eigenvalues of (A B^T)(B A^T) / (n-1)^2, so the trace of its
+    square root is the sum of A B^T's singular values over n-1."""
+    a, b = f1.astype(np.float64), f2.astype(np.float64)
+    n = len(a)
+    ca, cb = a - a.mean(0), b - b.mean(0)
+    diff = a.mean(0) - b.mean(0)
+    return float(diff @ diff + ((ca * ca).sum() + (cb * cb).sum() - 2 *
+                                np.linalg.svd(ca @ cb.T, compute_uv=False
+                                              ).sum()) / (n - 1))
+
+
+def _validation_vs_plain(net, per_forward) -> tuple[float, float]:
+    """The first of the validation's forwards again, its 128x128 LQ read as
+    the dataset reads it, through the kernels and through the plain path
+    (the 4 forwards run at one shape, so one takes every kernel
+    configuration of the path; the plain one takes ~9 s): the kernel
+    forward launches what a validation forward predicts, and its SR output
+    agrees with the plain one within SR_TOL. These launches are a
+    comparison's and are not counted as the path's."""
+    t0 = time.perf_counter()
+    bgr = imread(os.path.join(METRIC_DIR, "lq", "0000.png"))
+    lq = torch.from_numpy(np.ascontiguousarray(bgr[..., ::-1])).permute(
+        2, 0, 1)[None].cuda() / 255.0
+    with torch.inference_mode():
+        reset_launches()
+        got = net(lq)
+        counts = launches()
+        if counts != per_forward:
+            raise SystemExit(f"FAIL metrics: SR launches {counts} "
+                             f"(predicted {per_forward})")
+        with plain_ops():
+            ref = net(lq)
+    if got.shape != (1, 3, 512, 512):
+        raise SystemExit(f"FAIL metrics: SR {tuple(got.shape)}")
+    err = check_close("metrics SR against the plain path", got, ref, SR_TOL,
+                      SR_TOL)
+    return err, time.perf_counter() - t0
+
+
+def metrics_phase() -> dict:
+    """Phase 7e: the learned metrics in whole-image validation of the
+    full-width MambaRealSR11. Returns the launches of its validation."""
+    from vmambair_torch.metrics import calculate_metric, fid, inception
+    from vmambair_torch.metrics import niqe as niqe_mod
+
+    t0 = time.perf_counter()
+    write_metric_dataset()
+    opt = json.loads(json.dumps(METRIC_TEST_RECIPE))
+    opt = finalize_options(opt, ".", is_train=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    model = test_pipeline(".", opt, device="cuda")
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t1
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_forward = expected_launches(model.net_g)
+    want = {k: 4 * per_forward[k] for k in KERNELS}
+    sr_err, sr_s = _validation_vs_plain(model.eval_net(), per_forward)
+    del model
+    with open(sorted(
+            os.path.join(opt["path"]["log"], f)
+            for f in os.listdir(opt["path"]["log"])
+            if f.startswith("test_") and f.endswith(".log"))[-1]) as f:
+        log = f.read()
+    logged = {}
+    for line in log.splitlines():
+        if "Validation synthetic512\t # " in line:
+            key, val = line.rsplit("# ", 1)[1].split(": ")
+            logged[key] = float(val)
+    if counts != want or set(logged) != METRIC_KEYS:
+        raise SystemExit(f"FAIL metrics: launches {counts} (predicted "
+                         f"{want}), reported keys {sorted(logged)}")
+    vis = os.path.join(opt["path"]["visualization"], "synthetic512")
+    pairs = [(imread(os.path.join(vis, f"{i:04d}.png")),
+              imread(os.path.join(METRIC_DIR, "gt", f"{i:04d}.png")))
+             for i in range(4)]
+    if any(sr.shape != (512, 512, 3) for sr, _ in pairs):
+        raise SystemExit("FAIL metrics: SR outputs "
+                         f"{[sr.shape for sr, _ in pairs]}")
+    print(f"[metrics] test_pipeline: 4 whole 128x128 -> 512x512 images of "
+          f"the full-width MambaRealSR11 (seeded) with {sorted(METRIC_OPTS)}"
+          f" in {val_s:.1f} s, max_memory_allocated {peak:.2f} GiB; "
+          f"launches {_nonzero(counts)} (4 forwards); reported {logged}; "
+          f"the first SR output again (batch 1) against the plain path: max "
+          f"abs err {sr_err:.3e} (tol {SR_TOL}) in {sr_s:.1f} s")
+
+    # each metric on the card (ms per image) against the CPU
+    lines = []
+    for name, mopt in METRIC_OPTS.items():
+        key = next(k for k in METRIC_KEYS if k.startswith(name))
+        card, ms = _metric_ms(mopt, pairs)
+        if abs(float(np.mean(card)) - logged[key]) > 6e-5 + 1e-6 * abs(
+                logged[key]):
+            raise SystemExit(f"FAIL metrics: {key} {np.mean(card)} against "
+                             f"the validation's {logged[key]}")
+        line = f"{key} {np.mean(card):.6f}, {ms:.2f} ms per image"
+        if mopt["type"] in ("calculate_lpips", "calculate_dists"):
+            cpu = [calculate_metric(mopt, sr, gt, device="cpu")
+                   for sr, gt in pairs]
+            err = max(abs(a - b) for a, b in zip(card, cpu))
+            if any(abs(a - b) > LEARNED_TOL[0] * abs(b) + LEARNED_TOL[1]
+                   for a, b in zip(card, cpu)):
+                raise SystemExit(f"FAIL metrics: {key} card {card} against "
+                                 f"CPU {cpu} (tol {LEARNED_TOL})")
+            line += f", card vs CPU max abs err {err:.2e}"
+        lines.append(line)
+    # NIQE: the score and the fits' argmins, card against CPU
+    params = niqe_mod.pris_params()
+    flips, rel = 0, 0.0
+    for sr, _ in pairs:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            feats, fits = niqe_mod.niqe_features(
+                niqe_mod.to_y(sr, 4, "y", dev), params["gaussian_window"])
+            res[dev] = (niqe_mod.niqe_quality(
+                feats.cpu().numpy(), params["mu_pris_param"],
+                params["cov_pris_param"]), fits)
+        n, at_ties = niqe_mod.argmin_flips(res["cuda"][1], res["cpu"][1])
+        q_card, q_cpu = res["cuda"][0], res["cpu"][0]
+        rel = max(rel, abs(q_card - q_cpu) / abs(q_cpu))
+        flips += n
+        if not at_ties or abs(q_card - q_cpu) > NIQE_TOL * abs(q_cpu):
+            raise SystemExit(f"FAIL metrics: NIQE card {q_card} against CPU "
+                             f"{q_cpu} (tol {NIQE_TOL}), {n} argmin flips, "
+                             f"at ties: {at_ties}")
+    lines.append(f"NIQE card vs CPU max rel err {rel:.2e} (tol {NIQE_TOL}), "
+                 f"gamma argmin flips {flips} (each at a tie)")
+    print("[metrics] " + "; ".join(lines))
+
+    # Inception pool3 of the 4 SR and 4 GT images resized to 299, seeded
+    # weights; the FID of SR against GT
+    npz = inception.seeded_inception_npz(os.path.join(METRIC_DIR,
+                                                      "inception.npz"))
+    imgs = np.stack([im[..., ::-1] for pair in pairs for im in pair]
+                    ).astype(np.float32) / 255.0
+    card = fid.extract_inception_features(imgs, npz, batch=8)
+    cpu = fid.extract_inception_features(imgs, npz, batch=8, device="cpu")
+    err = float(np.abs(card - cpu).max())
+    if card.shape != (8, 2048) or not np.isfinite(card).all() or \
+            err > INCEPTION_TOL * float(np.abs(cpu).max()):
+        raise SystemExit(f"FAIL metrics: Inception features {card.shape}, "
+                         f"card vs CPU max abs err {err:.3e}")
+    params_i = inception.load_inception_params(npz)
+    x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2)
+    inc_ms = time_ms(lambda: inception.inception_pool3(x, params_i), reps=3)
+    t2 = time.perf_counter()
+    fid_sr_gt = fid.calculate_fid(*fid.compute_statistics(card[0::2]),
+                                  *fid.compute_statistics(card[1::2]))
+    fid_s = time.perf_counter() - t2
+    exact = _fid_low_rank(card[0::2], card[1::2])
+    if abs(fid_sr_gt - exact) > FID_TOL * abs(exact):
+        raise SystemExit(f"FAIL metrics: FID {fid_sr_gt} against the exact "
+                         f"{exact} (tol {FID_TOL} relative)")
+    print(f"[metrics] Inception pool3 (seeded .npz) of 4 SR + 4 GT images "
+          f"512 -> 299: card vs CPU max abs err {err:.2e} (largest feature "
+          f"{np.abs(cpu).max():.3f}, tol {INCEPTION_TOL} of it); "
+          f"{inc_ms:.2f} ms per batch of 8 (CUDA events); FID of SR against "
+          f"GT {fid_sr_gt:.6f} (card features; scipy's sqrtm {fid_s:.1f} s "
+          f"on the host), the exact distance by the rank-3 identity "
+          f"{exact:.6f} (tol {FID_TOL} relative); card {nvidia_smi_line()}")
+    shutil.rmtree(METRIC_DIR)
+    print(f"[metrics] phase 7e {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 # -- phase 8: the scan-design probes -------------------------------------------
 
 PROBE_SHAPE = kvariants.Shape(**kvariants.SHAPE)
@@ -4151,6 +4413,8 @@ def main():
     torch.cuda.empty_cache()
     derain_counts = derain(shape_ms)
     torch.cuda.empty_cache()
+    metric_counts = metrics_phase()
+    torch.cuda.empty_cache()
     t8 = time.perf_counter()
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
@@ -4177,10 +4441,10 @@ def main():
                   f"{finish_bound(terms)['bound_ms']:.4f} ms without")
         if name in MODEL_KERNELS:
             # launched on its own path: serve, train, the pipeline, the
-            # GAN stage, RealSR and deraining
+            # GAN stage, RealSR, deraining and the metrics' validation
             n = (serve_counts[name] + train_counts[name] + pipe_counts[name]
                  + gan_counts[name] + realsr_counts[name]
-                 + derain_counts[name])
+                 + derain_counts[name] + metric_counts[name])
             if n == 0 or pipe_counts[name] == 0:
                 raise SystemExit(f"FAIL: {name} never launched on a main "
                                  "path")
@@ -4189,7 +4453,8 @@ def main():
                           launches_pipeline=pipe_counts[name],
                           launches_gan=gan_counts[name],
                           launches_realsr=realsr_counts[name],
-                          launches_derain=derain_counts[name])
+                          launches_derain=derain_counts[name],
+                          launches_metrics=metric_counts[name])
         else:
             # launched on its own path: the probes
             if probe_counts[name] == 0:

@@ -1609,3 +1609,84 @@ def test_derain_net_through_the_kernels_matches_plain(cuda, arch, kw):
     chip_smoke.grads_vs_plain(net, x, torch.rand(2, 3, 40, 56,
                                                  generator=g).to(cuda),
                               arch)
+
+
+# -- the learned metrics: the card against the CPU on the same images ------
+
+def _metric_images(h=200, w=232, seed=0):
+    """A pair of uint8 BGR images: a smooth field and a noisy copy."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.stack([np.sin(2 * np.pi * (3 * yy + c) + 5 * xx)
+                    for c in range(3)], -1) * 100 + 128
+    a = np.clip(img, 0, 255).round().astype(np.uint8)
+    b = np.clip(img + rng.randn(h, w, 3) * 12, 0, 255).round().astype(
+        np.uint8)
+    return a, b
+
+
+@pytest.mark.parametrize("name", ["lpips", "dists"])
+def test_metrics_lpips_dists_on_the_card_match_the_cpu(cuda, name):
+    """Within 1e-4 of the CPU's value plus 1e-6 (fp32, TF32 off inside
+    the metric)."""
+    from vmambair_torch.metrics import calculate_metric
+    a, b = _metric_images()
+    opt = {"type": f"calculate_{name}"}
+    got = calculate_metric(opt, a, b, device=cuda)
+    ref = calculate_metric(opt, a, b, device="cpu")
+    assert abs(got - ref) <= 1e-4 * abs(ref) + 1e-6, (got, ref)
+
+
+def test_metrics_niqe_on_the_card_matches_the_cpu(cuda):
+    """The score within 1e-3 relative; the gamma argmins equal except at
+    ties (neighbouring table entries, rhatnorm within 1e-5 of their
+    midpoint on both devices)."""
+    from vmambair_torch.metrics import niqe
+    a, b = _metric_images(232, 296)
+    p = niqe.pris_params()
+    for img in (a, b):
+        res = {}
+        for dev in (cuda, "cpu"):
+            feats, fits = niqe.niqe_features(niqe.to_y(img, 4, "y", dev),
+                                             p["gaussian_window"])
+            res[str(dev)] = (niqe.niqe_quality(
+                feats.cpu().numpy(), p["mu_pris_param"],
+                p["cov_pris_param"]), fits)
+        (q_card, f_card), (q_cpu, f_cpu) = res["cuda"], res["cpu"]
+        flips, at_ties = niqe.argmin_flips(f_card, f_cpu)
+        assert at_ties, flips
+        assert abs(q_card - q_cpu) <= 1e-3 * abs(q_cpu), (q_card, q_cpu)
+        assert niqe.calculate_niqe(img, 4, device=cuda) == pytest.approx(
+            q_card, rel=1e-12)
+
+
+def test_metrics_inception_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Pool3 features of seeded weights, 64x64 and 320x320 images resized
+    to 299 on the card, within 1e-4 of the largest CPU feature."""
+    import numpy as np
+    from vmambair_torch.metrics import fid, inception
+    npz = inception.seeded_inception_npz(str(tmp_path / "inception.npz"))
+    rng = np.random.RandomState(1)
+    for hw in (64, 320):
+        imgs = rng.rand(2, hw, hw, 3).astype(np.float32)
+        got = fid.extract_inception_features(imgs, npz, device=cuda)
+        ref = fid.extract_inception_features(imgs, npz, device="cpu")
+        assert got.shape == (2, 2048) and np.isfinite(got).all()
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("scale", [0.25, 0.5, 2.0])
+def test_metrics_imresize_on_the_card_matches_the_cpu(cuda, scale):
+    """MATLAB's bicubic on the card (float64 inside): the float32 output
+    within 1e-6 of the CPU's, the uint8 output equal."""
+    import numpy as np
+    from vmambair_torch.utils.matlab import imresize
+    a, _ = _metric_images(37, 45)
+    for img in (a, a.astype(np.float32) / 255.0):
+        got = imresize(torch.from_numpy(img).to(cuda), scale).cpu().numpy()
+        ref = imresize(img, scale)
+        if img.dtype == np.uint8:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)

@@ -167,10 +167,16 @@ def test_psnr_and_ssim_match_jax(crop, y):
     assert psnr_ssim.calculate_psnr(a, a) == float("inf")
 
 
-def test_learned_metrics_and_other_backends_raise():
-    for t in ("calculate_lpips", "calculate_fid"):
-        with pytest.raises(NotImplementedError, match="learned metrics .* not ported"):
-            calculate_metric({"type": t}, None, None)
+def test_learned_metrics_and_other_backends_raise(tmp_path):
+    # the learned metrics are ported: what raises is what JAX's raise for
+    # (NIQE without its pristine model, FID's mismatched statistics)
+    img = np.zeros((200, 200, 3), np.uint8)
+    with pytest.raises(FileNotFoundError, match="pristine-model"):
+        calculate_metric({"type": "calculate_niqe", "pris_params_path":
+                          str(tmp_path / "missing.npz")}, img, device="cpu")
+    with pytest.raises(AssertionError):
+        calculate_metric({"type": "calculate_fid"}, np.zeros(3), np.eye(3),
+                         np.zeros(4), np.eye(4))
     for backend in ("lmdb", "pack"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FileClient(backend)

@@ -50,7 +50,11 @@ def test_imports_with_jax_and_cv2_blocked():
             "vmambair_torch.tools.ab", "vmambair_torch.ops.degradation",
             "vmambair_torch.data.degradations",
             "vmambair_torch.data.realesrgan_dataset",
-            "vmambair_torch.train.realesrgan_model"} <= set(mods)
+            "vmambair_torch.train.realesrgan_model",
+            "vmambair_torch.metrics.lpips", "vmambair_torch.metrics.dists",
+            "vmambair_torch.metrics.niqe", "vmambair_torch.metrics.inception",
+            "vmambair_torch.metrics.fid",
+            "vmambair_torch.utils.matlab"} <= set(mods)
     code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
         "import chip_smoke, inference_torch, train_torch, test_torch\n"
         "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"

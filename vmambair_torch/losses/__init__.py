@@ -1,6 +1,6 @@
 """Losses of the port (PyTorch, NCHW); counterpart of
 `vmambair_tpu/losses/__init__.py` for the pixel, GAN and VGG19 perceptual
-losses (the DISTS / VGG16 parts are not ported yet)."""
+losses; `perceptual.py` also holds the metrics' VGG16 and L2 pooling."""
 
 from ..utils.registry import LOSS_REGISTRY, build_from_cfg
 from .basic import (

@@ -1,4 +1,5 @@
-"""Perceptual (VGG19) loss, PyTorch, NCHW.
+"""Perceptual (VGG19) loss and the VGG backbones of the learned metrics,
+PyTorch, NCHW.
 
 Counterpart of `vmambair_tpu/losses/perceptual.py:26-211` (pip-basicsr's
 `PerceptualLoss` / `VGGFeatureExtractor`, YAML `perceptual_opt`). The
@@ -8,7 +9,9 @@ package reads; without it they are the JAX package's seeded draw
 (`init_vgg_params`: `RandomState(0)`, he-normal in HWIO order, zero
 bias), transposed to OIHW, so the two packages' seeded VGG19 are the same
 bits. The weights are buffers: frozen, in no optimizer. The target's
-features are computed without a gradient.
+features are computed without a gradient. `VGG16_LAYERS` and `l2_pool`
+(`pool="l2"` in `vgg_features`) are LPIPS's and DISTS's backbone
+(`vmambair_tpu/losses/perceptual.py:41-50`, `:86-99`).
 """
 
 from __future__ import annotations
@@ -35,6 +38,15 @@ VGG19_LAYERS = [
     ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), ("conv4_4", 512),
     "M",
     ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512), ("conv5_4", 512),
+]
+
+# VGG16, the backbone of LPIPS (net='vgg') and DISTS
+VGG16_LAYERS = [
+    ("conv1_1", 64), ("conv1_2", 64), "M",
+    ("conv2_1", 128), ("conv2_2", 128), "M",
+    ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), "M",
+    ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), "M",
+    ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512),
 ]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -73,11 +85,26 @@ def _oihw(kernel) -> torch.Tensor:
         np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))))
 
 
+def l2_pool(x: torch.Tensor) -> torch.Tensor:
+    """DISTS's antialiased L2 pooling: the square root of x^2 filtered by
+    the normalised outer product of the 3-tap Hann window, per channel,
+    stride 2, padding 1."""
+    w1 = np.hanning(5)[1:-1]
+    w2 = np.outer(w1, w1)
+    w2 = torch.from_numpy((w2 / w2.sum()).astype(np.float32)).to(x.device)
+    c = x.shape[1]
+    y = F.conv2d(x.square(), w2.expand(c, 1, 3, 3), stride=2, padding=1,
+                 groups=c)
+    return torch.sqrt(y.clamp_min(0.0) + 1e-12)
+
+
 def vgg_features(x, params, layer_names: Sequence[str],
-                 use_input_norm=True, range_norm=False, plan=VGG19_LAYERS):
+                 use_input_norm=True, range_norm=False, plan=VGG19_LAYERS,
+                 pool="max"):
     """x: (B, 3, H, W) in [0, 1] (or [-1, 1] with range_norm); params
     {name: (weight, bias)}. Returns {name: activation} of the requested
-    layers (after their ReLU), running the plan only as far as needed."""
+    layers (after their ReLU), running the plan only as far as needed.
+    pool: "max" (VGG's 2x2) or "l2" (DISTS's `l2_pool`)."""
     if range_norm:
         x = (x + 1.0) / 2.0
     if use_input_norm:
@@ -90,7 +117,7 @@ def vgg_features(x, params, layer_names: Sequence[str],
         if not remaining:
             break
         if item == "M":
-            x = F.max_pool2d(x, 2)
+            x = l2_pool(x) if pool == "l2" else F.max_pool2d(x, 2)
             continue
         name, _ = item
         w, b = params[name]
@@ -107,10 +134,29 @@ def vgg19_features(x, params, layer_names: Sequence[str],
                         plan=VGG19_LAYERS)
 
 
+class FrozenVGG(nn.Module):
+    """A VGG of `plan` held as buffers (frozen, in no optimizer; `.to`
+    carries them to the device): `init_vgg_params`' weights."""
+
+    def __init__(self, pretrained_path: Optional[str] = None, seed: int = 0,
+                 plan=VGG19_LAYERS):
+        super().__init__()
+        params, self.is_pretrained = init_vgg_params(pretrained_path, seed,
+                                                     plan)
+        self.names = list(params)
+        for name, (w, b) in params.items():
+            self.register_buffer(f"{name}_weight", w)
+            self.register_buffer(f"{name}_bias", b)
+
+    @property
+    def params(self) -> Dict[str, tuple]:
+        return {n: (getattr(self, f"{n}_weight"), getattr(self, f"{n}_bias"))
+                for n in self.names}
+
+
 @LOSS_REGISTRY.register(name="PerceptualLoss")
-class PerceptualLoss(nn.Module):
-    """Returns (l_percep, l_style), each None where its weight is 0. An
-    nn.Module only to carry VGG19's buffers to the device (`.to`)."""
+class PerceptualLoss(FrozenVGG):
+    """Returns (l_percep, l_style), each None where its weight is 0."""
 
     def __init__(
         self,
@@ -123,7 +169,7 @@ class PerceptualLoss(nn.Module):
         criterion: str = "l1",
         pretrained_path: Optional[str] = None,
     ):
-        super().__init__()
+        super().__init__(pretrained_path)
         assert vgg_type == "vgg19", "only vgg19 is supported"
         self.layer_weights = dict(layer_weights)
         self.use_input_norm = use_input_norm
@@ -131,11 +177,6 @@ class PerceptualLoss(nn.Module):
         self.perceptual_weight = perceptual_weight
         self.style_weight = style_weight
         self.criterion = criterion
-        params, self.is_pretrained = init_vgg_params(pretrained_path)
-        self.names = list(params)
-        for name, (w, b) in params.items():
-            self.register_buffer(f"{name}_weight", w)
-            self.register_buffer(f"{name}_bias", b)
         if not self.is_pretrained:
             logger.warning(
                 "PerceptualLoss has no pretrained_path — using seeded "
@@ -143,11 +184,6 @@ class PerceptualLoss(nn.Module):
                 "training signal but NOT the published VGG19-perceptual "
                 "loss (convert torchvision weights via "
                 "scripts/convert_metric_weights.py for parity)")
-
-    @property
-    def params(self) -> Dict[str, tuple]:
-        return {n: (getattr(self, f"{n}_weight"), getattr(self, f"{n}_bias"))
-                for n in self.names}
 
     def _crit(self, a, b):
         if self.criterion == "l1":

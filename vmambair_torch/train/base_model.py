@@ -100,7 +100,9 @@ class BaseModel:
                    save_img: bool = False) -> Dict[str, float]:
         """Runs `test` on every image of the loader (batches of 1), writes
         the outputs as PNG when `save_img`, and averages each metric of
-        `val.metrics` over the images; logs and returns the averages."""
+        `val.metrics` over the images (on the model's device; NIQE on the
+        output alone); logs and returns the averages, a metric on a seeded
+        backbone under `<name>_uncalibrated`."""
         dataset_name = getattr(dataloader, "name", None) or "val"
         metric_opts = (self.opt.get("val") or {}).get("metrics") or {}
         report_keys = {k: metric_report_key(k, dict(v))
@@ -124,7 +126,8 @@ class BaseModel:
                 gt_img = batch2img(_hwc(self.gt[0]))
                 for name, mopt in metric_opts.items():
                     results[name].append(
-                        calculate_metric(dict(mopt), sr_img, gt_img))
+                        calculate_metric(dict(mopt), sr_img, gt_img,
+                                         device=self.device))
             cnt += 1
         out = {}
         if metric_opts and cnt:
