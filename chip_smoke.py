@@ -15,7 +15,8 @@ non-zero, and without a CUDA device the script stops before any result:
    y equal to K1's / K4's, carries within the fp32 envelope. The scan
    backward (K3): all seven outputs within 5x the fp32 envelope (rtol
    3e-3, atol 1e-2), on fp32 and on bf16 inputs. Times from CUDA events
-   (median of repeats) for the kernel and the plain version, beside the
+   (median of repeats; a plain version whose reference call took over
+   50 ms timed once) for the kernel and the plain version, beside the
    least time the card could take (bound) at the case's shapes. K1 at the
    four shapes of a served forward ((8,2,96,16384), (8,2,48,16384),
    (8,2,96,4096), (8,2,192,1024)), K2 at the five of a served forward
@@ -62,7 +63,11 @@ non-zero, and without a CUDA device the script stops before any result:
    too), K2 at (1,48,384,384); a whole-image evaluation: K1 at
    (1,2,96,262144) and K4 at (1,4096,768) (a 512x512 image), K2 at a
    481x321 image's padded (1,48,328,488) and (1,384,41,61); each timed
-   beside its plain version and its bound;
+   beside its plain version and its bound; K4's state form (the
+   sequence-parallel passes: from an entering state, with the last state)
+   at phase 7f's level-1 shape (1,65536,96) fp32 (64 segments) and at the
+   latent (8,256,768) bf16, each way, y in its dtype's envelope and the
+   last state in fp32's, each timed beside its plain version and bound;
 4. model  - MambaSISR6 widths at depth [1,1,1,1] + 1, one batch of 8
    128x128 tiles in fp32, kernels vs the plain path, within 1e-3;
 4b. model gradients - the same depth, fp32, 8 x 64x64 LQ, L1 loss: every
@@ -202,6 +207,27 @@ non-zero, and without a CUDA device the script stops before any result:
    of 8, and the FID of SR against GT (scipy on the host) against the
    exact distance of those 4 + 4 features (the rank-3 identity) within
    1e-4 relative.
+7f. distributed - data parallelism and the sequence-parallel scan at
+   world 1 over NCCL (one card), in one torchrun of one rank
+   (`python -m torch.distributed.run --standalone --nproc_per_node 1
+   chip_smoke.py --rank OUT TRAIN_ARGS --then INFER_ARGS`, the rank
+   running `train_torch.py`'s code on TRAIN_ARGS, then
+   `inference_torch.py --sp`'s on INFER_ARGS over the same group): the S1
+   pipeline of full-width MambaSISR6 under `--launcher pytorch` for 2
+   iterations on phase 7's PNGs, its launches (K1c 98, K4c 52, K2 50, K3
+   150 a step, as predicted), its iteration 2 traced by the step profiler
+   (`train.profile_dir`; the table in `OUT_DIR/ddp_step_profile.txt`), its
+   checkpoint without a `module.` prefix; then DDP and plain steps in
+   turns on phase 6's batch, each from the pipeline's final state (ms of
+   each), the DDP step held against the plain one: l_pix within 1e-5
+   relative, each gradient within 1e-4 of its tensor's largest entry,
+   each tensor's update within 1e-2 of the plain update (L2; a skipped
+   update stands at 1); `inference_torch.py --sp` on one 256x256 LQ at
+   full width from that checkpoint: launches as
+   `expected_launches(sp=True)` predicts (K4's state form 4 a block, K4
+   for the channel scans, K2, no K1), the output PNG within one grey
+   level of the normal path's, the forward's ms beside the normal one's,
+   and its device ms by class;
 8. probes - the scan-design probes (`vmambair_torch/tools/`) at
    MambaSISR6's full-resolution scan (B=8 tiles of 128x128, L=16384, G=2
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
@@ -261,7 +287,8 @@ and on (interleaved, 6 of each; K5 and K6 once per MamberBlock when on,
 never when off). fp32 matrix products and convolutions run in full fp32
 (TF32 off). The second-to-last lines are a JSON object of the kernels
 (for K1-K6 the launches in the serve, train, pipeline, GAN, RealSR,
-deraining and metrics phases,
+deraining, metrics and distributed phases, for K4's state form those of
+the distributed phase,
 for the probe kernels those of the probe paths of phases 8 to 10, which
 must be at least one each; a launch is one call of the kernel's wrapper, which for K1, K1c and
 `ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
@@ -274,6 +301,7 @@ power limit from nvidia-smi; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import random
@@ -299,6 +327,7 @@ from vmambair_torch.train.checkpoint import save_network
 from vmambair_torch.train.pipeline import test_pipeline, train_pipeline
 from vmambair_torch.utils.img_util import imread, imwrite
 from vmambair_torch.utils.options import finalize_options
+from vmambair_torch.utils.profiling import event_totals, totals_table
 from vmambair_torch.utils.upscaler import RestorationUpscaler
 
 PALLAS = "vmambair_tpu/ops/pallas_scan.py"
@@ -321,6 +350,11 @@ KERNELS = {
         fn=cuda_scan.selective_scan_fwd_carries,
         source="vmambair_torch/csrc/selective_scan.cu",
         replaces=f"{PALLAS}:401", path="model"),
+    # K4's state form: the sequence-parallel scan's passes (phase 7f)
+    "selective_scan_state": dict(
+        fn=cuda_scan.selective_scan_fwd_state,
+        source="vmambair_torch/csrc/selective_scan.cu",
+        replaces=f"{PALLAS}:74", path="sp"),
     "selective_scan_bwd": dict(
         fn=cuda_scan.selective_scan_bwd,
         source="vmambair_torch/csrc/selective_scan_bwd.cu",
@@ -418,8 +452,10 @@ KERNELS = {
         grids_per_launch=cuda_scan.K1_GRIDS),
 }
 # `path`: where a kernel's launches are counted, the model's paths (serve,
-# train, pipeline) or the probe paths of phases 8 to 10
-MODEL_KERNELS = tuple(n for n, k in KERNELS.items() if k["path"] == "model")
+# train, pipeline), the sequence-parallel path of phase 7f, or the probe
+# paths of phases 8 to 10
+MODEL_KERNELS = tuple(n for n, k in KERNELS.items()
+                      if k["path"] in ("model", "sp"))
 # K1's (b, d, L) in a served forward of 8 128x128 tiles: decoder_level1
 # and refinement (60 launches), encoder_level1 (30), levels 2 and 3 (4 each)
 K1_SERVE_SHAPES = ((8, 96, 16384), (8, 48, 16384), (8, 96, 4096),
@@ -534,14 +570,16 @@ FRONT_TAIL_PARAMS = ("attn.in_conv.weight", "attn.in_conv.bias",
 SWITCHES = ("VMAMBAIR_OSS_FRONT", "VMAMBAIR_OSS_TAIL")
 
 
-def expected_launches(net, train: bool = False) -> dict:
+def expected_launches(net, train: bool = False, sp: bool = False) -> dict:
     """Kernel launches of one forward (train: one training step), as the
     port's dispatch routes it: per MamberBlock two spatial pair scans (K1
     when the width is at most 256, else K4), one channel scan (K4) and one
     GDFN (K2), and with the switches on one OSS front (K5) and one OSS
     tail (K6). A training step takes the carry-saving forwards (K1c, K4c)
     instead of K1 and K4, and one scan backward (K3) per scan; K2, K5 and
-    K6 have no backward kernel."""
+    K6 have no backward kernel. sp: a `scan_impl: "sp"` forward whose
+    every L divides over the group: each spatial pair scan is two launches
+    of K4's state form (`parallel/sp_scan.py`'s passes), no K1."""
     out = dict.fromkeys(KERNELS, 0)
     sfx = "_carries" if train else ""
     for m in net.modules():
@@ -549,7 +587,11 @@ def expected_launches(net, train: bool = False) -> dict:
             continue
         wide = not cuda_scan.fused_scan_supported(m.attn.d_inner,
                                                   m.attn.d_state)
-        out[("selective_scan" if wide else "oss_scan_fused") + sfx] += 2
+        if sp:
+            out["selective_scan_state"] += 4
+        else:
+            out[("selective_scan" if wide else "oss_scan_fused")
+                + sfx] += 2
         out["selective_scan" + sfx] += 1
         if train:
             out["selective_scan_bwd"] += 3
@@ -586,11 +628,18 @@ def launches() -> dict:
     return {name: k["fn"].launches for name, k in KERNELS.items()}
 
 
-def time_ms(fn, reps=5) -> float:
-    """Median over `reps` of CUDA-event time, after one warm-up call; each
-    call queued behind a device sleep (`tools.hold`), so that a call
-    shorter than its host-side launch path is timed on the card alone."""
-    fn()
+# phase 3 times a plain version once where its reference call took longer
+# than this (s), and takes the median of 3 below it
+PLAIN_ONCE_S = 0.05
+
+
+def time_ms(fn, reps=5, warm=True) -> float:
+    """Median over `reps` of CUDA-event time, after one warm-up call (none
+    with `warm=False`, where the caller has just made it); each call
+    queued behind a device sleep (`tools.hold`), so that a call shorter
+    than its host-side launch path is timed on the card alone."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
@@ -838,6 +887,15 @@ def _scan_bound(args, out_dtype, carries=False):
     if carries:
         by += b * d * cuda_scan.n_chunks(L) * N * 4
     return bound(by, 10 * b * L * d * N, exp2=b * L * d * N)
+
+
+def _state_bound(args, out_dtype):
+    """K4's bound, with the entering state read and the last state
+    written once (fp32, (b, D, N) each)."""
+    b, _, d = args[0].shape
+    terms = _scan_bound(args, out_dtype)
+    terms["bytes_ms"] += 2 * b * d * args[2].shape[1] * 4 / HBM_BPS * 1e3
+    return terms
 
 
 def _bwd_bound(args, dy):
@@ -1275,6 +1333,31 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                                                     reverse=r)),
                     _scan_bound(a, dtype, carries=True))
 
+    # K4's state form (phase 7f's sequence-parallel passes), from a random
+    # entering state: first at the sp spatial shape of 7f's forward (a
+    # 256x256 LQ's level-1 pair, (1, 65536, 96) fp32 in 64 segments: the
+    # main path's), then at the latent (8,256,768) bf16, each way; y in
+    # its dtype's envelope and the last state in fp32's, each timed
+    def state_cmp(label, dtype):
+        return lambda got, ref: max(
+            check_close(f"{label} y", got[0], ref[0], *TOL[dtype]),
+            check_close(f"{label} last state", got[1], ref[1],
+                        *TOL[torch.float32]))
+
+    for (b, L, d, dtype) in ((1, 65536, 96, f32),
+                             (8, 256, 768, torch.bfloat16)):
+        for rev in (False, True):
+            a = _scan_case(b, L, d, dtype, gen)
+            h0 = torch.randn(b, d, 16, generator=gen).to("cuda")
+            lab = f"sp ({b},{L},{d}) G=2 rev={rev}"
+            add("selective_scan_state", lab, dtype,
+                lambda a=a, h=h0, r=rev: cuda_scan.selective_scan_fwd_state(
+                    *a, delta_softplus=True, reverse=r, h0=h),
+                lambda a=a, h=h0, r=rev: cuda_scan.selective_scan_state_ref(
+                    *a, delta_softplus=True, reverse=r, h0=h),
+                state_cmp(f"K4 state {lab} {dtype}", dtype),
+                _state_bound(a, dtype), timed=True, plain_timed=True)
+
     k3_calls = {}
     shape_ms = {"K1c": {}, "K2": {}, "K3": {}, "K4": {}, "K4c": {},
                 "K5": {}}
@@ -1292,7 +1375,12 @@ def kernels_vs_plain() -> tuple[dict, dict]:
          plain_timed) in cases:
         got = kern()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ref = plain()
+        torch.cuda.synchronize()
+        # the reference call warms the plain version up; one timed call
+        # where it takes over PLAIN_ONCE_S, three below
+        plain_reps = 1 if time.perf_counter() - t0 > PLAIN_ONCE_S else 3
         err = cmp(got, ref)
         del got, ref
         st = stats[name]
@@ -1301,7 +1389,8 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 f"{err:.3e}")
         ms = None
         if st["ms"] is None:  # the first case: the main path's shape
-            st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=3)
+            st["ms"] = time_ms(kern)
+            st["plain_ms"] = time_ms(plain, plain_reps, warm=False)
             st["terms"] = bnd
             ms = st["ms"]
             line += (f"; kernel {st['ms']:.4f} ms, plain "
@@ -1311,7 +1400,8 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             ms = time_ms(kern)
             line += f"; kernel {ms:.4f} ms"
             if plain_timed:
-                line += f", plain {time_ms(plain, reps=3):.4f} ms"
+                line += (f", plain "
+                         f"{time_ms(plain, plain_reps, warm=False):.4f} ms")
             line += bound_share(bnd, ms)
         if key is not None and ms is not None:
             shape_ms[by_name[name]][key] = ms
@@ -1750,33 +1840,29 @@ KERNEL_CLASSES = (
                       "cudnn", "winograd", "fft", "complex", "cf32")),
     ("matrix products (einsums)", ("gemm", "xmma", "cutlass", "splitK")),
     ("optimizer (Adam, EMA)", ("multi_tensor", "adam", "lerp")),
+    ("collectives (NCCL)", ("nccl",)),
     ("copies", ("Memcpy", "Memset", "copy")),
 )
 
 
-def device_breakdown(prof) -> dict:
-    """Device time (ms) of the profiled kernels, by class."""
+def device_breakdown(rows) -> dict:
+    """Device time (ms) of the profiled kernels and copies (the card's
+    rows of `event_totals`), by class."""
     out = {}
-    for row in prof.key_averages():
-        # kernels only, as the table's own total counts them: no CPU rows,
-        # no ranges annotated on the device (such as Optimizer.step)
-        if row.device_type != torch.autograd.DeviceType.CUDA or getattr(
-                row, "is_user_annotation", False):
-            continue
-        ms = getattr(row, "self_device_time_total",
-                     getattr(row, "self_cuda_time_total", 0)) / 1e3
-        cls = next((c for c, keys in KERNEL_CLASSES
-                    if any(k in row.key for k in keys)),
-                   "elementwise and reductions")
-        out[cls] = out.get(cls, 0.0) + ms
+    for name, card, _, ms in rows:
+        if card:
+            cls = next((c for c, keys in KERNEL_CLASSES
+                        if any(k in name for k in keys)),
+                       "elementwise and reductions")
+            out[cls] = out.get(cls, 0.0) + ms
     return out
 
 
 def profile(name, fn, extra=None):
-    """A torch.profiler table of one call of fn (top rows printed, all in
-    chiprun_out/<name>_profile.txt) and its device time by class against
-    the host clock around the call; `extra(prof)`, if given, adds lines
-    of its own to both."""
+    """A torch.profiler table of one call of fn (`event_totals`: top rows
+    printed, all in chiprun_out/<name>_profile.txt) and its device time by
+    class against the host clock around the call; `extra(prof)`, if
+    given, adds lines of its own to both."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1785,9 +1871,9 @@ def profile(name, fn, extra=None):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=60)
-    by_class = device_breakdown(prof)
+    rows = event_totals(prof)
+    table = totals_table(rows)
+    by_class = device_breakdown(rows)
     busy = sum(by_class.values())
     summary = (f"[{name}] device time by class (ms): " + ", ".join(
         f"{c} {v:.1f}" for c, v in sorted(by_class.items(),
@@ -3776,6 +3862,326 @@ def metrics_phase() -> dict:
     return counts
 
 
+# -- phase 7f: distributed -----------------------------------------------------
+
+DIST = os.path.join("build", "chip_smoke_dist")
+# torchrun of one rank, on a free port, of this script's rank mode
+TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1")
+# the DDP step against the plain step from the same state on the same
+# batch: the logged l_pix (relative), each gradient (of its tensor's
+# largest entry; DDP's one-rank mean and cuDNN's nondeterministic sums),
+# each tensor's update w - w0 (L2, relative to the plain update's: an
+# update skipped stands at 1, halved at 0.5)
+DDP_LOSS_BAR, DDP_GRAD_BAR, DDP_UPDATE_BAR = 1e-5, 1e-4, 1e-2
+
+
+def _dist_opt(root: str) -> dict:
+    """RECIPE's S1 options (a YAML's, before `parse_options`) on phase 7's
+    synthetic PNGs: 2 iterations of batch 8 x 256x256 GT, no validation,
+    the checkpoint at the end, `num_gpu: auto`; the experiment under
+    `root`."""
+    opt = json.loads(json.dumps(RECIPE))
+    opt.update(num_gpu="auto", datasets={"train": {
+        "name": "synthetic DF2K", "type": "PairedImageDataset",
+        "dataroot_gt": os.path.join(DATA, "train", "gt"),
+        "dataroot_lq": os.path.join(DATA, "train", "lq"),
+        "io_backend": {"type": "disk"}, "gt_size": 256, "use_hflip": True,
+        "use_rot": True, "num_worker_per_gpu": 8, "batch_size_per_gpu": 8,
+        "dataset_enlarge_ratio": 100}},
+        path={"experiments_root": os.path.join(root, "exp")},
+        logger={"print_freq": 1, "save_checkpoint_freq": 100,
+                "use_tb_logger": False})
+    opt.pop("is_train")
+    opt["train"]["total_iter"] = 2
+    return opt
+
+
+def _train_state(model) -> tuple:
+    """Copies of what an S1 step changes: net_g's and the EMA's weights
+    and the optimizer's state."""
+    return ([p.detach().clone() for p in model.net_g.parameters()],
+            [p.detach().clone() for p in model.net_g_ema.parameters()],
+            copy.deepcopy(model.optimizer.state_dict()))
+
+
+@torch.no_grad()
+def _load_train_state(model, state):
+    g, ema, optim = state
+    for p, w in zip(model.net_g.parameters(), g):
+        p.copy_(w)
+    for p, w in zip(model.net_g_ema.parameters(), ema):
+        p.copy_(w)
+    # load_state_dict keeps the tensors it is given: hand it copies
+    model.optimizer.load_state_dict(copy.deepcopy(optim))
+
+
+def _ddp_vs_plain(steps: dict, w0: list, names: list) -> dict:
+    """The DDP step against the plain step (each: l_pix, gradients,
+    weights after): the l_pix's relative gap, each gradient's gap over
+    its tensor's largest entry, each update's L2 gap over the plain
+    update's. conv_cout.bias (a shift before a mean-subtracting
+    LayerNorm: its exact gradient is 0) is held to 1e-5 of the largest
+    gradient on both sides, and its update, Adam's scaled noise, is left
+    out."""
+    d, p = steps["ddp"], steps["plain"]
+    top = max(g.abs().max().item() for g in p["grads"])
+    grad, upd, zero, still = (0.0, ""), (0.0, ""), 0.0, []
+    for k, gd, gp, wd, wp, w in zip(names, d["grads"], p["grads"],
+                                    d["weights"], p["weights"], w0):
+        if k.endswith("conv_cout.bias"):
+            zero = max(zero, gd.abs().max().item() / top,
+                       gp.abs().max().item() / top)
+            continue
+        gap, big = ((gd - gp).abs().max().item(), gp.abs().max().item())
+        rel = gap / big if big else (float("inf") if gap else 0.0)
+        grad = max(grad, (rel, k))
+        step = (wp - w).norm().item()
+        if step == 0:
+            still.append(k)
+            continue
+        upd = max(upd, ((wd - wp).norm().item() / step, k))
+    n_zero = sum(k.endswith("conv_cout.bias") for k in names)
+    return {"l_pix": [d["l_pix"], p["l_pix"]],
+            "loss_rel": abs(d["l_pix"] - p["l_pix"]) / abs(p["l_pix"]),
+            "grad": grad, "update": upd, "zero": zero, "n_zero": n_zero,
+            "still": still, "checked": len(names) - n_zero}
+
+
+def _ddp_rank(argv: list) -> dict:
+    """7f's data-parallel run in its rank: `train_torch.py`'s pipeline
+    (`parse_options` with `--launcher pytorch` joins the NCCL group, then
+    `train_pipeline`) with its launches counted and iteration 2 traced by
+    the step profiler; then DDP steps and plain steps (the bare net, no
+    all-reduce) in turns on phase 6's batch, each from the pipeline's
+    final state and timed, the first of each kind held against the
+    other (`_ddp_vs_plain`)."""
+    from vmambair_torch.utils.options import parse_options
+
+    opt = parse_options(".", is_train=True, argv=argv)
+    opt.pop("launcher")  # the group outlives the pipeline: the sp run's
+    reset_launches()
+    model = train_pipeline(".", opt)
+    torch.cuda.synchronize()
+    counts = launches()
+    model.feed_data(_train_batch())
+    ddp = model.train_g
+    state = _train_state(model)
+    ms, steps = {"ddp": [], "plain": []}, {}
+    for kind in ("ddp", "plain", "plain", "ddp", "ddp", "plain"):
+        _load_train_state(model, state)
+        model.train_g = ddp if kind == "ddp" else model.net_g
+        before = launches()
+        t0 = time.perf_counter()
+        model.optimize_parameters(3)
+        torch.cuda.synchronize()
+        ms[kind].append(1e3 * (time.perf_counter() - t0))
+        now = launches()
+        step = {k: now[k] - before[k] for k in now}
+        if step != expected_launches(model.net_g, train=True):
+            raise SystemExit(f"FAIL distributed: {kind} step launches "
+                             f"{step}")
+        if kind not in steps:
+            params = list(model.net_g.parameters())
+            steps[kind] = {
+                "l_pix": model.log_dict["l_pix"].item(),
+                "grads": [q.grad.clone() for q in params],
+                "weights": [q.detach().clone() for q in params]}
+    names = [k for k, _ in model.net_g.named_parameters()]
+    return {"launches": counts, "ms": ms,
+            "step": _ddp_vs_plain(steps, state[0], names),
+            "ddp": type(ddp).__name__,
+            "world": torch.distributed.get_world_size(),
+            "backend": torch.distributed.get_backend(),
+            "iter_ms": 1e3 * model.timers["iter"].get_avg_time()}
+
+
+def _sp_rank(argv: list) -> dict:
+    """7f's sequence-parallel run in its rank, over the group that
+    `_ddp_rank` joined: `inference_torch.py --sp`'s steps (the world's
+    group installed, the `scan_impl: "sp"` net, the image through it,
+    rank 0 writing it) with its launches counted; then 3 timed forwards
+    of the same image and one profiled."""
+    from vmambair_torch import inference
+    from vmambair_torch.parallel import use_sp_group
+
+    args = inference.parse_args(argv)
+    with use_sp_group(torch.distributed.group.WORLD):
+        ups = inference.build_upscaler(
+            args, torch.device("cuda", torch.cuda.current_device()))
+        reset_launches()
+        inference.process(args, ups)
+        torch.cuda.synchronize()
+        counts = launches()
+        img = imread(args.input, "color")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ups.enhance(img)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        by_class = profile("sp_forward", lambda: ups.enhance(img))
+    return {"launches": counts, "ms": times, "by_class": by_class,
+            "predicted": expected_launches(ups.model, sp=True),
+            "world": torch.distributed.get_world_size()}
+
+
+def rank_main(argv: list):
+    """`chip_smoke.py --rank OUT.json TRAIN_ARGS... --then INFER_ARGS...`:
+    the one rank of phase 7f under torchrun (one process start, one NCCL
+    init): `_ddp_rank` on train_torch.py's arguments, then `_sp_rank` on
+    inference_torch.py's; both results to OUT.json."""
+    from vmambair_torch.parallel import destroy_distributed
+
+    probe()
+    out_path, rest = argv[0], argv[1:]
+    cut = rest.index("--then")
+    try:
+        res = {"ddp": _ddp_rank(rest[:cut])}
+        torch.cuda.empty_cache()
+        res["sp"] = _sp_rank(rest[cut + 1:])
+    finally:
+        destroy_distributed()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _ms_list(ms: list) -> str:
+    return " / ".join(f"{t:.1f}" for t in ms)
+
+
+def distributed() -> dict:
+    """Phase 7f: the data-parallel S1 pipeline and then the
+    sequence-parallel inference at world 1 over NCCL, in one torchrun of
+    one rank (the card has one GPU), against the same work without a
+    process group. Returns the launches of both runs."""
+    t0 = time.perf_counter()
+    if not os.path.isdir(DATA):
+        write_dataset()
+    shutil.rmtree(DIST, ignore_errors=True)
+    os.makedirs(DIST)
+    opt_path = os.path.join(DIST, "s1.json")
+    trace = os.path.join(DIST, "trace")
+    ddp_opt = _dist_opt(os.path.join(DIST, "ddp"))
+    # the step profiler (train.profile_dir) traces iteration 2 on the card
+    ddp_opt["train"].update(profile_dir=trace, profile_start=2,
+                            profile_iters=1)
+    with open(opt_path, "w") as f:
+        json.dump(ddp_opt, f)
+    # the sp run: inference_torch.py --sp on one 256x256 LQ at full width
+    # from the DDP run's checkpoint
+    lq_dir = os.path.join(DIST, "lq")
+    imwrite(_synthetic_image(np.random.RandomState(5), 256, 256),
+            os.path.join(lq_dir, "img.png"))
+    ckpt = os.path.join(DIST, "ddp", "exp", "models", "net_g_2.pth")
+    cli = ["--model_path", ckpt, "--arch", "MambaSISR6", "--network_opt",
+           json.dumps(RECIPE["network_g"]), "-i",
+           os.path.join(lq_dir, "img.png"), "--scale", "4", "--device",
+           "cuda"]
+    out = os.path.join(DIST, "rank.json")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    subprocess.run([*TORCHRUN, "chip_smoke.py", "--rank", out, "-opt",
+                    opt_path, "--launcher", "pytorch", "--device", "cuda",
+                    "--then", *cli, "-o", os.path.join(DIST, "sp_out"),
+                    "--sp"], check=True, timeout=600)
+    t2 = time.perf_counter()
+    with open(out) as f:
+        res = json.load(f)
+    ddp, sp = res["ddp"], res["sp"]
+    if ddp["ddp"] != "DistributedDataParallel" or ddp["world"] != 1 or (
+            ddp["backend"] != "nccl"):
+        raise SystemExit(f"FAIL distributed: {ddp['ddp']} at world "
+                         f"{ddp['world']} over {ddp['backend']}")
+    net = build_network(RECIPE["network_g"], device="cpu")
+    per_step = expected_launches(net, train=True)
+    if ddp["launches"] != {k: 2 * v for k, v in per_step.items()}:
+        raise SystemExit(f"FAIL distributed: DDP pipeline launches "
+                         f"{ddp['launches']}, predicted 2 x {per_step}")
+    print(f"[distributed] torchrun (1 rank, NCCL) of train_torch.py's "
+          f"pipeline, 2 S1 iterations of full-width MambaSISR6, then of "
+          f"inference_torch.py --sp, in {t2 - t1:.1f} s: launches per step "
+          f"{_nonzero(per_step)} (as predicted); ms per iteration "
+          f"{ddp['iter_ms']:.1f}")
+    if sorted(os.listdir(trace)) != ["by_class.txt", "trace.json"]:
+        raise SystemExit(f"FAIL distributed: the step profiler wrote "
+                         f"{os.listdir(trace)}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    shutil.copy(os.path.join(trace, "by_class.txt"),
+                os.path.join(OUT_DIR, "ddp_step_profile.txt"))
+    with open(os.path.join(trace, "by_class.txt")) as f:
+        print("[distributed] the step profiler's table of iteration 2 "
+              f"(top rows; all in {OUT_DIR}/ddp_step_profile.txt):\n"
+              + "".join(f.readlines()[:14]))
+    saved = torch.load(ckpt, map_location="cpu")
+    for key in ("params", "params_ema"):
+        if saved[key].keys() != net.state_dict().keys():
+            raise SystemExit(f"FAIL distributed: the DDP checkpoint's "
+                             f"{key} keys differ from the bare net's")
+    del saved
+    st = ddp["step"]
+    if (st["loss_rel"] > DDP_LOSS_BAR or st["grad"][0] > DDP_GRAD_BAR
+            or st["update"][0] > DDP_UPDATE_BAR or st["still"]
+            or st["zero"] > 1e-5):
+        raise SystemExit(f"FAIL distributed: the DDP step against the "
+                         f"plain step: {st}")
+    dd, pl = (statistics.median(ddp["ms"][k]) for k in ("ddp", "plain"))
+    print(f"[distributed] the DDP step against the plain step from the "
+          f"pipeline's final state on phase 6's batch: l_pix "
+          f"{st['l_pix'][0]:.7f} / {st['l_pix'][1]:.7f} (rel "
+          f"{st['loss_rel']:.2e}, bar {DDP_LOSS_BAR}); {st['checked']} "
+          f"gradients within {st['grad'][0]:.2e} of their largest entry "
+          f"(worst at {st['grad'][1]}, bar {DDP_GRAD_BAR}); their updates "
+          f"within {st['update'][0]:.2e} of the plain update's L2 norm "
+          f"(worst at {st['update'][1]}, bar {DDP_UPDATE_BAR}; a skipped "
+          f"update stands at 1); the {st['n_zero']} conv_cout.bias "
+          f"gradients (exactly 0) within {st['zero']:.1e} of the largest "
+          f"on both sides (bar 1e-5); the checkpoint without a "
+          f"`module.` prefix; S1 step ms (median of 3, in turns from the "
+          f"same state): DDP {dd:.1f}, plain {pl:.1f} ({dd / pl:.3f}x; "
+          f"each: DDP {_ms_list(ddp['ms']['ddp'])}, plain "
+          f"{_ms_list(ddp['ms']['plain'])}); "
+          f"card {nvidia_smi_line()}")
+    torch.cuda.empty_cache()
+
+    if sp["launches"] != sp["predicted"] or sp["world"] != 1:
+        raise SystemExit(f"FAIL distributed: sp launches {sp['launches']}, "
+                         f"predicted {sp['predicted']}")
+    from vmambair_torch import inference
+
+    args = inference.parse_args(cli + ["-o", os.path.join(DIST, "out")])
+    ups = inference.build_upscaler(args, torch.device("cuda"))
+    reset_launches()
+    inference.process(args, ups)
+    plain = launches()
+    img = imread(args.input, "color")
+    times = []
+    for _ in range(3):
+        t5 = time.perf_counter()
+        ups.enhance(img)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t5))
+    got, ref = (imread(os.path.join(DIST, d, "img_out.png")).astype(int)
+                for d in ("sp_out", "out"))
+    grey = int(np.abs(got - ref).max())
+    if got.shape != (1024, 1024, 3) or grey > 1:
+        raise SystemExit(f"FAIL distributed: the sp output {got.shape} "
+                         f"{grey} grey levels from the normal path's")
+    print(f"[distributed] inference_torch.py --sp in the same rank, one "
+          f"256x256 LQ at full width: launches "
+          f"{_nonzero(sp['launches'])} (as predicted); output against the "
+          f"normal path's ({_nonzero(plain)}): {grey} grey level(s) at "
+          f"most (bar 1: the sharded and the fused scans' fp32 rounding); "
+          f"forward ms (median of 3) sp "
+          f"{statistics.median(sp['ms']):.1f}, normal "
+          f"{statistics.median(times):.1f}; sp device ms by class "
+          + ", ".join(f"{c} {v:.1f}" for c, v in sorted(
+              sp["by_class"].items(), key=lambda kv: -kv[1]))
+          + f"; phase {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(DIST, ignore_errors=True)
+    return {k: ddp["launches"][k] + sp["launches"][k] for k in KERNELS}
+
+
 # -- phase 8: the scan-design probes -------------------------------------------
 
 PROBE_SHAPE = kvariants.Shape(**kvariants.SHAPE)
@@ -4415,6 +4821,8 @@ def main():
     torch.cuda.empty_cache()
     metric_counts = metrics_phase()
     torch.cuda.empty_cache()
+    dist_counts = distributed()
+    torch.cuda.empty_cache()
     t8 = time.perf_counter()
     probe_kernels_vs_plain(stats)
     probe_counts, ex2_rate = probe_race()
@@ -4441,11 +4849,14 @@ def main():
                   f"{finish_bound(terms)['bound_ms']:.4f} ms without")
         if name in MODEL_KERNELS:
             # launched on its own path: serve, train, the pipeline, the
-            # GAN stage, RealSR, deraining and the metrics' validation
+            # GAN stage, RealSR, deraining, the metrics' validation and
+            # the distributed runs (K4's state form on the last alone)
             n = (serve_counts[name] + train_counts[name] + pipe_counts[name]
                  + gan_counts[name] + realsr_counts[name]
-                 + derain_counts[name] + metric_counts[name])
-            if n == 0 or pipe_counts[name] == 0:
+                 + derain_counts[name] + metric_counts[name]
+                 + dist_counts[name])
+            own = (dist_counts if k["path"] == "sp" else pipe_counts)[name]
+            if n == 0 or own == 0:
                 raise SystemExit(f"FAIL: {name} never launched on a main "
                                  "path")
             counts = dict(launches=n, launches_serve=serve_counts[name],
@@ -4454,7 +4865,8 @@ def main():
                           launches_gan=gan_counts[name],
                           launches_realsr=realsr_counts[name],
                           launches_derain=derain_counts[name],
-                          launches_metrics=metric_counts[name])
+                          launches_metrics=metric_counts[name],
+                          launches_distributed=dist_counts[name])
         else:
             # launched on its own path: the probes
             if probe_counts[name] == 0:
@@ -4476,4 +4888,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

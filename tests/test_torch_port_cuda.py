@@ -1690,3 +1690,119 @@ def test_metrics_imresize_on_the_card_matches_the_cpu(cuda, scale):
             np.testing.assert_array_equal(got, ref)
         else:
             np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+# K4's state form (the sequence-parallel scan's passes): within one
+# segment (a latent pair, a channel scan) and over several (L = 3001: 12
+# segments of 256; L = 2100 with N = 40: 9 segments in 3 state passes)
+SP_K4_CASES = [(2, 256, 64, 2, 16, "pair"), (8, 96, 8, 2, 16, "channel"),
+               (2, 3001, 8, 2, 16, "channel"), (1, 2100, 6, 2, 40, "pair")]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,L,D,G,N,layout", SP_K4_CASES)
+def test_sp_k4_state_form_matches_plain(cuda, b, L, D, G, N, layout,
+                                        reverse, dtype, with_h0):
+    """y within the forward envelope of `selective_scan_state_ref` and the
+    last state within the fp32 envelope, from a given h0 or from zeros;
+    one launch of the state form's count per call; from zeros, y equal
+    to K4's (the combine's zeros are the zeros K4 starts from)."""
+    args = _k4_args(cuda, b, L, D, G, N, dtype, 7 * b + L + N, layout)
+    g = torch.Generator().manual_seed(L)
+    h0 = torch.randn(b, D, N, generator=g).to(cuda) if with_h0 else None
+    kw = dict(delta_softplus=True, reverse=reverse)
+    fn = cuda_scan.selective_scan_fwd_state
+    n0 = fn.launches
+    y, last = fn(*args, h0=h0, **kw)
+    assert fn.launches == n0 + 1
+    y_ref, last_ref = cuda_scan.selective_scan_state_ref(*args, h0=h0, **kw)
+    _close(y, y_ref, dtype)
+    _close(last, last_ref, torch.float32)
+    if h0 is None:
+        assert torch.equal(y, cuda_scan.selective_scan_fwd(*args, **kw))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sp_scan_composes_from_the_first_part_s_last_state(cuda, reverse):
+    """The scan of the latter part of L from the former part's last state
+    is the whole scan's latter part (reverse: the parts swap roles), fp32
+    over several segments."""
+    b, L, D, G, N = 2, 3000, 8, 2, 16
+    args = _k4_args(cuda, b, L, D, G, N, torch.float32, 3, "channel")
+    fn = cuda_scan.selective_scan_fwd_state
+    kw = dict(delta_softplus=True, reverse=reverse)
+    y, last = fn(*args, **kw)
+
+    def part(t, sl):
+        return t[:, sl] if t.dim() > 1 and t.shape[1] == L else t
+
+    first, second = ((slice(1200, L), slice(0, 1200)) if reverse
+                     else (slice(0, 1200), slice(1200, L)))
+    _, s = fn(*(part(t, first) for t in args), **kw)
+    y2, last2 = fn(*(part(t, second) for t in args), h0=s, **kw)
+    _close(y2, y[:, second], torch.float32)
+    _close(last2, last, torch.float32)
+
+
+def test_sp_leaves_the_recorded_k1_and_k3_bits(cuda):
+    """The combine's entering and last state (scan_seg.cuh) leave K1, K1c
+    and K3 as they were: their recorded digests hold."""
+    import json
+
+    from vmambair_torch.tools import ab
+
+    for path, fn in ((ab.DIGESTS_FILE, ab.digests),
+                     (ab.K3_DIGESTS_FILE, ab.k3_digests)):
+        with open(path) as f:
+            want = json.load(f)["digests"]
+        got = fn()
+        assert [k for k in want if got.get(k) != want[k]] == []
+
+
+def test_sp_and_ddp_at_world_1_over_nccl(cuda, tmp_path):
+    """A world of one over NCCL: `sharded_scan` equals the plain scan
+    (both ways), and a tiny S1 step under DDP equals the step without a
+    group within the fp32 envelope."""
+    import torch.distributed as dist
+
+    from vmambair_torch.parallel.sp_scan import sharded_scan
+    from vmambair_torch.train import build_model
+
+    def step():
+        opt = {"name": "t", "model_type": "MambaSISRModel", "is_train": True,
+               "scale": 4, "num_gpu": 1, "manual_seed": 0,
+               "network_g": {"type": "OSSNet", "dim": 8, "scale": 4,
+                             "num_blocks": [1, 1, 1, 1],
+                             "num_refinement_blocks": 1},
+               "path": {"models": str(tmp_path),
+                        "training_states": str(tmp_path)},
+               "train": {"ema_decay": 0.999,
+                         "optim_g": {"type": "Adam", "lr": 2e-4},
+                         "pixel_opt": {"type": "L1Loss"}},
+               "val": {"window_size": 8}}
+        m = build_model(opt, device="cuda")
+        g = torch.Generator().manual_seed(1)
+        m.feed_data({"lq": torch.rand(2, 16, 16, 3, generator=g).numpy(),
+                     "gt": torch.rand(2, 64, 64, 3, generator=g).numpy()})
+        m.optimize_parameters(1)
+        return m
+
+    plain = step()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        args = _k4_args(cuda, 2, 512, 16, 2, 16, torch.float32, 5, "pair")
+        for rev in (False, True):
+            with torch.no_grad():
+                y = sharded_scan(*args, delta_softplus=True, reverse=rev)
+            _close(y, cuda_scan.selective_scan_ref(
+                *args, delta_softplus=True, reverse=rev), torch.float32)
+        ddp = step()
+        assert type(ddp.train_g).__name__ == "DistributedDataParallel"
+        for (k, a), b in zip(ddp.net_g.state_dict().items(),
+                             plain.net_g.state_dict().values()):
+            _close(a, b, torch.float32)
+    finally:
+        dist.destroy_process_group()

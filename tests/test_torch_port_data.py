@@ -269,8 +269,9 @@ def test_device_prefetcher_on_cpu_runs_one_batch_ahead():
 
 def test_misc_and_options(tmp_path):
     """find_latest_state takes the highest iteration; check_resume points
-    pretrain_network_g at the port's .pth; num_gpu resolves to 1 and an int
-    above 1 raises; --force_yml values are literals."""
+    pretrain_network_g at the port's .pth; num_gpu resolves to the world
+    size (1 without a process group) and an int that differs from it
+    raises; --force_yml values are literals."""
     states = tmp_path / "states"
     states.mkdir()
     for name in ("4.state", "12.state", "x.state", "8.state"):
@@ -291,7 +292,7 @@ def test_misc_and_options(tmp_path):
     assert opt["num_gpu"] == 1 and opt["manual_seed"] >= 1
     assert opt["datasets"]["val_1"] == {"phase": "val", "scale": 4}
     assert opt["path"]["models"] == str(tmp_path / "experiments/x/models")
-    with pytest.raises(NotImplementedError, match="data parallelism is not ported"):
+    with pytest.raises(ValueError, match="differs from the world size 1"):
         options.finalize_options({"name": "x", "num_gpu": 2}, str(tmp_path))
     d = {}
     options.set_nested(d, "train:total_iter", "1e3")

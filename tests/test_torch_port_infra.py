@@ -54,7 +54,10 @@ def test_imports_with_jax_and_cv2_blocked():
             "vmambair_torch.metrics.lpips", "vmambair_torch.metrics.dists",
             "vmambair_torch.metrics.niqe", "vmambair_torch.metrics.inception",
             "vmambair_torch.metrics.fid",
-            "vmambair_torch.utils.matlab"} <= set(mods)
+            "vmambair_torch.utils.matlab", "vmambair_torch.parallel",
+            "vmambair_torch.parallel.mesh", "vmambair_torch.parallel.sp_scan",
+            "vmambair_torch.utils.profiling", "vmambair_torch.cli",
+            "vmambair_torch.train.__main__"} <= set(mods)
     code = BLOCKED + "".join(f"import {m}\n" for m in mods) + (
         "import chip_smoke, inference_torch, train_torch, test_torch\n"
         "assert not any(k.startswith(('jax', 'flax', 'vmambair_tpu'))\n"

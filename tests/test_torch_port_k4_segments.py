@@ -251,9 +251,46 @@ def test_k4_launch_passes_its_signature(monkeypatch, layout, L, carries):
     assert list(got[19:23]) == list(Cm.stride())
     seg = cuda_scan.k4_segment(b, D, G, L)
     assert list(got[-8:]) == [b, L, D, G, N, seg, 1, 1]
-    assert (got[-10] is None) == (not carries)
+    assert (got[-12] is None) == (not carries)
+    assert got[-10] is None and got[-9] is None  # no h0, no last state
     if L <= seg:
-        assert got[-9] is None and sizes == []
+        assert got[-11] is None and sizes == []
     else:
-        assert got[-9] is not None
+        assert got[-11] is not None
         assert sizes == [(b, D, L, N, seg)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("layout,L", [("pair", 256), ("channel", 3001)])
+def test_k4_state_form_passes_its_signature(monkeypatch, layout, L,
+                                            with_h0):
+    """K4's state form names `vmt_selective_scan_fwd` with the h0 pointer
+    (or None) and a last state of (b, D, N) fp32, and always passes
+    `k4_workspace`'s scratch, within one segment too, so that the combine
+    runs; it counts its own launch, not K4's."""
+    calls, sizes = [], []
+    monkeypatch.setattr(cuda_scan, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, dev, *a: calls.append((name, a)))
+    real = cuda_scan.k4_workspace
+    monkeypatch.setattr(cuda_scan, "k4_workspace",
+                        lambda *s: sizes.append(s) or real(*s))
+    b, D, G, N = 2, 8, 2, 16
+    args = _views(layout, b, L, D, G, N)
+    h0 = torch.zeros(b, D, N) if with_h0 else None
+    fn = cuda_scan.selective_scan_fwd_state
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(cuda_scan.selective_scan_fwd, "launches", 0)
+    y, last = fn(*args, delta_softplus=True, reverse=False, h0=h0)
+    assert fn.launches == 1 and cuda_scan.selective_scan_fwd.launches == 0
+    assert last.shape == (b, D, N) and last.dtype == torch.float32
+    assert y.shape == (b, L, D)
+    (name, got), = calls
+    assert name == "vmt_selective_scan_fwd"
+    assert len(got) == len(_build.SIGNATURES[name]) - 1
+    seg = cuda_scan.k4_segment(b, D, G, L)
+    assert list(got[-8:]) == [b, L, D, G, N, seg, 0, 1]
+    assert got[-12] is None  # no carries
+    assert got[-11] is not None and sizes == [(b, D, L, N, seg)]
+    assert (got[-10] is None) == (not with_h0)
+    assert got[-9] == last.data_ptr()

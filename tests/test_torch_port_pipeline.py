@@ -185,9 +185,26 @@ def test_put_batch_keeps_device_tensors():
 
 
 @pytest.mark.parametrize("key", ["profile_dir"])
-def test_profiler_option_raises(tmp_path, key):
-    opt = {"name": "x", "train": {key: str(tmp_path)}, "path": {}}
-    with pytest.raises(NotImplementedError, match="step profiler .* not ported"):
+def test_profiler_option_raises(tmp_path, monkeypatch, key):
+    """`train.profile_dir` traces with torch.profiler (its window and
+    files: `test_torch_port_profiling_cli.py`); a profiler that cannot
+    start raises out of the pipeline, where JAX's turns itself off."""
+    class Refusing:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            raise RuntimeError("profiler refused")
+
+    data = {"train": _write_pairs(str(tmp_path), "train", 4, (12, 12)),
+            "val": _write_pairs(str(tmp_path), "val", 2, (9, 7))}
+    opt = finalize_options(_train_opt(data, str(tmp_path / "exp"), 2),
+                           str(tmp_path))
+    opt["val"]["val_freq"] = 0
+    opt["train"].update({key: str(tmp_path / "trace"), "profile_start": 1,
+                         "profile_iters": 1})
+    monkeypatch.setattr(torch.profiler, "profile", Refusing)
+    with pytest.raises(RuntimeError, match="profiler refused"):
         pipeline.train_pipeline(str(tmp_path), opt, device="cpu")
 
 

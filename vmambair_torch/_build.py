@@ -75,6 +75,7 @@ SIGNATURES = {
         _P, _I, _LL, _LL, _LL,                   # y (B, D, L)
         _P,                                      # carries (K4c) or None
         _P,                                      # work (scratch) or None
+        _P, _P,                                  # h0, hlast or None
         _I, _I, _I, _I, _I, _I,                  # B L D G N seg
         _I, _I, _P,                              # rev sp stream
     ],

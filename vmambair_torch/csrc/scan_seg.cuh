@@ -15,10 +15,15 @@
 //     its end state hend[b, c, s, n] and its fp32 decay aend[b, c, s, n].
 //  2. seg_scan_combine, one thread per (b, c, n): a walk over the segments
 //     in scan order (back to front when reverse) gives each its entering
-//     state, hin[s] = h; h = aend[s] h + hend[s].
+//     state, hin[s] = h; h = aend[s] h + hend[s]. h starts from the
+//     caller's entering state h0[b, c, n] where there is one (K4's state
+//     form), else from 0; the walk's final h is the scan's last state,
+//     written to hlast[b, c, n] where asked.
 //  3. seg_scan_kernel<.., true, P>: each segment again, from hin, writing y.
 // A scan with one segment may pass no hin: pass 3 then runs alone, from a
-// zero state (the policy's init reads none), and needs no scratch.
+// zero state (the policy's init reads none), and needs no scratch. A scan
+// with an entering state or a last state passes hin always: the combine
+// reads the one and writes the other, within one segment too.
 // A block is 4 warps, one channel each, of one group; it walks its segment
 // in windows of 256 positions (32 lanes x KP = 8 consecutive positions).
 // Per window the block stages the group's B (and C) rows in shared memory
@@ -82,6 +87,8 @@ struct SegArgs {
   float* rtot; float* rdec;    // v16's per-window reverse totals
   int G, L, Dg, N, seg, sub, reverse, softplus;
   float* carries;              // K1c: (B, G*Dg, ceil(L / CH), N), or null
+  const float* h0;             // K4's state form: (B, G*Dg, N), or null
+  float* hlast;                // the same, written by the combine, or null
 };
 
 // A block's place: its lane, channel, segment and (b, c, s) row.
@@ -269,25 +276,30 @@ template <class P>
 static __global__ void seg_scan_combine(const float* __restrict__ hend,
                                         const float* __restrict__ aend,
                                         float* __restrict__ hin,
+                                        const float* __restrict__ h0,
+                                        float* __restrict__ hlast,
                                         long long rows, int N, int nseg,
                                         int reverse) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= rows * N) return;
   const int n = (int)(idx % N);
   const long long bc = idx / N;  // b * D + c
-  float h = 0.f;
+  float h = h0 ? h0[idx] : 0.f;  // (b, c, n) at b * D * N + c * N + n
   for (int i = 0; i < nseg; ++i) {
     const int s = reverse ? nseg - 1 - i : i;
     const long long at = (bc * nseg + s) * N + n;
     hin[at] = h;
     h = aend[at] * h + hend[at];
   }
+  if (hlast) hlast[idx] = h;
 }
 
 template <class P>
 static int launch_seg(const SegArgs& a, int B, cudaStream_t st) {
   const int nseg = (a.L + a.seg - 1) / a.seg;
-  if (!a.hin && nseg > 1) return (int)cudaErrorInvalidValue;
+  if (!a.hin && (nseg > 1 || a.h0 || a.hlast)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const dim3 grid(nseg, a.G * ((a.Dg + SG_WARPS - 1) / SG_WARPS), B);
   const size_t sm3 = seg_smem<P, true>(a.N);
   int err = set_smem((const void*)seg_scan_kernel<P::NS, true, P>, sm3);
@@ -302,7 +314,8 @@ static int launch_seg(const SegArgs& a, int B, cudaStream_t st) {
     const long long rows = (long long)B * a.G * a.Dg;
     seg_scan_combine<P>
         <<<(unsigned)((rows * a.N + 255) / 256), 256, 0, st>>>(
-            a.hend, a.aend, a.hin, rows, a.N, nseg, a.reverse);
+            a.hend, a.aend, a.hin, a.h0, a.hlast, rows, a.N, nseg,
+            a.reverse);
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -35,6 +35,16 @@
 // between two K4 calls in a forward evict it); an eighth of the code
 // costs fewer fetches than the interleaved states save.
 //
+// The state form (sequence-parallel scans, parallel/sp_scan.py; JAX's
+// selective_scan_xla(h0=, return_last_state=), sp_scan.py:82, :97): an
+// entering state h0 (B, D, N) fp32, the state before the scan's first
+// position (position L - 1 when reverse), and the last state, the one after
+// its last position, out to hlast (B, D, N) fp32. Either makes the wrapper
+// pass scratch always, so that pass 1 and the combine run even within one
+// segment: the combine starts its walk from h0 and ends it on the last
+// state (scan_seg.cuh). The null pointers leave every other scan of the
+// skeleton as it was, bit for bit (K1's and K3's recorded digests).
+//
 // K4c, the carry-saving forward of training (replaces _build_pallas_fwd
 // with save_carries=True, pallas_scan.py:401-418), is this kernel with a
 // non-null `carries`: pass 3 also writes the fp32 state entering every
@@ -125,8 +135,9 @@ static int k4_launch(const SegArgs& a, int B, cudaStream_t st) {
 
 }  // namespace vmt
 
-// work: null where L fits one segment of `seg` positions, else fp32
-// scratch of 3 B D ceil(L / seg) N floats (cuda_scan.k4_workspace).
+// work: null where L fits one segment of `seg` positions and neither h0
+// nor hlast is given, else fp32 scratch of 3 B D ceil(L / seg) N floats
+// (cuda_scan.k4_workspace). h0, hlast: (B, D, N) fp32 contiguous, or null.
 extern "C" int vmt_selective_scan_fwd(
     const void* u, int u_dt, long long su_b, long long su_l, long long su_d,
     const void* dl, int d_dt, long long sd_b, long long sd_l, long long sd_d,
@@ -134,12 +145,13 @@ extern "C" int vmt_selective_scan_fwd(
     long long sb_g, long long sb_n, const void* Cm, int c_dt, long long sc_b,
     long long sc_l, long long sc_g, long long sc_n, const float* Dskip,
     const float* bias, void* y, int y_dt, long long sy_b, long long sy_d,
-    long long sy_l, float* carries, float* work, int B, int L, int D, int G,
-    int N, int seg, int reverse, int softplus, void* stream) {
+    long long sy_l, float* carries, float* work, const float* h0,
+    float* hlast, int B, int L, int D, int G, int N, int seg, int reverse,
+    int softplus, void* stream) {
   using namespace vmt;
   if (B < 1 || L < 1 || G < 1 || D % G || N < 1 || N > 256 || seg < 1 ||
       B > 65535 || (long long)G * ((D / G + SG_WARPS - 1) / SG_WARPS) >
-                       65535) {
+                       65535 || ((h0 || hlast) && !work)) {
     return (int)cudaErrorInvalidValue;
   }
   const int Dg = D / G;
@@ -155,7 +167,7 @@ extern "C" int vmt_selective_scan_fwd(
       y, y_dt, sy_b, Dg * sy_d, sy_l, sy_d,
       nullptr, work, work ? work + hs : nullptr,
       work ? work + 2 * hs : nullptr, nullptr, nullptr,
-      G, L, Dg, N, seg, seg, reverse, softplus, carries};
+      G, L, Dg, N, seg, seg, reverse, softplus, carries, h0, hlast};
   cudaStream_t st = (cudaStream_t)stream;
   return carries ? k4_launch<true>(a, B, st) : k4_launch<false>(a, B, st);
 }

@@ -11,6 +11,13 @@ other formats through `cv2` where it is installed).
 
     python inference_torch.py --model_path net_g.pth --arch MambaSISR6 \
         --input inputs/ --output results/ --scale 4 [--tile 128]
+
+`--sp` runs the spatial scans sequence-parallel (`scan_impl: "sp"`): under
+torchrun every rank forwards every image and shards each spatial scan's L
+over the group of all ranks (`parallel/sp_scan.py`); rank 0 writes the
+images. Without torchrun's environment it raises.
+
+    torchrun --nproc_per_node 4 inference_torch.py --sp ... --device cuda
 """
 
 from __future__ import annotations
@@ -23,6 +30,12 @@ import os
 import torch
 
 from .models import build_network
+from .parallel import (
+    destroy_distributed,
+    init_distributed,
+    is_main_process,
+    use_sp_group,
+)
 from .utils.convert import load_network
 from .utils.img_util import imread, imwrite
 from .utils.upscaler import RestorationUpscaler
@@ -44,7 +57,8 @@ def parse_args(argv=None):
     parser.add_argument("--network_opt", type=str, default=None,
                         help="JSON kwargs for the arch")
     parser.add_argument("--sp", action="store_true",
-                        help="sequence-parallel scans (not ported yet)")
+                        help="sequence-parallel spatial scans over all "
+                        "ranks of torchrun")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device, e.g. cuda, cuda:1 or cpu")
     return parser.parse_args(argv)
@@ -52,31 +66,50 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sp:
-        raise SystemExit("--sp: sequence-parallel scans are not ported to "
-                         "the PyTorch package yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
+    if not args.sp:
+        process(args, build_upscaler(args, device))
+        return
+    device = init_distributed("pytorch", args.device)
+    try:
+        with use_sp_group(torch.distributed.group.WORLD):
+            process(args, build_upscaler(args, device))
+    finally:
+        destroy_distributed()
 
+
+def build_upscaler(args, device) -> RestorationUpscaler:
+    """The net of `args` (`scan_impl: "sp"` with --sp) with its weights,
+    behind a `RestorationUpscaler` on `device`."""
     window = args.window or {1: 32, 2: 16, 4: 8}.get(args.scale, 8)
     network_g = {"type": args.arch, "scale": args.scale}
+    if args.sp:
+        network_g["scan_impl"] = "sp"
     if args.network_opt:
         network_g.update(json.loads(args.network_opt))
     net = build_network(network_g, device="cpu")
     net.load_state_dict(load_network(args.model_path))
-    ups = RestorationUpscaler(
+    return RestorationUpscaler(
         args.scale, net, device, tile=args.tile, tile_pad=args.tile_pad,
         pre_pad=0, window=window, tile_batch=16)
 
-    os.makedirs(args.output, exist_ok=True)
+
+def process(args, ups: RestorationUpscaler):
+    """Every image of `args.input` through `ups`; rank 0 writes them."""
+    main_rank = is_main_process()
+    if main_rank:
+        os.makedirs(args.output, exist_ok=True)
     paths = ([args.input] if os.path.isfile(args.input)
              else sorted(glob.glob(os.path.join(args.input, "*"))))
     for path in paths:
         name = os.path.splitext(os.path.basename(path))[0]
-        print(f"Processing {name} ...")
+        if main_rank:
+            print(f"Processing {name} ...")
         out, _ = ups.enhance(imread(path, "color"))
-        imwrite(out, os.path.join(args.output, f"{name}_out.png"))
+        if main_rank:
+            imwrite(out, os.path.join(args.output, f"{name}_out.png"))
 
 
 if __name__ == "__main__":

@@ -98,7 +98,10 @@ def _normalize(cfg: dict) -> dict:
     """Map reference YAML keys to OSSNet fields and drop vestigial ones."""
     cfg = dict(cfg)
     cfg.pop("heads", None)
-    cfg.pop("scan_impl", None)  # the JAX package's backend switch
+    # the JAX package's backend switch: "sp" (sequence-parallel spatial
+    # scans) is kept, the other values choose JAX backends
+    if cfg.pop("scan_impl", None) == "sp":
+        cfg["sp"] = True
     if "LayerNorm_type" in cfg:
         cfg["ln_bias"] = cfg.pop("LayerNorm_type") != "BiasFree"
     if "bias" in cfg:

@@ -22,10 +22,19 @@ With `VMAMBAIR_OSS_FRONT=1` the front (norm1 through the two SiLUs) runs
 as one K5 launch, and with `VMAMBAIR_OSS_TAIL=1` the tail (merge,
 out_norm, gate) as one K6 launch (`ops/cuda_effn.py`); both are off by
 default, as in JAX.
+
+With `sp` (`scan_impl: "sp"`) and a sequence-parallel group installed
+(`parallel.mesh.use_sp_group`), the spatial direction pairs skip K1 and
+run as JAX's `impl="sp"` does (`pallas_scan.py:1447-1475`): each pair's
+scan through `parallel.sp_scan.sharded_scan` on each rank's L shard, the
+reverse pairs on the flipped sequence. Where L does not divide over the
+group, or no group is installed, the pairs take the normal path. The
+channel scans keep theirs (JAX builds them with `scan_impl="xla"`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -43,6 +52,8 @@ from ..ops.cuda_scan import (
     oss_scan_fused,
     selective_scan,
 )
+from ..parallel.mesh import default_sp_group
+from ..parallel.sp_scan import sharded_scan, sp_scan_supported
 from .layers import Conv2d, LayerNorm2d, uniform_
 
 
@@ -99,10 +110,11 @@ class OSS(nn.Module):
     K = 4
 
     def __init__(self, d_model: int, channel_version: str = "conv4",
-                 channel_attn: str = "mul"):
+                 channel_attn: str = "mul", sp: bool = False):
         super().__init__()
         d_inner = d_model
         self.d_inner = d_inner
+        self.sp = sp
         self.d_state = 16
         self.dt_rank = math.ceil(d_model / 16)
         self.channel_version = channel_version
@@ -175,7 +187,11 @@ class OSS(nn.Module):
         bias = self.dt_projs_bias.float()
         xpw, dtw = self.x_proj_weight, self.dt_projs_weight
 
-        if fused_scan_supported(d, N):
+        sp_group = default_sp_group() if self.sp else None
+        sp = sp_scan_supported(L, sp_group)
+        scan = (functools.partial(sharded_scan, group=sp_group) if sp
+                else selective_scan)
+        if not sp and fused_scan_supported(d, N):
             y = oss_scan_fused(u2, xpw[0:2], dtw[0:2], bias[0:2], A[0:2],
                                Dk[0:2]) + oss_scan_fused(
                 u2, xpw[2:4], dtw[2:4], bias[2:4], A[2:4], Dk[2:4],
@@ -187,7 +203,7 @@ class OSS(nn.Module):
                                      xpw[sl].float())
                 dts = torch.einsum("bgrl,gdr->bgdl", x_dbl[:, :, :R],
                                    dtw[sl].float())
-                y = selective_scan(
+                y = scan(
                     u2.reshape(b, 2 * d, L).transpose(1, 2),
                     dts.reshape(b, 2 * d, L).transpose(1, 2),
                     A[sl].reshape(2 * d, N),

@@ -41,12 +41,13 @@ class MamberBlock(nn.Module):
 
     def __init__(self, dim: int, ffn_expansion_factor: float = 2.66,
                  use_bias: bool = False, ln_bias: bool = True,
-                 channel_version: str = "conv4", channel_attn: str = "mul"):
+                 channel_version: str = "conv4", channel_attn: str = "mul",
+                 sp: bool = False):
         super().__init__()
         self.use_bias = use_bias
         self.ln_bias = ln_bias
         self.norm1 = LayerNorm2d(dim, use_bias=ln_bias)
-        self.attn = OSS(dim, channel_version, channel_attn)
+        self.attn = OSS(dim, channel_version, channel_attn, sp)
         self.norm2 = LayerNorm2d(dim, use_bias=ln_bias)
         self.ffn = FeedForward(dim, ffn_expansion_factor, use_bias)
 
@@ -60,7 +61,9 @@ class MamberBlock(nn.Module):
 
 class OSSNet(nn.Module):
     """OSS-UNet generator. dtype: the activation dtype (None keeps the
-    input's); weights stay fp32."""
+    input's); weights stay fp32. sp: the spatial scans run sequence-
+    parallel over the installed sp group (`scan_impl: "sp"`, see
+    `OSS.spatial_scan`)."""
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  scale: int = 4, dim: int = 48,
@@ -70,7 +73,7 @@ class OSSNet(nn.Module):
                  ln_bias: bool = True, channel_version: str = "conv4",
                  channel_attn: str = "mul", tail: str = "pixelshuffle",
                  dual_pixel_task: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, sp: bool = False):
         super().__init__()
         if tail not in ("pixelshuffle", "conv_residual"):
             raise ValueError(f"tail {tail!r}: 'pixelshuffle' (SR) or "
@@ -84,7 +87,7 @@ class OSSNet(nn.Module):
         def blocks(d, n):
             return nn.Sequential(*[
                 MamberBlock(d, ffn_expansion_factor, use_bias, ln_bias,
-                            channel_version, channel_attn)
+                            channel_version, channel_attn, sp)
                 for _ in range(n)])
 
         self.patch_embed = OverlapPatchEmbed(inp_channels, dim, use_bias)

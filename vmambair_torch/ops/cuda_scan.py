@@ -11,8 +11,10 @@ Two layers:
 - Kernel wrappers, one launch each, each counting its launches in its
   `launches` attribute: `oss_scan_fused_fwd` (K1), `oss_scan_fused_fwd_carries`
   (K1c), `selective_scan_fwd` (K4), `selective_scan_fwd_carries` (K4c),
-  `selective_scan_bwd` (K3), `selective_scan_ld_fwd` (K7, the channels-last
-  scan). A tensor on the CPU goes to the plain version (`*_ref`,
+  `selective_scan_fwd_state` (K4 from an entering state, giving its last
+  state: the sequence-parallel scan's passes), `selective_scan_bwd` (K3),
+  `selective_scan_ld_fwd` (K7, the channels-last scan). A tensor on the
+  CPU goes to the plain version (`*_ref`,
   `selective_scan_bwd_ref`); a CUDA tensor goes to the kernel
   (`csrc/oss_scan_fused.cu`, `csrc/selective_scan.cu`,
   `csrc/selective_scan_bwd.cu`, `csrc/scan_seq.cu`), or the call raises. A
@@ -121,14 +123,32 @@ def k4_workspace(b: int, D: int, L: int, N: int, seg: int) -> int:
     return 3 * b * D * -(-L // seg) * N
 
 
+def selective_scan_state_ref(u, delta, A, B, C, D=None, delta_bias=None,
+                             delta_softplus=False, reverse=False,
+                             out_dtype=None, h0=None):
+    """Plain version of `selective_scan_fwd_state`: y and the fp32 last
+    state (B, D, N), from the entering state h0 (zeros where None)."""
+    y, last = selective_scan_chunked(
+        u, delta, A, B, C, D, delta_bias, delta_softplus, reverse=reverse,
+        h0=h0, return_last_state=True)
+    return y.to(out_dtype or u.dtype), last
+
+
 def _launch_k4(u, delta, A, B, C, D, delta_bias, softplus, reverse,
-               out_dtype, carries):
+               out_dtype, carries, h0=None, hlast=None):
     bsz, L, dim, G, N = _scan_shapes(u, delta, A, B, C, "selective_scan")
+    for name, t in (("h0", h0), ("hlast", hlast)):
+        if t is not None and (t.shape != (bsz, dim, N) or t.dtype !=
+                              torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"selective_scan: {name} {tuple(t.shape)} "
+                             f"{t.dtype}; the kernel takes contiguous fp32 "
+                             f"{(bsz, dim, N)}")
     y = torch.empty(bsz, dim, L, dtype=out_dtype or u.dtype, device=u.device)
     seg = k4_segment(bsz, dim, G, L)
+    state = h0 is not None or hlast is not None
     work = (torch.empty(k4_workspace(bsz, dim, L, N, seg),
                         dtype=torch.float32, device=u.device)
-            if L > seg else None)
+            if L > seg or state else None)
     A32 = f32(A)
     D32 = None if D is None else f32(D)
     b32 = None if delta_bias is None else f32(delta_bias)
@@ -144,6 +164,8 @@ def _launch_k4(u, delta, A, B, C, D, delta_bias, softplus, reverse,
         y.data_ptr(), dtype_code(y, "out"), *y.stride(),
         None if carries is None else carries.data_ptr(),
         None if work is None else work.data_ptr(),
+        None if h0 is None else h0.data_ptr(),
+        None if hlast is None else hlast.data_ptr(),
         bsz, L, dim, G, N, seg, int(bool(reverse)), int(bool(softplus)),
     )
     return y.transpose(1, 2)
@@ -186,8 +208,33 @@ def selective_scan_fwd_carries(u, delta, A, B, C, D=None, delta_bias=None,
     return y, carries
 
 
+def selective_scan_fwd_state(u, delta, A, B, C, D=None, delta_bias=None,
+                             delta_softplus=False, reverse=False,
+                             out_dtype=None, h0=None):
+    """K4's state form: `selective_scan_fwd` from the entering state h0
+    (B, D, N) fp32 (zeros where None), also returning the fp32 last state
+    (B, D, N), the state after the scan's last position (position 0 when
+    reverse). On CUDA one call is always three grids (the segments from
+    zero, their combine from h0, which writes the last state, the segments
+    again), within one segment too, and counts one launch. No backward:
+    on CUDA it raises where autograd would record the call."""
+    args = (u, delta, A, B, C, D, delta_bias)
+    if on_cpu(*args, h0):
+        return selective_scan_state_ref(*args, delta_softplus, reverse,
+                                        out_dtype, h0)
+    no_grad_needed("selective_scan_fwd_state", *args, h0)
+    bsz, L, dim = u.shape
+    hlast = torch.empty(bsz, dim, A.shape[1], dtype=torch.float32,
+                        device=u.device)
+    y = _launch_k4(*args, delta_softplus, reverse, out_dtype, None,
+                   None if h0 is None else h0.contiguous(), hlast)
+    selective_scan_fwd_state.launches += 1
+    return y, hlast
+
+
 selective_scan_fwd.launches = 0
 selective_scan_fwd_carries.launches = 0
+selective_scan_fwd_state.launches = 0
 
 
 # -- K7 and the scans on (b, g, l, d) views -----------------------------------

@@ -17,7 +17,9 @@ Layouts as in the JAX package (channels last):
 ``selective_scan_chunked`` keeps the state in fp32 whatever the input
 dtype (in fp64 for fp64 inputs, an oracle); it is sequential over chunks of L, with a Hillis-Steele scan over
 (decay, input) pairs inside each chunk, and can return the state entering
-each chunk. ``selective_scan_bwd_ref`` is its gradient. These are the plain
+each chunk, start from an entering state ``h0`` and return its last
+state (the sequence-parallel scan's two passes, `parallel/sp_scan.py`).
+``selective_scan_bwd_ref`` is its gradient. These are the plain
 versions the CUDA kernels (forward, carry-saving forward, backward) are
 held against on the card, at full L; the tests hold them against the JAX
 package's sequential reference and its backward.
@@ -74,7 +76,8 @@ def _hillis_scan(a, b, dim=1):
 def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
                            delta_softplus=False, chunk_size: int = 64,
                            reverse: bool = False,
-                           return_carries: bool = False):
+                           return_carries: bool = False, h0=None,
+                           return_last_state: bool = False):
     """Chunked version: a loop over chunks of L carries the fp32 state; each
     chunk is one vectorised Hillis-Steele scan.
 
@@ -84,13 +87,21 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
     return_carries=True also returns the fp32 state entering each chunk,
     (batch, D, n_chunks, N), indexed by the chunk's position in L: the
     plain side of the carry-saving kernels, whose backward recomputes each
-    chunk from it."""
+    chunk from it.
+    h0: the state (batch, D, N) entering the scan (at position 0, or at
+    position L - 1 when reverse), zeros where None; return_last_state=True
+    also returns the state after the scan's last position, in the working
+    type (JAX's `selective_scan_xla(h0=, return_last_state=)`). The
+    outputs: y, then the carries, then the last state, each where asked."""
     uf, df, Af, Bf, Cf, Df, G = _prep(
         u, delta, A, B, C, D, delta_bias, delta_softplus)
     batch, L, dim = uf.shape
     N = Af.shape[1]
     dg = dim // G
-    h = torch.zeros(batch, dim, N, device=u.device, dtype=uf.dtype)
+    h = (torch.zeros(batch, dim, N, device=u.device, dtype=uf.dtype)
+         if h0 is None else h0.to(uf.dtype))
+    if h.shape != (batch, dim, N):
+        raise ValueError(f"h0 {tuple(h.shape)} != {(batch, dim, N)}")
     n_chunks = -(-L // chunk_size)
     ys, carries = [None] * n_chunks, [None] * n_chunks
     for k in (range(n_chunks - 1, -1, -1) if reverse else range(n_chunks)):
@@ -118,9 +129,12 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
     if Df is not None:
         y = y + uf * Df
     y = y.to(u.dtype)
+    out = (y,)
     if return_carries:
-        return y, torch.stack(carries, 2)
-    return y
+        out += (torch.stack(carries, 2),)
+    if return_last_state:
+        out += (h,)
+    return out if len(out) > 1 else y
 
 
 def selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, dy, *,

@@ -9,6 +9,15 @@ global-norm clip is `clip_grad_norm_` before the step, and the EMA is an
 in-place lerp of a second copy of the network. `BaseModel.validation` is
 the per-image evaluation loop with the registry's metrics
 (`vmambair_tpu/train/base_model.py:169-227`).
+
+Data parallelism (the reference's DDP wrap, `base_model.py:79-82`; JAX's
+mesh): where a process group is initialised (`--launcher`, world 1
+included), a trainer runs its training forwards through
+`DistributedDataParallel` wrappers of its nets (`data_parallel`), whose
+backward averages the gradients over the ranks before the clip, the
+optimizer step and the EMA. The bare nets stay the models' `net_g` /
+`net_d`: the EMA, save, load and evaluation read them, so a checkpoint
+has no `module.` prefix and is the same at any world size.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Any, Dict, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..metrics import calculate_metric, metric_report_key
 from ..utils.img_util import batch2img, imwrite
@@ -59,6 +69,16 @@ def ema_update(ema: torch.nn.Module, net: torch.nn.Module,
     parameter."""
     torch._foreach_lerp_(list(ema.parameters()), list(net.parameters()),
                          1.0 - decay)
+
+
+def data_parallel(net: torch.nn.Module,
+                  device: torch.device) -> torch.nn.Module:
+    """`net` under DistributedDataParallel where a process group is
+    initialised, else `net` itself."""
+    if not dist.is_initialized():
+        return net
+    return torch.nn.parallel.DistributedDataParallel(
+        net, device_ids=[device.index] if device.type == "cuda" else None)
 
 
 class BaseModel:

@@ -14,6 +14,14 @@ in JAX's step order. An iteration:
   on D at `schedule_d`'s lr. D's gradients are zeroed before it, so none
   comes from the G step.
 
+Under data parallelism G's training forward goes through `train_g` and
+D's step through `train_d`, both DDP wrappers (`base_model.data_parallel`);
+the G step's pass through D runs the bare, frozen `net_d`, so that D's
+DDP sees only the D step (toggling requires_grad under a DDP forward would
+leave its reducer waiting for gradients). D's spectral norms' u are
+computed from weights that are equal on every rank, and DDP broadcasts
+rank 0's buffers before each of D's forwards besides.
+
 On CUDA the generator's scans and GDFNs run through their kernels (the
 carry-saving forwards and the scan backward in the G step, the plain
 forwards under no-grad); D and VGG19 are cuDNN convolutions.
@@ -29,8 +37,9 @@ import torch
 
 from ..losses import build_loss
 from ..models import build_network
+from ..parallel import reduce_log_dict
 from ..utils.registry import MODEL_REGISTRY
-from .base_model import build_optimizer, ema_update, set_lr
+from .base_model import build_optimizer, data_parallel, ema_update, set_lr
 from .checkpoint import load_network, save_network
 from .sr_model import SRModel
 
@@ -68,6 +77,12 @@ class SRGANModel(SRModel):
         self.schedule = self._make_schedule(train_opt, "optim_g")
         self.schedule_d = self._make_schedule(train_opt, "optim_d")
 
+    def wrap_for_ranks(self):
+        """SRModel's `train_g`, and `train_d`: net_d under DDP where a
+        process group is initialised (else net_d)."""
+        super().wrap_for_ranks()
+        self.train_d = data_parallel(self.net_d, self.device)
+
     def optimize_parameters(self, current_iter: int):
         lr = self.schedule(current_iter)
         log = OrderedDict()
@@ -80,8 +95,8 @@ class SRGANModel(SRModel):
                 output = self.net_g(self.lq)
         log.update(self._d_step(output.detach(),
                                 self.schedule_d(current_iter)))
-        log["lr"] = float(lr)
-        self.log_dict = log
+        self.log_dict = reduce_log_dict(log)
+        self.log_dict["lr"] = float(lr)
 
     # whether the G step's pass through D stores its spectral norms' u
     g_step_updates_u = True
@@ -97,7 +112,7 @@ class SRGANModel(SRModel):
     def _g_step(self, lr):
         set_lr(self.optimizer, lr)
         self.optimizer.zero_grad(set_to_none=True)
-        output = self.net_g(self.lq)
+        output = self.train_g(self.lq)
         pix_gt, percep_gt = self._g_targets()
         total, losses = self._loss_terms(output, pix_gt, prefix="l_g_",
                                          percep_gt=percep_gt)
@@ -118,9 +133,9 @@ class SRGANModel(SRModel):
     def _d_step(self, fake, lr_d):
         set_lr(self.optimizer_d, lr_d)
         self.optimizer_d.zero_grad(set_to_none=True)
-        real_pred = self.net_d(self._d_real(), update_stats=True)
+        real_pred = self.train_d(self._d_real(), update_stats=True)
         l_d_real = self.cri_gan(real_pred, True, is_disc=True)
-        fake_pred = self.net_d(fake, update_stats=True)
+        fake_pred = self.train_d(fake, update_stats=True)
         l_d_fake = self.cri_gan(fake_pred, False, is_disc=True)
         (l_d_real + l_d_fake).backward()
         self.optimizer_d.step()

@@ -12,6 +12,15 @@ left out); on CUDA a step returns before the card finishes, and the period
 over many iterations still counts the card's time, since the host can run
 only so far ahead. `data_time` is the part of it spent waiting for the
 next batch. The pipeline leaves both timers on the model as `model.timers`.
+
+Data parallelism (`--launcher pytorch|slurm`; `parse_options` joins the
+group): each rank loads its slice of the sampler's indices, so the ranks'
+batches make the global one in the reference's sample order (a run at
+world N is not world 1's order; parity is held at the step); rank 0 alone
+makes the directories, writes the log file and TensorBoard, saves and
+validates, while the others wait at a barrier; the group is destroyed at
+the end. `train.profile_dir` traces iterations `profile_start` (10) ..
++ `profile_iters` (3) with `utils.profiling.StepProfiler`.
 """
 
 from __future__ import annotations
@@ -29,6 +38,13 @@ from ..data import (
     build_dataloader,
     build_dataset,
 )
+from ..parallel import (
+    barrier,
+    destroy_distributed,
+    is_main_process,
+    rank,
+    world_size,
+)
 from ..utils.logger import (
     MessageLogger,
     get_env_info,
@@ -43,6 +59,7 @@ from ..utils.misc import (
     set_random_seed,
 )
 from ..utils.options import copy_opt_file, dict2str, parse_options
+from ..utils.profiling import StepProfiler
 from . import build_model
 
 logger = logging.getLogger("vmambair_torch")
@@ -56,8 +73,9 @@ def create_train_val_dataloaders(opt: Dict[str, Any]):
             dataset_opt = dict(dataset_opt)
             dataset_opt.setdefault("num_gpu", opt["num_gpu"])
             train_set = build_dataset(dataset_opt)
-            train_loader, _ = build_dataloader(train_set, dataset_opt,
-                                               seed=opt["manual_seed"])
+            train_loader, _ = build_dataloader(
+                train_set, dataset_opt, num_replicas=world_size(),
+                rank=rank(), seed=opt["manual_seed"])
             per_epoch = max(1, len(train_loader))
             logger.info("Training stats: %d images, %d iters/epoch, %d "
                         "epochs for %d total iters.", len(train_set),
@@ -126,11 +144,15 @@ def train_pipeline(root_path: str, opt: Optional[Dict[str, Any]] = None,
     parsed from `argv`); returns the model."""
     if opt is None:
         opt = parse_options(root_path, is_train=True, argv=argv)
-    device = _device(opt, device)
-    if opt["train"].get("profile_dir"):
-        raise NotImplementedError(
-            "train.profile_dir: the step profiler (utils/profiling.py) is "
-            "not ported to vmambair_torch yet")
+    try:
+        return _train(root_path, opt, _device(opt, device))
+    finally:
+        if opt.get("launcher", "none") != "none":
+            destroy_distributed()
+
+
+def _train(root_path: str, opt: Dict[str, Any], device: str):
+    main = is_main_process()
     set_random_seed(int(opt["manual_seed"]))
 
     # auto-resume: resolve the state and point pretrain_network_g at the
@@ -143,19 +165,24 @@ def train_pipeline(root_path: str, opt: Optional[Dict[str, Any]] = None,
         opt["path"]["resume_state"] = resume_state_path
         check_resume(opt, int(os.path.splitext(
             os.path.basename(resume_state_path))[0]))
-    else:
+    elif main:
         make_exp_dirs(opt)
+    barrier()
 
-    get_root_logger(log_file=os.path.join(
-        opt["path"]["log"], f"train_{opt['name']}_{int(time.time())}.log"))
+    get_root_logger(
+        log_level=logging.INFO if main else logging.WARNING,
+        log_file=os.path.join(opt["path"]["log"], f"train_{opt['name']}_"
+                              f"{int(time.time())}.log") if main else None)
     logger.info(get_env_info())
     logger.info(dict2str(opt))
-    if opt.get("opt_path"):
+    if opt.get("opt_path") and main:
         copy_opt_file(opt["opt_path"], opt["path"]["experiments_root"])
     tb_logger = None
-    if (opt.get("logger") or {}).get("use_tb_logger"):
+    if (opt.get("logger") or {}).get("use_tb_logger") and main:
         tb_logger = init_tb_logger(
             os.path.join(root_path, "tb_logger", opt["name"]))
+    if world_size() > 1:
+        logger.info("Data parallel over %d ranks", world_size())
 
     train_loader, val_loaders = create_train_val_dataloaders(opt)
     model = build_model(opt, device=device)
@@ -187,14 +214,30 @@ def train_pipeline(root_path: str, opt: Optional[Dict[str, Any]] = None,
     save_img = bool((opt.get("val") or {}).get("save_img", False))
     iter_timer, data_timer = AvgTimer(), AvgTimer()
     model.timers = {"iter": iter_timer, "data": data_timer}
+    profiler = StepProfiler(opt["train"].get("profile_dir"),
+                            int(opt["train"].get("profile_start", 10)),
+                            int(opt["train"].get("profile_iters", 3)),
+                            device=model.device)
     start_time = time.time()
+
+    def validate():
+        # rank 0 evaluates (the bare nets: no collective); the others wait
+        if main:
+            for val_loader in val_loaders:
+                model.validation(val_loader, current_iter, tb_logger,
+                                 save_img)
+        barrier()
+
+    def save(epoch):
+        if main:
+            model.save(epoch, current_iter)
+        barrier()
 
     # validation before the first step exercises the evaluation path, as
     # the reference trainer does
     if val_freq and current_iter == 0:
         logger.info("Pre-train validation at iter 0.")
-        for val_loader in val_loaders:
-            model.validation(val_loader, current_iter, tb_logger, save_img)
+        validate()
 
     logger.info("Start training from iter %d", current_iter)
     iter_timer.tic()
@@ -204,12 +247,13 @@ def train_pipeline(root_path: str, opt: Optional[Dict[str, Any]] = None,
             batch = prefetcher.next()
             data_timer.toc()
             current_iter += 1
+            profiler.step(current_iter)
             model.feed_data(batch)
             model.optimize_parameters(current_iter)
             iter_timer.toc()
 
             paused = False
-            if current_iter % print_freq == 0:
+            if current_iter % print_freq == 0 and main:
                 log_vars = {"epoch": prefetcher.epoch, "iter": current_iter,
                             "time": iter_timer.get_avg_time(),
                             "data_time": data_timer.get_avg_time()}
@@ -217,26 +261,24 @@ def train_pipeline(root_path: str, opt: Optional[Dict[str, Any]] = None,
                 msg_logger(log_vars)
             if current_iter % save_freq == 0:
                 logger.info("Saving models and training states.")
-                model.save(prefetcher.epoch, current_iter)
+                save(prefetcher.epoch)
                 paused = True
             if val_freq and current_iter % val_freq == 0:
-                for val_loader in val_loaders:
-                    model.validation(val_loader, current_iter, tb_logger,
-                                     save_img)
+                validate()
                 paused = True
             if paused:  # saving and validation are not iteration time
                 iter_timer.tic()
     finally:
+        profiler.close()
         prefetcher.close()
     logger.info("End of training. Time consumed: %.1fs; ms per iter %.1f, "
                 "data ms per iter %.1f", time.time() - start_time,
                 1e3 * iter_timer.get_avg_time(),
                 1e3 * data_timer.get_avg_time())
     logger.info("Save the latest model.")
-    model.save(epoch=prefetcher.epoch, current_iter=current_iter)
+    save(prefetcher.epoch)
     if val_freq:
-        for val_loader in val_loaders:
-            model.validation(val_loader, current_iter, tb_logger, save_img)
+        validate()
     return model
 
 

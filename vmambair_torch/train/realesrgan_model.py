@@ -27,6 +27,13 @@ draw and a deterministic apply (`Synthesis.draw`, `synthesize`):
 The resizes keep JAX's fixed canvas: the factor-1.5 upscale crops the
 content to the canvas, as JAX does (not the reference's dynamic-size
 resize).
+
+Under data parallelism the synthesis and the queue follow the global-batch
+rule (`parallel.on_global_batch`), as JAX synthesises the global batch with
+one key and keeps one queue over it (`vmambair_tpu/train/
+realesrgan_model.py:175-199`): every rank gathers the ranks' GT rows and
+kernels, synthesises the global batch with its equally seeded generators,
+keeps the same global queue, and takes its own rows.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from ..ops.degradation import (
     random_resize_back,
     usm_sharp,
 )
+from ..parallel import on_global_batch
 from ..utils.registry import MODEL_REGISTRY
 from .gan_model import SRGANModel
 from .sr_model import SRModel, _is_on, to_device
@@ -280,13 +288,19 @@ class _DegradationMixin:
             self.gt = data.get("gt")
             self.gt_usm = self.gt
             return
-        gt_c, gt_usm_c, lq = self.synthesis(
-            data["gt"], *(data[k] for k in KERNEL_KEYS))
-        c = gt_c.shape[1]
-        lq, pair = self._dequeue_and_enqueue(
-            lq.contiguous(), torch.cat([gt_c, gt_usm_c], 1))
-        self.lq = lq
+        self.lq, pair = on_global_batch(
+            self._synthesize_and_queue, data["gt"],
+            *(data[k] for k in KERNEL_KEYS))
+        c = pair.shape[1] // 2
         self.gt, self.gt_usm = pair[:, :c], pair[:, c:]
+
+    def _synthesize_and_queue(self, gt, kernel1, kernel2, sinc_kernel):
+        """(lq, GT and USM-sharpened GT joined on channels) of a batch:
+        the synthesis, then the queue."""
+        gt_c, gt_usm_c, lq = self.synthesis(gt, kernel1, kernel2,
+                                            sinc_kernel)
+        return self._dequeue_and_enqueue(
+            lq.contiguous(), torch.cat([gt_c, gt_usm_c], 1))
 
 
 @MODEL_REGISTRY.register(name="RealESRGANModel")

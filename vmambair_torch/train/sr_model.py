@@ -12,6 +12,17 @@ window, or runs chop inference through `RestorationUpscaler` when
 `val.tile` is set. Weights come from
 `torch.Generator().manual_seed(manual_seed)` (`build_network`); mixup draws
 from a host generator seeded the same way.
+
+Under data parallelism (`base_model.data_parallel`) the step forwards
+`train_g`, the DDP wrapper of `net_g`, on the rank's rows. Mixup follows
+the global-batch rule (`parallel.on_global_batch`): the ranks' rows are
+gathered into the global batch, every rank draws the same Beta weight and
+permutation over it, as JAX's one controller does
+(`vmambair_tpu/train/sr_model.py:171-182`), and each forwards its own
+rows; DDP's mean of the gradients is then the global batch's gradient,
+and a step at world N is a step at world 1 on the same global batch, up
+to the order of the all-reduce's sums. The logged losses are their mean
+over the ranks (`parallel.reduce_log_dict`).
 """
 
 from __future__ import annotations
@@ -26,9 +37,16 @@ import torch.nn.functional as F
 
 from ..losses import build_loss
 from ..models import build_network
+from ..parallel import on_global_batch, reduce_log_dict
 from ..utils.registry import MODEL_REGISTRY
 from ..utils.upscaler import RestorationUpscaler
-from .base_model import BaseModel, build_optimizer, ema_update, set_lr
+from .base_model import (
+    BaseModel,
+    build_optimizer,
+    data_parallel,
+    ema_update,
+    set_lr,
+)
 from .checkpoint import (
     load_network,
     load_training_state,
@@ -90,6 +108,13 @@ class SRModel(BaseModel):
         load_path = (opt.get("path") or {}).get("pretrain_network_g")
         if load_path:
             self.load_net_g(load_path)
+        if self.is_train:
+            self.wrap_for_ranks()
+
+    def wrap_for_ranks(self):
+        """The training forwards' nets: `train_g`, net_g under DDP where a
+        process group is initialised (else net_g)."""
+        self.train_g = data_parallel(self.net_g, self.device)
 
     def init_training_settings(self):
         train_opt = self.opt["train"]
@@ -158,9 +183,11 @@ class SRModel(BaseModel):
         set_lr(self.optimizer, lr)
         lq, gt = self.lq, self.gt
         if self.mixup:
-            lq, gt = mixup_batch(self.host_rng, lq, gt, self.mixup_beta)
+            lq, gt = on_global_batch(
+                lambda a, b: mixup_batch(self.host_rng, a, b,
+                                         self.mixup_beta), lq, gt)
         self.optimizer.zero_grad(set_to_none=True)
-        total, losses = self._loss_terms(self.net_g(lq), gt)
+        total, losses = self._loss_terms(self.train_g(lq), gt)
         total.backward()
         if self.grad_clip:
             torch.nn.utils.clip_grad_norm_(self.net_g.parameters(),
@@ -169,8 +196,8 @@ class SRModel(BaseModel):
         if self.net_g_ema is not None:
             ema_update(self.net_g_ema, self.net_g, self.ema_decay)
         # the losses stay device scalars: no wait on the card here
-        self.log_dict = OrderedDict((k, v.detach())
-                                    for k, v in losses.items())
+        self.log_dict = reduce_log_dict(OrderedDict(
+            (k, v.detach()) for k, v in losses.items()))
         self.log_dict["lr"] = float(lr)
 
     def eval_net(self) -> torch.nn.Module:

@@ -4,14 +4,19 @@ The port's copy of `vmambair_tpu/utils/options.py`. `parse_options` reads
 the YAML (importing `yaml` only there: a caller that builds the options
 dict itself, as `chip_smoke.py` does, needs no YAML parser) and takes the
 reference's flags plus `--device`; `finalize_options` and `dict2str` work
-on dicts alone. `num_gpu` resolves to 1: data parallelism is not ported
-yet (the JAX package's `parallel/mesh.py`).
+on dicts alone. `--launcher pytorch|slurm` joins the launcher's process
+group before the options are finalised (`parallel.init_distributed`: NCCL
+on the card, gloo on the CPU, each rank on `cuda:LOCAL_RANK`), and
+`num_gpu` resolves to the world size. A `.json` options file is read with
+`json` (JSON is a subset of YAML), so that a machine without a YAML
+parser can still train from a file.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import json
 import random
 import shutil
 import time
@@ -35,14 +40,16 @@ def set_nested(d: dict, keys: str, value: str):
 
 def parse_options(root_path: str, is_train: bool = True, argv=None):
     """`-opt <yaml> [--launcher ...] [--auto_resume] [--debug]
-    [--local_rank N] [--force_yml k:v=x ...] [--device cuda|cpu]`."""
-    import yaml
-
+    [--local_rank N] [--force_yml k:v=x ...] [--device cuda|cpu]`. With a
+    launcher, joins its process group first; `opt["device"]` is then this
+    rank's device."""
     parser = argparse.ArgumentParser()
-    parser.add_argument("-opt", type=str, required=True, help="Path to YAML")
+    parser.add_argument("-opt", type=str, required=True,
+                        help="Path to YAML (or JSON)")
     parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"],
                         default="none",
-                        help="accepted for the reference's command line")
+                        help="data-parallel launcher: torchrun (pytorch) "
+                        "or srun (slurm)")
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--local_rank", type=int, default=0)
@@ -53,7 +60,12 @@ def parse_options(root_path: str, is_train: bool = True, argv=None):
     args = parser.parse_args(argv)
 
     with open(args.opt, "r") as f:
-        opt = yaml.safe_load(f)
+        if args.opt.endswith(".json"):
+            opt = json.load(f)
+        else:
+            import yaml
+
+            opt = yaml.safe_load(f)
     for entry in args.force_yml or ():
         keys, value = entry.split("=", 1)
         set_nested(opt, keys.strip(), value.strip())
@@ -61,19 +73,31 @@ def parse_options(root_path: str, is_train: bool = True, argv=None):
     opt["is_train"] = is_train
     opt["opt_path"] = args.opt
     opt["device"] = args.device
+    opt["launcher"] = args.launcher
+    if args.launcher != "none":
+        from ..parallel import init_distributed
+
+        opt["device"] = str(init_distributed(args.launcher, args.device))
     if args.debug and not opt["name"].startswith("debug"):
         opt["name"] = "debug_" + opt["name"]
     return finalize_options(opt, root_path, is_train)
 
 
 def resolve_num_gpu(num_gpu) -> int:
-    """The reference's `num_gpu` (int, "auto" or absent) -> 1."""
-    if num_gpu in (None, "auto", 0, 1):
-        return 1
-    raise NotImplementedError(
-        f"num_gpu {num_gpu}: data parallelism is not ported to "
-        "vmambair_torch yet (the JAX package's parallel/mesh.py); use "
-        "num_gpu 1")
+    """The reference's `num_gpu` (int, "auto" or absent) -> the world size
+    (1 without a process group): "auto" or absent means the world size;
+    an int must equal it."""
+    from ..parallel import world_size
+
+    world = world_size()
+    if num_gpu in (None, "auto", 0):
+        return world
+    if int(num_gpu) != world:
+        raise ValueError(
+            f"num_gpu {num_gpu} differs from the world size {world}: launch "
+            f"{num_gpu} ranks (torchrun --nproc_per_node {num_gpu} ... "
+            "--launcher pytorch) or set num_gpu: auto")
+    return world
 
 
 def finalize_options(opt: Dict, root_path: str, is_train: bool = True):
