@@ -22,7 +22,7 @@ non-zero, and without a CUDA device the script stops before any result:
    (8,2,96,4096), (8,2,192,1024)), K2 at the five of a served forward
    in bf16 ((8,96,128,128) first, the main shape; its tensor-core route)
    and the five of the S1 step in fp32 ((8,48,64,64), (8,96,64,64),
-   (8,96,32,32), (8,192,16,16), (8,384,8,8); its CUDA-core route), each
+   (8,96,32,32), (8,192,16,16), (8,384,8,8); its split-TF32 route), each
    beside its plain version (the cuDNN composite), K1c at the S1 step's
    (8,2,96,4096) and (8,2,48,4096) fp32 and K3 at every fp32 shape of
    the S1 step (the
@@ -32,10 +32,14 @@ non-zero, and without a CUDA device the script stops before any result:
    device ms per grid at each shape by torch.profiler; K2 also at the
    CUDA tests' ragged shapes (every width class, C no multiple of 16, H
    and W no multiple of the tiles, odd W); K5 at the five MamberBlock
-   shapes of a served forward ((8,96,128,128) first), its bf16 rows (the
-   tensor-core route) timed beside its plain version, and at ragged
-   shapes (every width class, E != C, C up to 704, odd W, batch 1), bf16
-   and fp32 (the CUDA-core route); K3 also over a
+   shapes of a served forward in bf16 ((8,96,128,128) first) and the five
+   of the S1 step in fp32 ((8,48,64,64), (8,96,64,64), (8,96,32,32),
+   (8,192,16,16), (8,384,8,8); its split-TF32 route, also held to the
+   fp32 bar of its CPU model, rtol = atol = 1e-5), each timed beside its
+   plain version, and at ragged shapes (every width class, E != C, C up
+   to 704, odd W, batch 1), bf16 and fp32; two K5 calls at each fp32 step
+   shape give the same bits, its packing kernel its plain version's, and
+   a single-pass TF32 control misses the fp32 bar; K3 also over a
    ragged L in many segments, reverse, and in ragged segments, forward;
    two K1 and two K1c calls on the same inputs at (8,2,96,16384) bf16,
    forward and reverse, and two K2 calls at (8,96,128,128) bf16 and
@@ -480,6 +484,10 @@ K2_RAGGED_SHAPES = ((2, 48, 13, 19), (2, 96, 8, 8), (2, 384, 5, 7),
 # an odd W, batch 1, a 1x1 image and the widest C the route takes
 K5_SERVE_SHAPES = ((8, 96, 128), (8, 48, 128), (8, 96, 64), (8, 192, 32),
                    (8, 384, 16))
+# K5's (b, c, h) at the S1 step's five MamberBlock shapes with the switch
+# on (fp32, E = C; (8, 96, 64), 30 of the 50 blocks, the main one)
+K5_STEP_SHAPES = ((8, 48, 64), (8, 96, 64), (8, 96, 32), (8, 192, 16),
+                  (8, 384, 8))
 K5_RAGGED_SHAPES = ((2, 48, 48, 13, 19), (2, 96, 100, 8, 8),
                     (2, 384, 384, 5, 7), (2, 20, 70, 3, 33),
                     (1, 40, 52, 9, 33), (1, 72, 72, 17, 10),
@@ -520,10 +528,10 @@ DERAIN_K2_SHAPES = ((8, 48, 128, 128), (8, 96, 128, 128), (8, 96, 64, 64),
                     (8, 192, 32, 32), (8, 384, 16, 16), (1, 48, 384, 384),
                     (1, 48, 328, 488), (1, 384, 41, 61))
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
-# K2's fp32 route past the envelope: its split-TF32 products keep fp32's
-# accuracy, so it is held to the fp32 bar of its CPU model (tests/
-# test_torch_port_k2_tiles.py), which a single-pass TF32 product misses
-# (`k2f_control`)
+# K2's and K5's fp32 routes past the envelope: their split-TF32 products
+# keep fp32's accuracy, so they are held to the fp32 bar of their CPU
+# models (tests/test_torch_port_k2_tiles.py, test_torch_port_k5_tiles.py),
+# which a single-pass TF32 product misses (`k2f_control`)
 K2F_TOL = (1e-5, 1e-5)
 BWD_TOL = (3e-3, 1e-2)
 GRAD_BAR = 2e-3
@@ -847,8 +855,8 @@ def _tail_case(b, d, hw, dtype, gen):
 
 def _front_bound(args):
     """JAX's count (pallas_effn.py:322): B H W (4 C E + 18 E), the in_conv
-    products on the tensor cores for bf16 inputs; x read, xs and z
-    written once."""
+    products on the tensor cores, in bf16 for bf16 inputs and as three
+    TF32 products for fp32 (the split); x read, xs and z written once."""
     x, w_dw = args[0], args[5]
     b, c, h, w = x.shape
     e = w_dw.shape[0]
@@ -857,7 +865,7 @@ def _front_bound(args):
     by = nbytes(x) + 2 * px * e * x.element_size() + nbytes(*args[1:])
     if x.dtype == torch.bfloat16:
         return bound(by, other, mma)
-    return bound(by, other + mma)
+    return bound(by, other, tf32_mma=3 * mma)
 
 
 def _tail_bound(args):
@@ -948,10 +956,15 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             check_close(label, got, ref, *TOL[dtype]),
             check_close(label + " (fp32 bar)", got, ref, *K2F_TOL))
 
-    def pair_cmp(label, dtype):
+    def pair_cmp(label, dtype, c):
+        # fp32 (K5's split-TF32 route): the envelope, and the fp32 bar at
+        # the models' widths (C <= 384; wider, two fp32 sums of C products
+        # part by more than the bar)
+        tols = [TOL[dtype]] + ([K2F_TOL] if dtype == torch.float32
+                               and c <= 384 else [])
         return lambda got, ref: max(
-            check_close(f"{label} {n}", g, r, *TOL[dtype])
-            for n, g, r in zip(("xs", "z"), got, ref))
+            check_close(f"{label} {n}", g, r, *t)
+            for n, g, r in zip(("xs", "z"), got, ref) for t in tols)
 
     def carries_cmp(label, kernel_y):
         def cmp(got, ref):
@@ -1019,22 +1032,23 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 lambda a=a: cuda_effn.gdfn_residual_fwd(*a),
                 lambda a=a: cuda_effn.gdfn_residual_ref(*a),
                 k2_cmp(f"K2 {lab} {dtype}", dtype), _gdfn_bound(a))
-    # K5 and K6 at the five MamberBlock shapes of a served forward (the
-    # first, 30 of the 50 blocks, is the main shape); K5's bf16 rows (its
-    # tensor-core route) and its fp32 row at (8,96,64,64) (the S1 step's
-    # main shape with the switch on, the CUDA-core route) timed beside its
-    # plain version; then K5 at the ragged shapes
+    # K5 at the five MamberBlock shapes of a served forward (bf16, the
+    # first, 30 of the 50 blocks, the main shape) and of the S1 step (fp32,
+    # its split-TF32 route), each timed beside its plain version; K6 at the
+    # served shapes; then K5 at the ragged shapes
     cgen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        for (b, c, hw) in K5_SERVE_SHAPES:
+        for (b, c, hw) in (K5_SERVE_SHAPES if dtype == torch.bfloat16
+                           else K5_STEP_SHAPES):
             lab = f"({b},{c},{hw},{hw})"
             a = _front_case(b, c, hw, dtype, cgen)
             add("oss_front_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_front_fwd(*a),
                 lambda a=a: cuda_effn.oss_front_ref(*a),
-                pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a),
-                timed=dtype == torch.bfloat16 or (b, c, hw) == (8, 96, 64),
-                key=(b, c, hw, hw, dtype), plain_timed=True)
+                pair_cmp(f"K5 {lab} {dtype}", dtype, c), _front_bound(a),
+                timed=True, key=(b, c, hw, hw, dtype), plain_timed=True)
+        for (b, c, hw) in K5_SERVE_SHAPES:
+            lab = f"({b},{c},{hw},{hw})"
             a = _tail_case(b, c, hw, dtype, cgen)
             add("oss_tail_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_tail_fwd(*a),
@@ -1046,7 +1060,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             add("oss_front_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_front_fwd(*a),
                 lambda a=a: cuda_effn.oss_front_ref(*a),
-                pair_cmp(f"K5 {lab} {dtype}", dtype), _front_bound(a))
+                pair_cmp(f"K5 {lab} {dtype}", dtype, c), _front_bound(a))
     # K4 at the channel scans of a served forward (fp32, each timed)
     for c in (48, 96, 192, 384):
         a = _scan_case(8, c, 8, torch.float32, gen, lifted=False)
@@ -1415,6 +1429,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
     k1_deterministic(gen)
     k2_deterministic(gen)
     k2f_control(gen)
+    k5f_checks(cgen)
     k3_recorded_bits()
     torch.cuda.empty_cache()
     return stats, shape_ms
@@ -1574,6 +1589,59 @@ def k2f_control(gen):
     print(f"[kernels] K2 fp32 bar (rtol {K2F_TOL[0]}, atol {K2F_TOL[1]}): "
           "the single-pass TF32 control misses it at every step shape: "
           + "; ".join(rows))
+
+
+def front_single_tf32(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, eps=1e-5):
+    """The control for K5's fp32 bar: the plain version with the in_conv's
+    operands rounded to TF32 (a single-pass TF32 kernel's result)."""
+    e = w_dw.shape[0]
+    zn = cuda_effn._layer_norm(x, ln_w, ln_b, eps)
+    pxz = F.conv2d(_tf32_rn(zn), _tf32_rn(w_in)[:, :, None, None], b_in)
+    xs = F.conv2d(pxz[:, :e], w_dw[:, None], b_dw, padding=1, groups=e)
+    return F.silu(xs), F.silu(pxz[:, e:])
+
+
+def k5f_checks(gen):
+    """K5's fp32 route: two calls give the same bits at each of the S1
+    step's shapes (the widest two split the channel tiles over blocks);
+    its packing kernel gives its plain version's bits there and at the
+    widest class's k-slices; the single-pass TF32 control misses the fp32
+    bar at each step shape."""
+    rows = []
+    for (b, c, hw) in K5_STEP_SHAPES:
+        a = _front_case(b, c, hw, torch.float32, gen)
+        one, two = cuda_effn.oss_front_fwd(*a), cuda_effn.oss_front_fwd(*a)
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+            raise SystemExit(f"FAIL K5 ({b},{c},{hw},{hw}) fp32: two calls "
+                             "gave different bits")
+        refs = cuda_effn.oss_front_ref(*a)
+        off = []
+        for g, r in zip(front_single_tf32(*a), refs):
+            off.append((((g - r).abs() > K2F_TOL[1] + K2F_TOL[0] * r.abs())
+                        .float().mean().item()))
+        if max(off) == 0:
+            raise SystemExit(f"FAIL K5 fp32 bar at ({b},{c},{hw},{hw}): the "
+                             "single-pass TF32 control passes it")
+        rows.append(f"({b},{c},{hw},{hw}) {off[0]:.4f} / {off[1]:.4f}")
+    for c, e in [(c, c) for _, c, _ in K5_STEP_SHAPES] + [(704, 64),
+                                                          (200, 40)]:
+        _, _, _, w_in, b_in, w_dw, b_dw = _front_case(1, c, 1, torch.float32,
+                                                      gen, e)
+        cls = cuda_effn.k5f_class(c)
+        want = cuda_effn.pack_front_f32_weights(w_in, b_in, w_dw, b_dw, cls)
+        got = torch.full_like(want, float("nan"))
+        wd = w_dw.reshape(e, 9).contiguous()
+        _build.launch("vmt_oss_front_f32_pack", got.device, w_in.data_ptr(),
+                      b_in.data_ptr(), wd.data_ptr(), b_dw.data_ptr(),
+                      got.data_ptr(), c, e, cls)
+        if not torch.equal(got, want):
+            raise SystemExit(f"FAIL K5 fp32 packing C={c} E={e}: not the "
+                             "plain version's bits")
+    print("[kernels] K5 fp32 at the S1 step's shapes: two calls each, the "
+          "same bits; its packing kernel at C 48 / 96 / 192 / 384, (704, "
+          "64) and (200, 40), the plain version's bits; the single-pass "
+          f"TF32 control off the fp32 bar (rtol {K2F_TOL[0]}, atol "
+          f"{K2F_TOL[1]}) in this share of xs / z: " + "; ".join(rows))
 
 
 # -- phase 4: the model, kernels vs plain --------------------------------------
@@ -1832,7 +1900,10 @@ KERNEL_CLASSES = (
     # of its launches
     ("K2 GDFN", ("gdfn_f32_kernel", "gdfn_mma_kernel",
                  "k2f::pack_kernel")),
-    ("K5 OSS front", ("oss_front_kernel", "oss_front_mma_kernel")),
+    # the fp32 route's packing kernel (k5f::pack_kernel) runs before each
+    # of its launches
+    ("K5 OSS front", ("oss_front_f32_kernel", "oss_front_mma_kernel",
+                      "k5f::pack_kernel")),
     ("K6 OSS tail", ("oss_tail_kernel",)),
     # cuDNN's FFT algorithms among them: their transforms, pointwise
     # products and complex (cf32) GEMMs

@@ -135,14 +135,23 @@ def split_tf32(t):
     return hi, tf32(a - hi)
 
 
-def ksum3(a, b, acc=None, lo_apart=False):
+def split_cut(t):
+    """(hi, lo) as K5's fp32 route splits LN(x) (`csrc/mma.cuh::
+    split_tf32_cut`): hi = tf32(a), lo = tf32(a - hi)."""
+    a = t.float()
+    hi = tf32(a)
+    return hi, tf32(a - hi)
+
+
+def ksum3(a, b, acc=None, lo_apart=False, split_b=split_tf32):
     """acc + a (..., K) @ b (K, N) in split TF32, k-step by k-step of 8
     (K a multiple of 8): each step adds lo.hi, then hi.lo, then hi.hi, each
     a sum of 8 products of TF32 values (exact in fp32), in fp32. With
     `lo_apart` (the in-projection's two chains) the small terms go to an
-    accumulator of their own, added to the hi.hi one at the end."""
+    accumulator of their own, added to the hi.hi one at the end. b is
+    split by `split_b` (K5's fp32 route cuts it: `split_cut`)."""
     nk = a.shape[-1] // TF32_KSTEP
-    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    (ah, al), (bh, bl) = split_tf32(a), split_b(b)
 
     def steps(x, y):  # (nk, ..., N): each k-step's partial product
         return torch.einsum("...sk,skn->s...n",

@@ -150,9 +150,13 @@ def test_port_loads_jax_ckpt_of_d(tmp_path, jax_d, monkeypatch):
             assert torch.equal(after[k], t), k
 
 
-def test_missing_ckpt_loads_the_pth_of_its_stem(tmp_path, caplog):
+def test_missing_ckpt_loads_the_pth_of_its_stem(tmp_path, caplog,
+                                                monkeypatch):
     """A `.ckpt` that does not exist: the `.pth` beside it, said in the
     log; neither: FileNotFoundError naming both."""
+    # `get_root_logger` turns propagation off; caplog hooks the root
+    monkeypatch.setattr(logging.getLogger("vmambair_torch"), "propagate",
+                        True)
     net = OSSNet(**TINY_G)
     want = {k: v + 1 for k, v in net.state_dict().items()}
     checkpoint.save_network(str(tmp_path / "net_g_5.pth"), want, want)

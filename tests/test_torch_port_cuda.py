@@ -10,8 +10,9 @@ image sizes, N above one register batch) to reach the kernels' edges.
 Tolerances: fp32 within the reference CUDA envelope (rtol 6e-4, atol
 2e-3), bf16 within 3e-2 / 5e-2; gradients and the scan backward within 5x
 the fp32 envelope (rtol 3e-3, atol 1e-2); K2's fp32 route (split-TF32
-products) also within its CPU model's fp32 bar (rtol 1e-5, atol 1e-5),
-which a single-pass TF32 product misses. No JAX here.
+products) and K5's (the same split) also within their CPU models' fp32
+bar (rtol 1e-5, atol 1e-5), which a single-pass TF32 product misses. No
+JAX here.
 """
 
 import pytest
@@ -790,6 +791,59 @@ def test_oss_front_kernel_matches_plain(cuda, c, e, h, w, dtype):
     _close(z, rz, dtype)
 
 
+# K5's fp32 route: every width class (C 48, 96, 192, 704 and between), E
+# != C and past one channel tile, H and W no multiple of the tiles, an odd
+# W, W no multiple of 4, batch 1, a 1x1 image, the widest class's k-slices
+K5F_CASES = [(2, 48, 48, 13, 19), (2, 96, 100, 8, 8), (2, 20, 70, 3, 33),
+             (1, 40, 52, 9, 33), (1, 136, 72, 7, 11), (1, 192, 200, 16, 16),
+             (2, 384, 384, 5, 7), (1, 264, 136, 6, 10), (1, 704, 64, 5, 8),
+             (1, 704, 704, 6, 10), (2, 96, 96, 1, 1), (8, 96, 96, 32, 32),
+             (8, 384, 384, 8, 8)]
+
+
+@pytest.mark.parametrize("b,c,e,h,w", K5F_CASES)
+def test_oss_front_f32_kernel_holds_the_fp32_bar(cuda, b, c, e, h, w):
+    """K5's fp32 route (split TF32 on the tensor cores) against its plain
+    version, fp32 and cuDNN without TF32: within the envelope, and within
+    the CPU model's fp32 bar at the models' widths (C <= 384; past that
+    two fp32 sums of C products part by more than 1e-5 of their size);
+    two calls give the same bits."""
+    args = _front_args(cuda, c, e, h, w, torch.float32, c + e + h)
+    if b != 2:
+        g = torch.Generator().manual_seed(b + c)
+        args[0] = (0.5 * torch.randn(b, c, h, w, generator=g)).to(cuda)
+    n0 = cuda_effn.oss_front_fwd.launches
+    xs, z = cuda_effn.oss_front_fwd(*args)
+    assert cuda_effn.oss_front_fwd.launches == n0 + 1
+    for got, ref in zip((xs, z), cuda_effn.oss_front_ref(*args)):
+        assert got.shape == (b, e, h, w) and got.dtype == torch.float32
+        _close(got, ref, torch.float32)
+        if c <= 384:
+            torch.testing.assert_close(got, ref, **K2F_TOL)
+    again = cuda_effn.oss_front_fwd(*args)
+    assert torch.equal(again[0], xs) and torch.equal(again[1], z)
+
+
+@pytest.mark.parametrize("c,e", [(48, 48), (96, 96), (20, 70), (192, 200),
+                                 (384, 384), (704, 64), (200, 40)])
+def test_oss_front_f32_packing_kernel_matches_plain(cuda, c, e):
+    """The fp32 route's packing kernel (`vmt_oss_front_f32_pack`) writes
+    the images of `pack_front_f32_weights` bit for bit, pads included."""
+    from vmambair_torch import _build
+
+    _, _, _, w_in, b_in, w_dw, b_dw = _front_args(cuda, c, e, 1, 1,
+                                                  torch.float32, c + e)
+    cls = cuda_effn.k5f_class(c)
+    want = cuda_effn.pack_front_f32_weights(w_in, b_in, w_dw, b_dw, cls)
+    got = torch.full_like(want, float("nan"))
+    wd = w_dw.reshape(e, 9).contiguous()
+    _build.launch("vmt_oss_front_f32_pack", got.device, w_in.data_ptr(),
+                  b_in.data_ptr(), wd.data_ptr(), b_dw.data_ptr(),
+                  got.data_ptr(), c, e, cls)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("ydtype,zdtype", [(torch.float32, torch.float32),
                                            (torch.bfloat16, torch.bfloat16),
                                            (torch.float32, torch.bfloat16)])
@@ -1193,7 +1247,7 @@ def test_gdfn_tanh_nhwc_kernel_matches_plain(cuda, b, h, w, c, dtype):
                                    (1, 5, 256)])
 def test_probe_transpose_kernel_matches_plain(cuda, shape, dtype):
     """kprobe's transpose pair, bit-equal to its plain version: rows that
-    are no multiple of the 64-row tile, one whole tile, D = 40 and the
+    are no multiple of a tile, fewer rows than one tile, D = 40 and the
     largest D, 256."""
     from vmambair_torch.ops import cuda_probes
 
@@ -1245,6 +1299,28 @@ def test_probe_kernels_take_odd_widths_and_offset_views(cuda, D, offset,
     wdt = (torch.randn(D, 6, generator=g) / 6 ** 0.5).to(cuda)
     _close(cuda_probes.probe_proj(u, wxp, wdt),
            cuda_probes.probe_proj_ref(u, wxp, wdt), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D,offset", [
+    (20000, 33, 0), (20000, 96, 1), (20000, 96, 4), (20000, 96, 8),
+    (131072, 96, 0), (5000, 8, 0), (3001, 4, 0), (9000, 256, 0),
+    (777, 72, 0), (777, 1, 3)])
+def test_probe_transpose_takes_both_paths(cuda, rows, D, offset, dtype):
+    """The transpose pair's 16-byte route (D a multiple of 8 bf16 or 4
+    fp32, u 16-byte aligned: several tiles a block at 131072 rows, the
+    probe's (8, 16384, 96); ragged last tiles; D of 1, 3 and 4 chunks a
+    row, 9 (groups of 8 in pass B), 32) and its edge path (D = 33, a u
+    that starts 1, 4 or 8 elements into its buffer, D = 1): bit-equal to
+    the plain version either way, y of u's shape."""
+    from vmambair_torch.ops import cuda_probes
+
+    g = torch.Generator().manual_seed(rows + D + offset)
+    buf = torch.randn(rows * D + offset, generator=g).to(cuda, dtype)
+    u = buf[offset:].view(rows, D)
+    got = cuda_probes.probe_transpose(u)
+    assert got.shape == u.shape and got.dtype == dtype
+    assert torch.equal(got, cuda_probes.probe_transpose_ref(u))
 
 
 def test_keffn_and_kprobe_kernels_refuse_what_they_cannot_take(cuda):

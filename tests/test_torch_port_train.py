@@ -179,7 +179,11 @@ def test_mixup_clip_adamw_step_is_seeded():
     assert np.isfinite(losses[0]) and losses[0] == losses[1]
 
 
-def test_non_strict_load_skips_a_mismatched_shape(tmp_path, caplog):
+def test_non_strict_load_skips_a_mismatched_shape(tmp_path, caplog,
+                                                  monkeypatch):
+    # `get_root_logger` turns propagation off; caplog hooks the root
+    monkeypatch.setattr(logging.getLogger("vmambair_torch"), "propagate",
+                        True)
     net = build_network(TINY_G, device="cpu", seed=1)
     sd = net.state_dict()
     key = "patch_embed.proj.weight"

@@ -186,9 +186,12 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _F, _P,          # B C E H W cls eps stream
     ],
     "vmt_oss_front_f32_fwd": [
-        _P, _P, _P, _P, _P,                      # x xs z lnw lnb
-        _P, _P, _P, _P,                          # win_t bin wdw bdw
-        _I, _I, _I, _I, _I, _F, _P,              # B C E H W eps stream
+        _P, _P, _P, _P, _P, _P,                  # x xs z lnw lnb wimg
+        _I, _I, _I, _I, _I, _I, _F, _P,          # B C E H W cls eps stream
+    ],
+    "vmt_oss_front_f32_pack": [
+        _P, _P, _P, _P, _P,                      # w_in b_in w_dw b_dw wimg
+        _I, _I, _I, _P,                          # C E cls stream
     ],
     "vmt_oss_tail_fwd": [
         _P, _I, _P, _I, _P, _P, _P,              # y dty z dtz out lnw lnb

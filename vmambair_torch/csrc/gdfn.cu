@@ -480,6 +480,7 @@ namespace k2f {
 
 using mfront::Nchw;  // the layout policies
 using mfront::Nhwc;
+using mfront::ln_front_f32;  // the fp32 front, K5's fp32 route's too
 
 // Every thread of every block of the cluster arrives, then waits (release
 // and acquire: shared-memory writes before it are seen after it).
@@ -588,68 +589,6 @@ __device__ __forceinline__ void stage_tile(unsigned char* slot,
   mma::mbar_expect_tx(bar, (unsigned)bytes);
   mma::bulk_g2s(slot, wimg + (long long)t * (bytes / 4), (unsigned)bytes,
                 bar);
-}
-
-// zn [MP][ZP] <- LN(x) over the halo of the tile at (y0, x0), fp32, zero
-// outside the image, in the rows past P and in the columns past C. x's
-// halo arrives by cp.async, 4 bytes an element in Lay::in's order (zero
-// filled outside the image), straight into zn's rows; then the fp32
-// statistics of each row (two passes) and the row normalised in place.
-// The call waits for every cp.async group the thread committed; the
-// caller syncs before reading zn.
-template <class K, class Lay>
-__device__ __forceinline__ void ln_front_f32(
-    const float* __restrict__ x, const float* __restrict__ lnw,
-    const float* __restrict__ lnb, int C, int H, int W, int y0, int x0,
-    long long xb, float eps, float* zn) {
-  const int KP = (C + 15) / 16 * 16, ZP = KP + 4;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int e = tid; e < C * K::P; e += K::NT) {
-    int c, p;
-    Lay::in(e, C, c, p);
-    const int gy = y0 - 1 + p / K::PW, gx = x0 - 1 + p % K::PW;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    mma::cp_async4(zn + p * ZP + c,
-                   in ? x + xb + Lay::at(c, gy, gx, C, H, W) : x, in);
-  }
-  mma::cp_async_commit();
-  const int kpad = KP - C;
-  for (int i = tid; i < K::P * kpad; i += K::NT) {
-    const int p = i / kpad;
-    zn[p * ZP + C + i - p * kpad] = 0.f;
-  }
-  for (int i = tid; i < (K::MP - K::P) * KP; i += K::NT) {
-    const int r = i / KP;
-    zn[(K::P + r) * ZP + i - r * KP] = 0.f;
-  }
-  mma::cp_async_wait_all();
-  __syncthreads();
-  // a warp takes 8 pixels at a time, its lanes 4 channel groups of each
-  // (p * ZP + c falls in 32 distinct banks), summed across by shuffles
-  for (int pb = warp * 8; pb < K::P; pb += K::NW * 8) {
-    const int p = pb + (lane & 7), cq = lane >> 3;
-    const int gy = y0 - 1 + p / K::PW, gx = x0 - 1 + p % K::PW;
-    const bool ok = p < K::P && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    float* row = zn + p * ZP;
-    float s = 0.f;
-    if (ok)
-      for (int c = cq; c < C; c += 4) s += row[c];
-    s += __shfl_xor_sync(0xffffffffu, s, 8);
-    s += __shfl_xor_sync(0xffffffffu, s, 16);
-    const float mu = s / C;
-    float v = 0.f;
-    if (ok)
-      for (int c = cq; c < C; c += 4) {
-        const float d = row[c] - mu;
-        v += d * d;
-      }
-    v += __shfl_xor_sync(0xffffffffu, v, 8);
-    v += __shfl_xor_sync(0xffffffffu, v, 16);
-    const float rs = rsqrtf(v / C + eps);
-    if (ok)  // outside the image the row stays zero
-      for (int c = cq; c < C; c += 4)
-        row[c] = (row[c] - mu) * rs * __ldg(lnw + c) + __ldg(lnb + c);
-  }
 }
 
 // A block owns a TH x TW output tile of one image and, in a cluster of

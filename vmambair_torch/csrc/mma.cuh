@@ -169,6 +169,17 @@ __device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi,
   lo = __float_as_uint(__fsub_rn(f, h)) & 0xffffe000u;
 }
 
+// The cheaper split K5's fp32 route takes for its B operands: hi = a cut
+// to TF32 (the low 13 bits zeroed, toward zero), lo = a - hi (exact, at
+// most 13 significant bits) cut the same way; |a - hi - lo| < 2^-21 |a|,
+// |lo| < 2^-10 |a|. Three instructions where Veltkamp's split takes five.
+__device__ __forceinline__ void split_tf32_cut(uint32_t a, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = a & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(__uint_as_float(a), __uint_as_float(hi))) &
+       0xffffe000u;
+}
+
 template <int N>
 __device__ __forceinline__ void split_tf32(const uint32_t (&a)[N],
                                            uint32_t (&hi)[N],

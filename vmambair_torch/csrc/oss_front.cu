@@ -42,16 +42,42 @@
 // widest level), blockIdx.y splits the channel tiles across blocks, each
 // normalising its halo itself. Any C <= 704, E, H, W.
 //
-// fp32 (the S1 step with the switch on): `oss_front_kernel`, fp32 FMAs on
-// the CUDA cores (ln_halo.cuh): fp32 products, which the tensor cores do
-// not give (TF32 keeps 10 bits). A block owns a 4 x 8 output tile: it
-// normalises x over the halo into shared memory once, then walks the
-// output channels in tiles of ET, projecting LN(x) onto each tile's x- and
-// z-channels with W_in staged KC input channels at a time; the x-half is
-// set to 0 outside the image after the bias. When the spatial tiles alone
-// would not fill the card, blockIdx.y splits the channel tiles across
-// blocks.
-#include "ln_halo.cuh"
+// fp32 (the S1 step with the switch on): `oss_front_f32_kernel`, the same
+// skeleton in fp32 with both halves in split TF32 on the tensor cores, as
+// K2's fp32 route (mma.cuh): each fp32 operand a = hi + lo (Veltkamp's
+// split to TF32's 11 significant bits for the weights, LN(x) cut to TF32
+// by masking, the cheaper split; lo = a - hi cut to TF32) and a . b =
+// lo.hi + hi.lo + hi.hi by three mma.sync m16n8k8, fp32 accumulators;
+// the dropped terms are below 2^-21 of each product, so the route keeps
+// fp32 accuracy (a single TF32 pass keeps about 3 digits). K2's fp32 front
+// (mma_front.cuh's `ln_front_f32`) stages x's halo by cp.async straight
+// into LN(x)'s fp32 rows and normalises them in place. Each channel
+// tile's weights (the x- and z-half rows, then the taps and the three
+// biases) are packed once a call by a packing kernel into an image
+// (`pack_front_f32_weights` its plain version) and arrive by bulk copies
+// (TMA) into a two-slot ring, an mbarrier a slot, one thread issuing the
+// next while the block computes; the widest class takes W_in's rows in
+// k-slices of 128 input channels, its LN(x) alone filling most of the
+// shared memory at C = 704. The weights are the A operand and the halo's
+// pixels (the x-half) or the tile's own (the z-half, gathered from LN(x)'s
+// centre by ldmatrix's row addresses) the B operand; each warp takes a run
+// of the B operand's n8 blocks and runs every k-step's lo.hi, hi.lo and
+// hi.hi passes each over all of its accumulators, so that no mma waits on
+// the one before, in a k-loop compiled once per warp kind (x blocks, z
+// blocks, both) so that no branch picks the half per block. The packing
+// kernel lets this one launch early (programmatic dependent launch): x's
+// halo loads while the images are written. The x-half gets its bias, then
+// 0 outside the image; the depthwise 3x3, its bias and SiLU run on the
+// CUDA cores in fp32, taps in (dy, dx) order, writing xs straight out (a
+// warp on TW contiguous pixels of each of its channels); z goes out
+// straight from the fragments (a quad of lanes on a channel's 8
+// contiguous pixels), with no staging tile, so that two blocks share an
+// SM at C <= 96. Where the spatial tiles give fewer blocks than the card
+// holds at once (the occupancy API's count), blockIdx.y splits the
+// channel tiles across blocks. Four width classes (Ff0-Ff3): any C <=
+// 704, E, H, W.
+#include <type_traits>
+
 #include "mma_front.cuh"
 
 namespace vmt {
@@ -420,90 +446,476 @@ static int launch(const void* x, void* xs, void* z, const float* lnw,
 }  // namespace k5
 
 // ---------------------------------------------------------------------------
-// The fp32 route: fp32 FMAs on the CUDA cores.
+// The fp32 route: both in_conv halves in split TF32 on the tensor cores.
 // ---------------------------------------------------------------------------
-namespace front {
+namespace k5f {
 
-using namespace halo;
+using mfront::ln_front_f32_load;
+using mfront::ln_front_f32_norm;
+using mfront::Nchw;
 
-constexpr int ET = RT;                   // output channels per tile
+constexpr int AUX = k5::AUX;  // per channel: 9 taps, b_dw, b_x, b_z
+constexpr int FRONT_MAX_C = 704;  // ops/cuda_effn.py's FRONT_MAX_C
 
-__device__ __forceinline__ float silu(float v) {
-  return v / (1.f + expf(-v));
+// A width class of the fp32 route: a TH x TW output tile, ET output
+// channels per tile (MT m16 blocks of each half), W_in's rows staged in
+// k-slices of at most KS input channels, MINB blocks an SM. The B
+// operand's n8 blocks: the halo's pixels (NBX; zn has MP = 8 NBX rows),
+// then the tile's output pixels (NBZ); each warp takes a run of NPW of
+// them (the one that straddles the halves NPW - 1; a warp past the last
+// takes none). px [ET][PXP] fp32, PXP = TW
+// mod 32 (the conv pass's warp reads 32 distinct banks). Everything else
+// in shared memory is fp32 rows of
+// KP + 4 or ks + 4 floats, 4 mod 8, so that ldmatrix's eight 16-byte rows
+// fall in distinct bank groups (as K2's fp32 route).
+template <int TH_, int TW_, int ET_, int KS_, int MINB_>
+struct FCls {
+  static constexpr int TH = TH_, TW = TW_, ET = ET_, MT = ET / 16;
+  static constexpr int KS = KS_, MINB = MINB_;
+  static constexpr int NT = mfront::NTH, NW = mfront::NWARP;
+  static constexpr int PH = TH + 2, PW = TW + 2, P = PH * PW, Q = TH * TW;
+  static constexpr int NBX = (P + 7) / 8, MP = 8 * NBX, NBZ = Q / 8;
+  static constexpr int NPW = (NBX + NBZ + NW - 1) / NW;
+  // the warp whose run holds blocks of both halves (it splits both weight
+  // tiles) takes NPW - 1 of them, the warps after it start one earlier
+  static constexpr bool MIX = NBX % NPW != 0;
+  static constexpr int WM = NBX / NPW;
+  static constexpr int PXP = (MP - TW + 31) / 32 * 32 + TW;
+  // the conv pass: ET x TW x RG tasks, each TR rows of one column
+  static constexpr int RG = NT / (ET * TW) > 1 ? NT / (ET * TW) : 1;
+  static constexpr int TR = TH / RG;
+  static_assert(ET % 16 == 0 && TW % 8 == 0 && KS % 16 == 0 &&
+                    TH % RG == 0 && NW * NPW - MIX >= NBX + NBZ,
+                "");
+};
+
+// the width classes; ops/cuda_effn.py's K5F_CLASSES gives the wrapper each
+// one's largest C, tile, ET and KS (the widest takes W_in in k-slices of
+// 128: its LN(x) alone is 181 KB at C = 704)
+using Ff0 = FCls<8, 16, 16, 48, 2>;   // C <= 48
+using Ff1 = FCls<8, 16, 16, 96, 2>;   // C <= 96
+using Ff2 = FCls<8, 8, 16, 192, 1>;   // C <= 192
+using Ff3 = FCls<4, 8, 16, 128, 1>;   // C <= 704
+
+// The slices of W_in's KP = C rounded up to 16 columns: NS of KS, the last
+// of KL (KP - (NS - 1) KS). Channel tile t's image (the wrapper's packing,
+// `ops/cuda_effn.py::pack_front_f32_weights`): for each slice its 2 ET rows
+// (x-half rows t ET .., then z-half rows E + t ET ..) of ks + 4 floats
+// (the slice's columns, then 4 zeros), then, after the last slice, each
+// channel's 9 taps, b_dw, b_x and b_z (AUX floats); zero past E and C.
+// A slice is one bulk copy, the last with the taps and biases.
+struct Slices {
+  int KP, NS, KL, tile;  // tile: the floats of a tile's image
+};
+
+template <class K>
+__host__ __device__ inline Slices slices(int C) {
+  Slices s;
+  s.KP = (C + 15) / 16 * 16;
+  s.NS = (s.KP + K::KS - 1) / K::KS;
+  s.KL = s.KP - (s.NS - 1) * K::KS;
+  s.tile = 2 * K::ET * (s.KP + 4 * s.NS) + K::ET * AUX;
+  return s;
 }
 
-__global__ void __launch_bounds__(NTH, 2) oss_front_kernel(
-    const void* __restrict__ x, int dt, void* __restrict__ xs,
-    void* __restrict__ z, const float* __restrict__ lnw,
-    const float* __restrict__ lnb, const float* __restrict__ win_t,
-    const float* __restrict__ bin, const float* __restrict__ wdw,
-    const float* __restrict__ bdw, int C, int E, int H, int W, int tiles_x,
-    float eps) {
-  extern __shared__ float sm[];
-  float* zn = sm;                 // [C][PP]     LN(x) over the halo
-  float* pb = zn + C * PP;        // [2*ET][PP]  projected channel tile
-  float* ws = pb + 2 * ET * PP;   // [KC][2*ET]  W_in slice of the tile
-  __shared__ float s_mu[PP], s_rs[PP];
+// Byte offsets in dynamic shared memory: zn [MP][KP + 4] (x's halo, then
+// LN(x) in place) from 0, px, then the ring's two slots, each the largest
+// slice's rows and the taps and biases.
+struct FPlan {
+  int px, ring, slot, total;
+};
 
-  const int b = blockIdx.z;
-  const int y0 = (blockIdx.x / tiles_x) * TH;
-  const int x0 = (blockIdx.x % tiles_x) * TW;
+template <class K>
+__host__ __device__ inline FPlan fplan(int C) {
+  const Slices sl = slices<K>(C);
+  const int ks = sl.NS > 1 ? K::KS : sl.KL;
+  FPlan p;
+  p.px = K::MP * (sl.KP + 4) * 4;
+  p.ring = p.px + K::ET * K::PXP * 4;
+  p.slot = (2 * K::ET * (ks + 4) + K::ET * AUX) * 4;
+  p.total = p.ring + 2 * p.slot;
+  return p;
+}
+
+// SiLU by the hardware exp2 and a fast divide: a few ulp of fp32 (0 for
+// v below -88, where exp(-v) is inf)
+__device__ __forceinline__ float silu(float v) {
+  return __fdividef(v, 1.f + __expf(-v));
+}
+
+// A block owns a TH x TW output tile of one image and every gridDim.y-th
+// channel tile from blockIdx.y on. Per channel tile, the x-half [ET x MP
+// halo pixels] and the z-half [ET x Q output pixels] = W . LN(x)^T in
+// split TF32 (mma.cuh: a = hi + lo, each k-step of 8 adds lo.hi, hi.lo,
+// then hi.hi to the fp32 accumulator; the three passes of a k-step each
+// over all of the warp's accumulators, so that no mma waits on the one
+// before it), with the weight rows as the A operand, so that each
+// accumulator holds a channel's pixels. x, xs, z NCHW fp32; wimg the
+// channel tiles' images (Slices).
+template <class K>
+__global__ void __launch_bounds__(K::NT, K::MINB) oss_front_f32_kernel(
+    const float* __restrict__ x, float* __restrict__ xs,
+    float* __restrict__ z, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, const float* __restrict__ wimg, int C,
+    int E, int H, int W, int tiles_x, float eps) {
+  extern __shared__ __align__(16) unsigned char smk[];
+  __shared__ __align__(8) uint64_t s_bar[2];  // the ring slots' barriers
+  const Slices sl = slices<K>(C);
+  const int ZP = sl.KP + 4;
+  const FPlan pl = fplan<K>(C);
+  float* zn = reinterpret_cast<float*>(smk);
+  float* px = reinterpret_cast<float*>(smk + pl.px);
+
+  const int y0 = (blockIdx.x / tiles_x) * K::TH;
+  const int x0 = (blockIdx.x % tiles_x) * K::TW;
   const long long HW = (long long)H * W;
-  const long long xb = (long long)b * C * HW;
-  const long long ob = (long long)b * E * HW;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
+  const long long xb = (long long)blockIdx.z * C * HW;
+  const long long ob = (long long)blockIdx.z * E * HW;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nt = (E + K::ET - 1) / K::ET, t0 = blockIdx.y, dt = gridDim.y;
 
-  // 1-2. LN(x) over the halo (ln_halo.cuh)
-  ln_halo(x, dt, xb, lnw, lnb, C, H, W, y0, x0, eps, zn, s_mu, s_rs);
+  // item i of the ring: slice s of channel tile t, into slot i % 2; one
+  // thread issues it, after the barrier that ends every read of the slot
+  auto stage = [&](int i, int t, int s) {
+    const bool last = s == sl.NS - 1;
+    const int ks = last ? sl.KL : K::KS;
+    const unsigned bytes =
+        (2 * K::ET * (ks + 4) + (last ? K::ET * AUX : 0)) * 4;
+    mma::mbar_expect_tx(&s_bar[i & 1], bytes);
+    mma::bulk_g2s(smk + pl.ring + (i & 1) * pl.slot,
+                  wimg + (long long)t * sl.tile + s * 2 * K::ET * (K::KS + 4),
+                  bytes, &s_bar[i & 1]);
+  };
+  // x's halo in flight, then the first slice; the front's second half
+  // syncs before any thread waits on a barrier. The images come from the
+  // packing kernel just before this one, which lets this grid launch
+  // early (programmatic dependent launch): the front overlaps it, and the
+  // thread that copies the images waits for it first.
+  ln_front_f32_load<K, Nchw<K>>(x, C, H, W, y0, x0, xb, zn);
+  if (tid == 0) {
+    mma::mbar_init(&s_bar[0], 1);
+    mma::mbar_init(&s_bar[1], 1);
+    mma::mbar_init_fence();
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    stage(0, t0, 0);
+  }
+  ln_front_f32_norm<K, Nchw<K>>(lnw, lnb, C, H, W, y0, x0, eps, zn);
 
-  for (int e0 = blockIdx.y * ET; e0 < E; e0 += gridDim.y * ET) {
-    __syncthreads();  // zn ready; the previous tile's pb readers are done
-    // 3. project the channel tile over the halo: row r < ET is x-channel
-    // e0 + r, row r >= ET is z-channel e0 + r - ET; then the bias, and the
-    // x-half set to 0 outside the image
-    {
-      float pa[ROWS_L][PIX_W];
-      project_tile(zn, ws, win_t, C, E, e0, pa);
+  // this warp's n8 blocks: the B operand's rows (lanes 0-15: pixel lane %
+  // 8 of the block, k from (lane / 8) % 2 * 4), halo pixels for an x
+  // block, for a z block the output pixels at their halo positions; a
+  // slot past the warp's run (j >= nj) is skipped
+  const int jb0 = warp * K::NPW - (K::MIX && warp > K::WM ? 1 : 0);
+  const int nblk = K::NBX + K::NBZ;
+  // this warp's blocks jb0 .. jb0 + nj - 1
+  const int nj = min(K::MIX && warp == K::WM ? K::NPW - 1 : K::NPW,
+                     nblk - jb0);
+  const bool active = nj > 0;
+  const bool has_x = jb0 < K::NBX, has_z = jb0 + nj > K::NBX;
+  const int kofs = ((lane >> 3) & 1) * 4;
+  const float* brow[K::NPW];
 #pragma unroll
-      for (int m = 0; m < ROWS_L; ++m) {
-        const int r = lane + 32 * m;
-        const int e = e0 + r % ET;
-        const float bias = e < E ? bin[(r / ET) * E + e] : 0.f;
+  for (int j = 0; j < K::NPW; ++j) {
+    const int blk = min(jb0 + j, nblk - 1);
+    int row;
+    if (blk < K::NBX) {
+      row = blk * 8 + (lane & 7);
+    } else {
+      const int q = (blk - K::NBX) * 8 + (lane & 7);
+      row = (q / K::TW + 1) * K::PW + q % K::TW + 1;
+    }
+    brow[j] = zn + row * ZP + kofs;
+  }
+  const bool w2 = W % 2 == 0;
+
+  int it = 0;
+  for (int t = t0; t < nt; t += dt) {
+    float acc[K::NPW][K::MT][4];
 #pragma unroll
-        for (int j = 0; j < PIX_W; ++j) {
-          const int p = warp * PIX_W + j;
-          pb[r * PP + p] = (r < ET && !in_image(p, y0, x0, H, W))
-                               ? 0.f
-                               : pa[m][j] + bias;
+    for (int j = 0; j < K::NPW; ++j)
+#pragma unroll
+      for (int m = 0; m < K::MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][m][e] = 0.f;
+    for (int s = 0; s < sl.NS; ++s, ++it) {
+      mma::mbar_wait(&s_bar[it & 1], (it >> 1) & 1);  // the slot's fill
+      __syncthreads();  // the slice and zn are in; the last tile's readers
+                        // of the other slot, px and the staged tiles are
+                        // done
+      if (tid == 0) {
+        if (s + 1 < sl.NS)
+          stage(it + 1, t, s + 1);
+        else if (t + dt < nt)
+          stage(it + 1, t + dt, 0);
+      }
+      if (!active) continue;
+      const int ks = s == sl.NS - 1 ? sl.KL : K::KS, SP = ks + 4;
+      const float* ws =
+          reinterpret_cast<const float*>(smk + pl.ring + (it & 1) * pl.slot);
+      const float* arow = ws + (lane & 15) * SP + (lane >> 4) * 4;
+      const int kz = s * K::KS;
+      // the k-loop in three forms, each free of branches per block: a
+      // warp of x blocks, of z blocks, or the one that holds both
+      // (mode 3: its first nx blocks are x blocks)
+      auto kloop = [&](auto mode, auto njc) {
+        constexpr int MODE = decltype(mode)::value;
+        constexpr int NJ = decltype(njc)::value;
+        const int nx = K::NBX - jb0;
+#pragma unroll 2
+        for (int k0 = 0; k0 < ks; k0 += 8) {
+          uint32_t xh[K::MT][4], xl[K::MT][4], zh[K::MT][4], zl[K::MT][4];
+#pragma unroll
+          for (int m = 0; m < K::MT; ++m) {
+            uint32_t a[4];
+            if constexpr ((MODE & 1) != 0) {
+              mma::ldsm_x4(a, arow + m * 16 * SP + k0);
+              mma::split_tf32(a, xh[m], xl[m]);
+            }
+            if constexpr ((MODE & 2) != 0) {
+              mma::ldsm_x4(a, arow + (K::ET + m * 16) * SP + k0);
+              mma::split_tf32(a, zh[m], zl[m]);
+            }
+          }
+          uint32_t bh[NJ][2], bl[NJ][2];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            uint32_t bb[2];
+            mma::ldsm_x2(bb, brow[j] + kz + k0);
+            mma::split_tf32_cut(bb[0], bh[j][0], bl[j][0]);
+            mma::split_tf32_cut(bb[1], bh[j][1], bl[j][1]);
+          }
+          // lo.hi, hi.lo, hi.hi: each pass over every accumulator
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              const uint32_t b0 = pass == 1 ? bl[j][0] : bh[j][0];
+              const uint32_t b1 = pass == 1 ? bl[j][1] : bh[j][1];
+              const bool isx = MODE == 1 || (MODE == 3 && j < nx);
+#pragma unroll
+              for (int m = 0; m < K::MT; ++m) {
+                if (isx) {
+                  if (pass == 0)
+                    mma::mma_tf32(acc[j][m], xl[m], b0, b1);
+                  else
+                    mma::mma_tf32(acc[j][m], xh[m], b0, b1);
+                } else {
+                  if (pass == 0)
+                    mma::mma_tf32(acc[j][m], zl[m], b0, b1);
+                  else
+                    mma::mma_tf32(acc[j][m], zh[m], b0, b1);
+                }
+              }
+            }
         }
+      };
+      using std::integral_constant;
+      if (!has_z)
+        kloop(integral_constant<int, 1>(), integral_constant<int, K::NPW>());
+      else if (!has_x)
+        kloop(integral_constant<int, 2>(), integral_constant<int, K::NPW>());
+      else
+        kloop(integral_constant<int, 3>(),
+              integral_constant<int, K::MIX ? K::NPW - 1 : K::NPW>());
+    }
+    // the tile's taps and biases, after its last slice's rows
+    const float* au = reinterpret_cast<const float*>(
+                          smk + pl.ring + ((it - 1) & 1) * pl.slot) +
+                      2 * K::ET * (sl.KL + 4);
+    // px = the x-half + b_x, 0 outside the image; z = SiLU(the z-half +
+    // b_z), stored. Accumulator e of block (j, m): channel 16 m + g + 8
+    // (e / 2), pixel 8 (block) + 2 t4 + e % 2
+#pragma unroll
+    for (int j = 0; j < K::NPW; ++j) {
+      const int blk = jb0 + j;
+      if (j >= nj) break;
+      if (blk < K::NBX) {
+        const int p = blk * 8 + 2 * t4;
+        bool in[2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int gy = y0 - 1 + (p + s) / K::PW;
+          const int gx = x0 - 1 + (p + s) % K::PW;
+          in[s] = p + s < K::P && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        }
+#pragma unroll
+        for (int m = 0; m < K::MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ch = 16 * m + g + 8 * h;
+            const float bias = au[ch * AUX + 10];
+            *reinterpret_cast<float2*>(px + ch * K::PXP + p) = make_float2(
+                in[0] ? acc[j][m][2 * h] + bias : 0.f,
+                in[1] ? acc[j][m][2 * h + 1] + bias : 0.f);
+          }
+      } else {
+        // z straight from the fragments: a channel's 8 pixels of one tile
+        // row are the 4 lanes of a quad, 32 contiguous bytes
+        const int q = (blk - K::NBX) * 8 + 2 * t4;
+        const int gy = y0 + q / K::TW, gx = x0 + q % K::TW;
+#pragma unroll
+        for (int m = 0; m < K::MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = t * K::ET + 16 * m + g + 8 * h;
+            if (e >= E || gy >= H || gx >= W) continue;
+            const float bias = au[(16 * m + g + 8 * h) * AUX + 11];
+            const float v0 = silu(acc[j][m][2 * h] + bias);
+            const float v1 = silu(acc[j][m][2 * h + 1] + bias);
+            float* o = z + ob + e * HW + (long long)gy * W + gx;
+            if (w2) {  // gx even, W even: an 8-byte store
+              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+            } else {
+              o[0] = v0;
+              if (gx + 1 < W) o[1] = v1;
+            }
+          }
       }
     }
     __syncthreads();
-    // 4. depthwise 3x3 + bias + SiLU into xs, SiLU of the z-half into z
-    for (int i = tid; i < ET * Q; i += NTH) {
-      const int j = i / Q, q = i % Q;
-      const int e = e0 + j;
-      const int qy = q / TW, qx = q % TW;
-      const int gy = y0 + qy, gx = x0 + qx;
-      if (e < E && gy < H && gx < W) {
-        const float* w9 = wdw + (long long)e * 9;
-        const float* h = pb + j * PP;
-        float a = bdw[e];
+    // the depthwise 3x3 (fp32, taps in (dy, dx) order), + b_dw, SiLU,
+    // into xs: a thread per (channel j, column qx, row group) slides down
+    // its TR rows, each halo row read once; a warp's stores are TW
+    // contiguous pixels of 32 / TW channels
+    const int e0 = t * K::ET;
+    for (int task = tid; task < K::ET * K::TW * K::RG; task += K::NT) {
+      const int qx = task % K::TW, rest = task / K::TW;
+      const int j = rest % K::ET, r0 = (rest / K::ET) * K::TR;
+      if (e0 + j >= E) continue;
+      const float* a9 = au + j * AUX;
+      float w9[9];
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+      for (int k = 0; k < 9; ++k) w9[k] = a9[k];
+      float a[K::TR];
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-            a += w9[dy * 3 + dx] * h[(qy + dy) * PW + qx + dx];
-        const long long o = ob + (long long)e * HW + (long long)gy * W + gx;
-        st_act(xs, o, dt, silu(a));
-        st_act(z, o, dt, silu(pb[(ET + j) * PP + (qy + 1) * PW + qx + 1]));
+      for (int r = 0; r < K::TR; ++r) a[r] = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < K::TR + 2; ++rr) {
+        const float* hr = px + j * K::PXP + (r0 + rr) * K::PW + qx;
+        const float h3[3] = {hr[0], hr[1], hr[2]};
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int r = rr - dy;
+          if (r >= 0 && r < K::TR) {
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) a[r] += w9[dy * 3 + dx] * h3[dx];
+          }
+        }
+      }
+      const float bd = a9[9];
+      const int gx = x0 + qx;
+      if (gx >= W) continue;
+      float* o = xs + ob + (e0 + j) * HW + gx;
+#pragma unroll
+      for (int r = 0; r < K::TR; ++r) {
+        const int gy = y0 + r0 + r;
+        if (gy < H) o[(long long)gy * W] = silu(a[r] + bd);
       }
     }
   }
 }
 
-}  // namespace front
+template <class K>
+static int launch(const float* x, float* xs, float* z, const float* lnw,
+                  const float* lnb, const float* wimg, int B, int C, int E,
+                  int H, int W, float eps, cudaStream_t stream) {
+  const FPlan pl = fplan<K>(C);
+  if (pl.total > FRONT_MAX_SMEM || C < 1 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = oss_front_f32_kernel<K>;
+  int err = set_smem((const void*)kernel, pl.total);
+  if (err) return err;
+  const int tiles_x = (W + K::TW - 1) / K::TW;
+  const int tiles = tiles_x * ((H + K::TH - 1) / K::TH);
+  const int nt = (E + K::ET - 1) / K::ET;
+  // where the spatial tiles give fewer blocks than the card holds at once,
+  // split the channel tiles into groups of blocks up to that count (the
+  // residency from the occupancy API, by C: the same on every H100)
+  static int per_sm[FRONT_MAX_C + 1];
+  int dev, sms;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev)))
+    return err;
+  if (per_sm[C] == 0 &&
+      (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm[C], kernel, K::NT, pl.total)))
+    return err;
+  const int resident = sms * (per_sm[C] > 0 ? per_sm[C] : 1);
+  int groups = resident / (tiles * B);
+  if (groups < 1) groups = 1;
+  if (groups > nt) groups = nt;
+  // launched as the packing kernel's dependent (the kernel waits for it
+  // before it reads wimg)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, groups, B);
+  cfg.blockDim = dim3(K::NT);
+  cfg.dynamicSmemBytes = pl.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, x, xs, z, lnw, lnb, wimg, C, E,
+                                H, W, tiles_x, eps);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// The channel tiles' images (Slices; ops/cuda_effn.py::
+// pack_front_f32_weights, its plain version) from the weights as the model
+// holds them, one launch: w_in (2E, C), b_in (2E,), w_dw (E, 9), b_dw (E,),
+// img (ceil(E / ET), tile), all fp32. A block row per tile, its threads
+// along the image (the writes coalesced, W_in's reads in runs).
+template <class K>
+__global__ void __launch_bounds__(256) pack_kernel(
+    const float* __restrict__ w_in, const float* __restrict__ b_in,
+    const float* __restrict__ w_dw, const float* __restrict__ b_dw,
+    float* __restrict__ img, int C, int E) {
+  // the fp32 kernel after it may launch now: it waits for this grid's
+  // writes before it reads them
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int t = blockIdx.y;
+  const Slices sl = slices<K>(C);
+  const int full = 2 * K::ET * (K::KS + 4);  // a full slice's floats
+  const int rows = 2 * K::ET * (sl.KP + 4 * sl.NS);
+  float* o = img + (long long)t * sl.tile;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < sl.tile;
+       i += gridDim.x * blockDim.x) {
+    float v = 0.f;
+    if (i < rows) {
+      const int s = min(i / full, sl.NS - 1);
+      const int ks = s == sl.NS - 1 ? sl.KL : K::KS;
+      const int r0 = i - s * full, row = r0 / (ks + 4);
+      const int k = r0 - row * (ks + 4), c = s * K::KS + k;
+      const int e = t * K::ET + row % K::ET;
+      if (k < ks && c < C && e < E)
+        v = w_in[((long long)(row / K::ET) * E + e) * C + c];
+    } else {
+      const int a = i - rows, ch = a / AUX, f = a - ch * AUX;
+      const int e = t * K::ET + ch;
+      if (e < E)
+        v = f < 9 ? w_dw[e * 9 + f]
+                  : f == 9 ? b_dw[e] : b_in[(f == 10 ? 0 : E) + e];
+    }
+    o[i] = v;
+  }
+}
+
+template <class K>
+static int pack(const float* w_in, const float* b_in, const float* w_dw,
+                const float* b_dw, float* img, int C, int E,
+                cudaStream_t stream) {
+  if (C < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  const int n = slices<K>(C).tile, nt = (E + K::ET - 1) / K::ET;
+  pack_kernel<K><<<dim3((n + 255) / 256, nt), 256, 0, stream>>>(
+      w_in, b_in, w_dw, b_dw, img, C, E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k5f
 }  // namespace vmt
 
 // K5, bf16: x (B, C, H, W), xs and z (B, E, H, W) bf16; lnw, lnb (C,)
@@ -536,34 +948,50 @@ extern "C" int vmt_oss_front_fwd(
   return (int)cudaErrorInvalidValue;
 }
 
-// K5, fp32: x (B, C, H, W), xs and z (B, E, H, W) fp32; lnw, lnb (C,);
-// win_t (C, 2E) = the in_conv weight transposed, x-half columns first;
-// bin (2E,); wdw (E, 9); bdw (E,); all fp32.
-extern "C" int vmt_oss_front_f32_fwd(
-    const void* x, void* xs, void* z, const float* lnw, const float* lnb,
-    const float* win_t, const float* bin, const float* wdw, const float* bdw,
-    int B, int C, int E, int H, int W, float eps, void* stream) {
-  using namespace vmt::front;
-  const size_t smem =
-      sizeof(float) * ((size_t)C * PP + 2 * ET * PP + KC * 2 * ET);
-  if (smem + 2 * PP * sizeof(float) > vmt::FRONT_MAX_SMEM || C < 1 || E < 1)
-    return (int)cudaErrorInvalidValue;
-  // set unconditionally: the static statistics arrays count against
-  // the 48 KB that needs no opt-in
-  int err = (int)cudaFuncSetAttribute(
-      (const void*)oss_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err) return err;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles = tiles_x * ((H + TH - 1) / TH);
-  // split the channel tiles across blocks while the spatial tiles alone
-  // give fewer than two blocks per SM of the H100 (132 SMs)
-  const int e_tiles = (E + ET - 1) / ET;
-  const int want = (264 + tiles * B - 1) / (tiles * B);
-  const int e_groups = want < e_tiles ? want : e_tiles;
-  dim3 grid(tiles, e_groups, B);
-  oss_front_kernel<<<grid, NTH, smem, (cudaStream_t)stream>>>(
-      x, vmt::DT_F32, xs, z, lnw, lnb, win_t, bin, wdw, bdw, C, E, H, W,
-      tiles_x, eps);
-  return (int)cudaGetLastError();
+// K5, fp32: x (B, C, H, W), xs and z (B, E, H, W) fp32; lnw, lnb (C,)
+// fp32; wimg (ceil(E / ET), tile) fp32, the channel tiles' images that
+// vmt_oss_front_f32_pack writes for the fp32 width class cls (its ET, KS:
+// ops/cuda_effn.py::K5F_CLASSES).
+extern "C" int vmt_oss_front_f32_fwd(const void* x, void* xs, void* z,
+                                     const float* lnw, const float* lnb,
+                                     const float* wimg, int B, int C, int E,
+                                     int H, int W, int cls, float eps,
+                                     void* stream) {
+  using namespace vmt::k5f;
+  const float* xf = static_cast<const float*>(x);
+  float* xo = static_cast<float*>(xs);
+  float* zo = static_cast<float*>(z);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cls) {
+    case 0:
+      return launch<Ff0>(xf, xo, zo, lnw, lnb, wimg, B, C, E, H, W, eps, st);
+    case 1:
+      return launch<Ff1>(xf, xo, zo, lnw, lnb, wimg, B, C, E, H, W, eps, st);
+    case 2:
+      return launch<Ff2>(xf, xo, zo, lnw, lnb, wimg, B, C, E, H, W, eps, st);
+    case 3:
+      return launch<Ff3>(xf, xo, zo, lnw, lnb, wimg, B, C, E, H, W, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5, fp32: the images wimg of vmt_oss_front_f32_fwd from w_in (2E, C),
+// b_in (2E,), w_dw (E, 3, 3), b_dw (E,), fp32, for the fp32 class cls.
+extern "C" int vmt_oss_front_f32_pack(const float* w_in, const float* b_in,
+                                      const float* w_dw, const float* b_dw,
+                                      float* wimg, int C, int E, int cls,
+                                      void* stream) {
+  using namespace vmt::k5f;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cls) {
+    case 0:
+      return pack<Ff0>(w_in, b_in, w_dw, b_dw, wimg, C, E, st);
+    case 1:
+      return pack<Ff1>(w_in, b_in, w_dw, b_dw, wimg, C, E, st);
+    case 2:
+      return pack<Ff2>(w_in, b_in, w_dw, b_dw, wimg, C, E, st);
+    case 3:
+      return pack<Ff3>(w_in, b_in, w_dw, b_dw, wimg, C, E, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

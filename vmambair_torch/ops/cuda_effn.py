@@ -23,8 +23,9 @@ tensor cores, their weights packed per hidden or channel tile
 `k2_class` or `k5_class` picks). K2 takes fp32 activations on the tensor
 cores too, in split TF32 (weights packed in fp32 for `k2f_class` as the
 images of its ring slots, `pack_gdfn_f32_weights`; a cluster of
-`k2f_split` blocks per tile where the grid is small); K5 takes them on
-the CUDA cores.
+`k2f_split` blocks per tile where the grid is small); so does K5 (its
+fp32 width class `k5f_class`, the weights packed in fp32 as its ring's
+images, `pack_front_f32_weights`, W_in's rows in k-slices at the widest).
 The wrappers have no backward. `*_fused` are the differentiable entry
 points: without a gradient to record, one forward
 launch; otherwise an autograd Function whose forward is the same launch
@@ -69,6 +70,11 @@ K2F_MAX_SPLIT = 8  # the portable cluster size
 # the largest C each takes, its output tile TH x TW and its channel tile ET
 K5_CLASSES = ((48, 8, 16, 16), (96, 8, 16, 32), (192, 8, 8, 16),
               (FRONT_MAX_C, 4, 8, 16))
+# K5's fp32 width classes (csrc/oss_front.cu, k5f::Ff0-3): the largest C,
+# the output tile TH x TW, the channel tile ET and the widest k-slice KS of
+# W_in's rows that one bulk copy stages
+K5F_CLASSES = ((48, 8, 16, 16, 48), (96, 8, 16, 16, 96), (192, 8, 8, 16, 192),
+               (FRONT_MAX_C, 4, 8, 16, 128))
 K5_AUX = 12  # per channel: 9 depthwise taps, b_dw, b_x, b_z
 
 
@@ -323,10 +329,24 @@ def k5_class(c: int) -> int:
     return next(i for i, k in enumerate(K5_CLASSES) if c <= k[0])
 
 
+def k5f_class(c: int) -> int:
+    """The width class K5's fp32 route takes for C channels."""
+    return next(i for i, k in enumerate(K5F_CLASSES) if c <= k[0])
+
+
+def k5f_slices(c: int, cls: int) -> list[int]:
+    """The widths of the k-slices in which K5's fp32 route stages W_in's
+    rows: KP = C rounded up to 16 in slices of the class's KS, the last
+    the rest."""
+    kp, ks = -(-c // 16) * 16, K5F_CLASSES[cls][4]
+    return [min(ks, kp - k) for k in range(0, kp, ks)]
+
+
 def pack_front_weights(w_in, b_in, w_dw, b_dw, cls: int,
-                       dtype=torch.bfloat16):
-    """K5's weights for its tensor-core route, per channel tile of the
-    width class `cls`, rounded to `dtype`. w_in (2E, C), b_in (2E,), w_dw
+                       dtype=torch.bfloat16, classes=K5_CLASSES):
+    """K5's weights for its tensor-core routes, per channel tile of the
+    width class `cls` of `classes` (K5_CLASSES for bf16, K5F_CLASSES for
+    fp32), rounded to `dtype`. w_in (2E, C), b_in (2E,), w_dw
     (E, 3, 3), b_dw (E,) as `oss_front_fwd` takes them. With ET the
     class's channel tile, ep = E rounded up to ET and KP = C rounded up to
     16, returns
@@ -335,7 +355,7 @@ def pack_front_weights(w_in, b_in, w_dw, b_dw, cls: int,
     - aux_p (ep / ET, ET, 12) fp32 of the `dtype`-rounded values: each
       channel's 9 taps in (dy, dx) order, b_dw, b_x and b_z;
     zero past E and past C."""
-    et = K5_CLASSES[cls][3]
+    et = classes[cls][3]
     c2, c = w_in.shape
     e = c2 // 2
     ep, kp = -(-e // et) * et, -(-c // 16) * 16
@@ -348,6 +368,31 @@ def pack_front_weights(w_in, b_in, w_dw, b_dw, cls: int,
                      b_in.detach().reshape(2, e).t()], 1)
     aux_p = F.pad(aux.to(dtype).float(), (0, 0, 0, ep - e))
     return win_p.view(nt, 2 * et, kp), aux_p.view(nt, et, K5_AUX)
+
+
+def k5f_tile(c: int, cls: int) -> int:
+    """The floats of one channel tile's image in K5's fp32 route: 2 ET
+    (KP + 4 NS) + 12 ET, NS the k-slices."""
+    et = K5F_CLASSES[cls][3]
+    return (2 * et * (-(-c // 16) * 16 + 4 * len(k5f_slices(c, cls)))
+            + K5_AUX * et)
+
+
+def pack_front_f32_weights(w_in, b_in, w_dw, b_dw, cls: int):
+    """K5's weights for its fp32 route: per channel tile of the fp32 width
+    class `cls`, the image that the kernel's ring takes in bulk copies.
+    Returns (ep / ET, tile) fp32: for each k-slice (`k5f_slices`) of
+    `pack_front_weights`' rows (fp32, K5F_CLASSES), its 2 ET rows of the
+    slice's columns and 4 zeros each, then the taps and biases (ET, 12).
+    The plain version of the wrapper's packing kernel
+    (`vmt_oss_front_f32_pack`)."""
+    win_p, aux_p = pack_front_weights(w_in, b_in, w_dw, b_dw, cls,
+                                      torch.float32, K5F_CLASSES)
+    nt, parts, k0 = win_p.shape[0], [], 0
+    for w in k5f_slices(win_p.shape[2], cls):
+        parts.append(F.pad(win_p[:, :, k0:k0 + w], (0, 4)).reshape(nt, -1))
+        k0 += w
+    return torch.cat(parts + [aux_p.reshape(nt, -1)], 1)
 
 
 def oss_front_ref(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
@@ -388,8 +433,9 @@ def oss_front_fwd(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
     z = torch.empty_like(xs)
     lnw, lnb = f32(ln_w), f32(ln_b)
     # weights and biases rounded to the activation dtype, as the
-    # convolutions use them: bf16 on the tensor cores, packed for C's
-    # width class; fp32 on the CUDA cores, the in_conv transposed
+    # convolutions use them, packed per channel tile of C's width class:
+    # bf16 by torch ops, fp32 by the packing kernel (the layout of
+    # pack_front_f32_weights)
     if x.dtype == torch.bfloat16:
         cls = k5_class(c)
         win_p, aux_p = pack_front_weights(w_in, b_in, w_dw, b_dw, cls)
@@ -398,15 +444,21 @@ def oss_front_fwd(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
             z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), win_p.data_ptr(),
             aux_p.data_ptr(), b, c, e, h, w, cls, float(eps))
     else:
+        cls = k5f_class(c)
+        et = K5F_CLASSES[cls][3]
+        wimg = torch.empty(-(-e // et), k5f_tile(c, cls),
+                           dtype=torch.float32, device=x.device)
         # each operand held by name until the launch: a copy that f32
         # makes would otherwise be freed before the kernel reads it
-        win_t, bin_, wdw, bdw = (f32(w_in.t()), f32(b_in),
-                                 f32(w_dw.reshape(e, 9)), f32(b_dw))
+        wi, bi, wd, bd = (f32(w_in), f32(b_in), f32(w_dw.reshape(e, 9)),
+                          f32(b_dw))
+        _build.launch("vmt_oss_front_f32_pack", x.device, wi.data_ptr(),
+                      bi.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+                      wimg.data_ptr(), c, e, cls)
         _build.launch(
             "vmt_oss_front_f32_fwd", x.device, x.data_ptr(), xs.data_ptr(),
-            z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), win_t.data_ptr(),
-            bin_.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), b, c, e, h, w,
-            float(eps))
+            z.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wimg.data_ptr(),
+            b, c, e, h, w, cls, float(eps))
     oss_front_fwd.launches += 1
     return xs, z
 

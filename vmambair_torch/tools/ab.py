@@ -16,7 +16,10 @@ of a served forward (bf16: `k2_96_ms` (8, 96, 128, 128), `k2_96_64_ms`,
 64, 64), `k2f_96_ms`, `k2f_96_32_ms`, `k2f_192_ms`, `k2f_384_ms`), K5
 (8, 96, 128, 128) bf16 and at the other shapes of a served forward
 (`k5_48_ms` (8, 48, 128, 128), `k5_96_64_ms`, `k5_192_ms`, `k5_384_ms`)
-and at (8, 96, 64, 64) fp32 (`k5f_96_ms`, its CUDA-core route), K3 at
+and at the S1 step's five in fp32 (`k5f_96_ms` (8, 96, 64, 64),
+`k5f_48_ms`, `k5f_96_32_ms`, `k5f_192_ms`, `k5f_384_ms`), kprobe's
+transpose pair at (8, 16384, 96) bf16 and fp32 (`kprobe_t_ms`,
+`kprobe_t_f32_ms`), K3 at
 every shape of the S1 step (on K1c's fp32
 inputs and carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48,
 4096), (8, 2, 96, 1024) and (8, 2, 192, 256); on K4c's at the latent
@@ -146,7 +149,13 @@ def _cases(torch):
     k2s = _k2_cases(torch)
     k5s = _k5_cases(torch)
     k4s = _k4_cases(torch)
+    # kprobe's transpose pair at the probe's (8, 16384, 96), bf16 and fp32
+    from vmambair_torch.ops import cuda_probes
+    u = torch.randn(8, 16384, 96, generator=cg, device=dev)
+    ub = u.to(torch.bfloat16)
     return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
+            ("kprobe_t_ms", lambda: cuda_probes.probe_transpose(ub)),
+            ("kprobe_t_f32_ms", lambda: cuda_probes.probe_transpose(u)),
             ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
             ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
             ("k2_ms", lambda: cuda_effn.gdfn_residual_fwd(*k2)),
@@ -233,8 +242,8 @@ def _k2_cases(torch):
 
 def _k5_cases(torch):
     """(name, K5's arguments) at the other MamberBlock shapes of a served
-    forward (bf16, E = C) and at the S1 step's widest (fp32, its CUDA-core
-    route), drawn on the card from a generator of their own."""
+    forward (bf16, E = C) and at the S1 step's five (fp32), drawn on the
+    card from a generator of their own."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -246,7 +255,11 @@ def _k5_cases(torch):
             ("k5_96_64_ms", 8, 96, 64, torch.bfloat16),
             ("k5_192_ms", 8, 192, 32, torch.bfloat16),
             ("k5_384_ms", 8, 384, 16, torch.bfloat16),
-            ("k5f_96_ms", 8, 96, 64, torch.float32)):
+            ("k5f_96_ms", 8, 96, 64, torch.float32),
+            ("k5f_48_ms", 8, 48, 64, torch.float32),
+            ("k5f_96_32_ms", 8, 96, 32, torch.float32),
+            ("k5f_192_ms", 8, 192, 16, torch.float32),
+            ("k5f_384_ms", 8, 384, 8, torch.float32)):
         out.append((name, (
             (0.5 * torch.randn(b, c, hw, hw, generator=gen, device=dev)
              ).to(dt), 1 + 0.1 * r(c), 0.1 * r(c), r(2 * c, c) / c ** 0.5,
