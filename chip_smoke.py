@@ -39,7 +39,11 @@ non-zero, and without a CUDA device the script stops before any result:
    plain version, and at ragged shapes (every width class, E != C, C up
    to 704, odd W, batch 1), bf16 and fp32; two K5 calls at each fp32 step
    shape give the same bits, its packing kernel its plain version's, and
-   a single-pass TF32 control misses the fp32 bar; K3 also over a
+   a single-pass TF32 control misses the fp32 bar; K6 at the same five
+   bf16 and five fp32 shapes, each timed beside its plain version, and at
+   ragged shapes (the CUDA tests', partial tiles, D up to 768, a 1x1
+   image) in each dtype pair and at views that start an odd number of
+   elements into their buffers (its edge path); K3 also over a
    ragged L in many segments, reverse, and in ragged segments, forward;
    two K1 and two K1c calls on the same inputs at (8,2,96,16384) bf16,
    forward and reverse, and two K2 calls at (8,96,128,128) bf16 and
@@ -267,7 +271,10 @@ non-zero, and without a CUDA device the script stops before any result:
    kprobe's transpose pair and projections at (8, 16384, 96), bf16 and
    fp32, against their plain versions (the forward envelope; the
    transpose pair bit-equal, as is the library call `u * 1.000001` timed
-   beside it); then, counts reset, the two tools' entry points: keffn's
+   beside it; the projections in fp32 also within 1e-5 of the plain
+   version's largest entry, which a single-pass TF32 control misses, and
+   timed in both dtypes beside their bounds); then, counts reset, the two
+   tools' entry points: keffn's
    race against the cuDNN composite and K2 on NCHW copies, kprobe's
    against its bound, each kernel's launches against what the tools
    scheduled.
@@ -307,6 +314,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import random
 import shutil
@@ -495,6 +503,13 @@ K5_RAGGED_SHAPES = ((2, 48, 48, 13, 19), (2, 96, 100, 8, 8),
                     (1, 264, 136, 6, 10), (1, 640, 64, 5, 8),
                     (1, 704, 704, 6, 10), (1, 20, 20, 30, 2),
                     (2, 96, 96, 1, 1))
+# K6's ragged (b, d, h, w): the CUDA tests' shapes (13 x 19, 9 x 16 and 5
+# x 7 on the edge path), partial tiles on the 16-byte route (24 x 40), the
+# widest D (a cluster of 16), a D of no width class's multiple, a 1 x 1
+# image
+K6_RAGGED_SHAPES = ((2, 48, 13, 19), (2, 96, 16, 16), (2, 192, 9, 16),
+                    (2, 384, 5, 7), (2, 96, 24, 40), (1, 768, 16, 16),
+                    (2, 200, 8, 24), (1, 40, 8, 8), (2, 96, 1, 1))
 # the CUDA tests' K4 / K4c shapes past the main path's (`tests/
 # test_torch_port_cuda.py`, K4_CASES): (b, L, D, G, N, layout), an L no
 # multiple of 8, 32 or 256, L over several segments, N below a pass of 16
@@ -843,13 +858,22 @@ def _front_case(b, c, hw, dtype, gen, e=None, w=None):
             r(2 * e) / c ** 0.5, r(e, 3, 3) / 3, r(e) / 3)
 
 
-def _tail_case(b, d, hw, dtype, gen):
-    """K6's inputs: the scans' (B, 2, D, L) sum and the SiLU gate."""
-    return (torch.randn(b, 2, d, hw * hw, generator=gen, device="cuda"
-                        ).to(dtype),
-            F.silu(torch.randn(b, d, hw, hw, generator=gen, device="cuda")
-                   ).to(dtype),
-            1 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
+def _tail_case(b, d, h, w, dtype, gen, zdtype=None, offset=0):
+    """K6's inputs: the scans' (B, 2, D, L) sum and the SiLU gate (in
+    zdtype, by default y's); `offset` > 0: y and z views that start that
+    many elements into buffers of their own (not 16-byte aligned)."""
+    def view(shape, t):
+        n = math.prod(shape)
+        buf = torch.empty(n + offset, dtype=t.dtype, device="cuda")
+        buf[offset:] = t.flatten()
+        return buf[offset:].view(shape)
+
+    y = torch.randn(b, 2, d, h * w, generator=gen, device="cuda").to(dtype)
+    z = F.silu(torch.randn(b, d, h, w, generator=gen, device="cuda")).to(
+        zdtype or dtype)
+    if offset:
+        y, z = view(y.shape, y), view(z.shape, z)
+    return (y, z, 1 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
             0.1 * torch.randn(d, generator=gen, device="cuda"))
 
 
@@ -1047,13 +1071,30 @@ def kernels_vs_plain() -> tuple[dict, dict]:
                 lambda a=a: cuda_effn.oss_front_ref(*a),
                 pair_cmp(f"K5 {lab} {dtype}", dtype, c), _front_bound(a),
                 timed=True, key=(b, c, hw, hw, dtype), plain_timed=True)
-        for (b, c, hw) in K5_SERVE_SHAPES:
+        # K6 likewise at the served forward's (bf16) and the S1 step's
+        # (fp32) shapes, each timed; then its ragged shapes in each dtype
+        # pair, and views at an odd offset (the edge path)
+        for (b, c, hw) in (K5_SERVE_SHAPES if dtype == torch.bfloat16
+                           else K5_STEP_SHAPES):
             lab = f"({b},{c},{hw},{hw})"
-            a = _tail_case(b, c, hw, dtype, cgen)
+            a = _tail_case(b, c, hw, hw, dtype, cgen)
             add("oss_tail_fused", lab, dtype,
                 lambda a=a: cuda_effn.oss_tail_fwd(*a),
                 lambda a=a: cuda_effn.oss_tail_ref(*a),
-                fwd_cmp(f"K6 {lab} {dtype}", dtype), _tail_bound(a))
+                fwd_cmp(f"K6 {lab} {dtype}", dtype), _tail_bound(a),
+                timed=True, key=(b, c, hw, hw, dtype), plain_timed=True)
+        zdts = ((dtype, torch.bfloat16) if dtype == torch.float32
+                else (dtype,))
+        for (b, c, h, w), zdt, off in (
+                [(s_, zd, 0) for s_ in K6_RAGGED_SHAPES for zd in zdts]
+                + [((2, 96, 16, 16), dtype, 1), ((1, 48, 8, 24), dtype, 3)]):
+            a = _tail_case(b, c, h, w, dtype, cgen, zdt, off)
+            lab = (f"ragged ({b},{c},{h},{w}) z {str(zdt)[6:]}"
+                   + (f" offset {off}" if off else "") + ", y")
+            add("oss_tail_fused", lab, dtype,
+                lambda a=a: cuda_effn.oss_tail_fwd(*a),
+                lambda a=a: cuda_effn.oss_tail_ref(*a),
+                fwd_cmp(f"K6 {lab} {dtype}", zdt), _tail_bound(a))
         for (b, c, e, h, w) in K5_RAGGED_SHAPES:
             a = _front_case(b, c, h, dtype, cgen, e, w)
             lab = f"ragged ({b},{c},{h},{w}) E={e}"
@@ -1374,11 +1415,11 @@ def kernels_vs_plain() -> tuple[dict, dict]:
 
     k3_calls = {}
     shape_ms = {"K1c": {}, "K2": {}, "K3": {}, "K4": {}, "K4c": {},
-                "K5": {}}
+                "K5": {}, "K6": {}}
     by_name = {"oss_scan_fused_carries": "K1c",
                "selective_scan_bwd": "K3", "selective_scan": "K4",
                "selective_scan_carries": "K4c", "oss_front_fused": "K5",
-               "gdfn_residual_fused": "K2"}
+               "gdfn_residual_fused": "K2", "oss_tail_fused": "K6"}
     # the practical floor of a call at K4's smallest shapes, whose bound
     # is a fraction of a microsecond: an empty kernel's launch (the same
     # CUDA-event timing, behind the same device sleep)
@@ -1842,12 +1883,14 @@ def serve(shape_ms) -> dict:
     shape_account("serve", "K4", "forward", k4_tally, shape_ms["K4"],
                   by_class.get("K4/K4c scan", 0.0))
     raced = race(ups, net)
-    tally = {}
-    with oss_switches(True), k5_shapes(tally):
+    tally, tally6 = {}, {}
+    with oss_switches(True), k5_shapes(tally), k6_shapes(tally6):
         by_class = profile("serve_front_tail", lambda: ups.tile_process(
             np.random.RandomState(7).rand(512, 256, 3).astype(np.float32)))
     shape_account("serve", "K5", "forward with K5/K6 on", tally,
                   shape_ms["K5"], by_class.get("K5 OSS front", 0.0))
+    shape_account("serve", "K6", "forward with K5/K6 on", tally6,
+                  shape_ms["K6"], by_class.get("K6 OSS tail", 0.0))
     return {k: counts[k] + raced[k] for k in counts}
 
 
@@ -2086,6 +2129,12 @@ def k5_shapes(tally):
     """K5's calls by (b, c, h, w, dtype)."""
     return counted_shapes(cuda_effn, "oss_front_fwd",
                           lambda x, *a, **kw: (*x.shape, x.dtype), tally)
+
+
+def k6_shapes(tally):
+    """K6's calls by (b, d, h, w, dtype) of z."""
+    return counted_shapes(cuda_effn, "oss_tail_fwd",
+                          lambda y, z, *a, **kw: (*z.shape, z.dtype), tally)
 
 
 def _k4_key(u, delta, A, B, C, D=None, delta_bias=None,
@@ -4700,6 +4749,15 @@ def keffn_kprobe_vs_plain(stats):
             st = stats[name]
             st["max_abs_err"] = max(st["max_abs_err"], err)
             line = f"[kprobe] {tag}: max abs err {err:.3e}"
+            if name == "probe_proj" and dtype == torch.float32:
+                line += proj_f32_checks(inp, got, ref)
+            if name == "probe_proj" and st["ms"] is not None:
+                # fp32: timed too, beside its own bound
+                ms = time_ms(lambda: kern(inp))
+                line += (f"; kernel {ms:.4f} ms, plain "
+                         f"{time_ms(lambda: plain(inp), reps=3):.4f} ms"
+                         + bound_share(bound(*kprobe.work(
+                             probe, kprobe.SHAPE, dtype)), ms))
             if st["ms"] is None:
                 st["ms"] = time_ms(lambda: kern(inp))
                 st["plain_ms"] = time_ms(lambda: plain(inp), reps=3)
@@ -4717,6 +4775,30 @@ def keffn_kprobe_vs_plain(stats):
             del got, ref
         del inp
     torch.cuda.empty_cache()
+
+
+PROJ_F32_BAR = 1e-5  # probe_proj in fp32: of the plain version's largest
+
+
+def proj_f32_checks(inp, got, ref) -> str:
+    """probe_proj in fp32 against its plain version (cuBLAS in fp32,
+    TF32 off) within PROJ_F32_BAR of the plain version's largest entry,
+    and the single-pass control (u and W_xp cut to TF32, as one TF32
+    product on the tensor cores reads them) off that bar."""
+    top = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if err > PROJ_F32_BAR * top:
+        raise SystemExit(f"FAIL probe_proj fp32: {err:.3e} off the plain "
+                         f"version, over {PROJ_F32_BAR} of its largest "
+                         f"entry {top:.3e}")
+    cut = cuda_probes.probe_proj_ref(_tf32_rn(inp["u"]), _tf32_rn(inp["wxp"]),
+                                     inp["wdt"])
+    ctl = (cut - ref).abs().max().item()
+    if ctl <= PROJ_F32_BAR * top:
+        raise SystemExit(f"FAIL probe_proj fp32: the single-pass control "
+                         f"({ctl:.3e}) is within the bar; it shows nothing")
+    return (f"; {err / top:.2e} of the largest entry {top:.3e} (bar "
+            f"{PROJ_F32_BAR}); single-pass TF32 control {ctl / top:.2e}")
 
 
 def keffn_kprobe_race() -> dict:
@@ -4753,7 +4835,9 @@ def keffn_kprobe_race() -> dict:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms_per_call']:.3f} of the time"
               + (f"; library u * 1.000001 {lib:.4f} ms" if lib else "")
-              + (f"; all 38 rows' fp32 ops {r['rows38_ops_ms']:.4f} ms"
+              + (f"; all 38 rows' fp32 ops {r['rows38_ops_ms']:.4f} ms, "
+                 f"the route's 40 rows on the tensor cores "
+                 f"{r['rows40_tc_ms']:.4f} ms"
                  if "rows38_ops_ms" in r else "")
               + f"; max abs err {r['max_abs_err']:.3e}; card {card}")
     print(f"[race] keffn/kprobe launches "

@@ -287,8 +287,8 @@ def test_train_torch_loads_the_gan_yamls_checkpoint(tmp_path):
          "datasets:train:num_worker_per_gpu=1",
          *width, "train:total_iter=1", "logger:save_checkpoint_freq=1",
          f"path:experiments_root={tmp_path / 'exp'}"],
-        check=True, cwd=str(tmp_path),
-        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True)
+        check=True, cwd=str(tmp_path), capture_output=True,
+        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"))
     log = next((tmp_path / "exp").glob("train_*.log")).read_text()
     assert "net_g_100000.pth" in log
     saved = torch.load(tmp_path / "exp" / "models" / "net_g_1.pth",

@@ -860,6 +860,76 @@ def test_oss_tail_kernel_matches_plain(cuda, d, h, w, ydtype, zdtype):
     _close(got, cuda_effn.oss_tail_ref(*args), zdtype)
 
 
+PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("ydtype,zdtype", PAIRS)
+@pytest.mark.parametrize("d,h,w", [(40, 16, 32), (96, 24, 40), (160, 32, 16),
+                                   (384, 16, 16), (768, 16, 16),
+                                   (200, 8, 24), (96, 1, 1)])
+def test_oss_tail_takes_every_class(cuda, d, h, w, ydtype, zdtype):
+    """K6 at every width class (D = 40, 96; 160; 384; 768, the widest, a
+    cluster of 16), its 16-byte route with partial tiles (24 x 40, 8 x 24)
+    and its edge path (a 1 x 1 image); two calls the same bits."""
+    args = _tail_args(cuda, d, h, w, ydtype, zdtype, d + h)
+    got = cuda_effn.oss_tail_fwd(*args)
+    assert got.dtype == zdtype and got.shape == (2, d, h, w)
+    _close(got, cuda_effn.oss_tail_ref(*args), zdtype)
+    assert torch.equal(got, cuda_effn.oss_tail_fwd(*args))
+
+
+@pytest.mark.parametrize("ydtype,zdtype", PAIRS)
+@pytest.mark.parametrize("d", [96, 384])
+def test_oss_tail_at_every_split(cuda, d, ydtype, zdtype):
+    """K6 with its channels split over clusters of every size the launch
+    takes for D (the class's least up to 16), on the 16-byte route (16 x
+    16) and the edge path (13 x 19): each within the envelope of the
+    plain version, and a split of fewer blocks than the class's least
+    refused."""
+    from vmambair_torch import _build
+
+    cls = cuda_effn.k6_class(d)
+    least = cuda_effn.K6_CLASSES[cls][1]
+    for h, w in ((16, 16), (13, 19)):
+        y, z, lnw, lnb = _tail_args(cuda, d, h, w, ydtype, zdtype, d + w)
+        ref = cuda_effn.oss_tail_ref(y, z, lnw, lnb)
+        split = least
+        while split <= cuda_effn.K6_MAX_SPLIT:
+            out = torch.empty_like(z)
+            _build.launch("vmt_oss_tail_fwd", z.device, y.data_ptr(),
+                          _build.dtype_code(y, "y"), z.data_ptr(),
+                          _build.dtype_code(z, "z"), out.data_ptr(),
+                          lnw.data_ptr(), lnb.data_ptr(), 2, d, h, w, split,
+                          1e-5)
+            _close(out, ref, zdtype)
+            split *= 2
+        if least > 1:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _build.launch("vmt_oss_tail_fwd", z.device, y.data_ptr(),
+                              _build.dtype_code(y, "y"), z.data_ptr(),
+                              _build.dtype_code(z, "z"), out.data_ptr(),
+                              lnw.data_ptr(), lnb.data_ptr(), 2, d, h, w,
+                              least // 2, 1e-5)
+
+
+@pytest.mark.parametrize("ydtype,zdtype", PAIRS)
+@pytest.mark.parametrize("offset", [1, 2, 8])
+def test_oss_tail_takes_misaligned_views(cuda, offset, ydtype, zdtype):
+    """y and z as views 1, 2 or 8 elements into buffers of their own (1
+    and 2: not 16-byte aligned, the edge path; 8: aligned, the 16-byte
+    route): the same bits as the 16-byte route on aligned copies."""
+    y, z, lnw, lnb = _tail_args(cuda, 96, 16, 16, ydtype, zdtype, offset)
+    views = []
+    for t in (y, z):
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=cuda)
+        buf[offset:] = t.flatten()
+        views.append(buf[offset:].view(t.shape))
+    got = cuda_effn.oss_tail_fwd(*views, lnw, lnb)
+    _close(got, cuda_effn.oss_tail_ref(y, z, lnw, lnb), zdtype)
+    assert torch.equal(got, cuda_effn.oss_tail_fwd(y, z, lnw, lnb))
+
+
 def test_autograd_oss_front_and_tail_match_plain_path(cuda):
     cases = [(cuda_effn.oss_front_fused, cuda_effn.oss_front_ref,
               _front_args(cuda, 48, 48, 9, 13, torch.float32, 1)),
@@ -1277,6 +1347,64 @@ def test_probe_proj_kernel_matches_plain(cuda, shape, RN, R, dtype):
     n0 = cuda_probes.probe_proj.launches
     got = cuda_probes.probe_proj(u, wxp, wdt)
     assert cuda_probes.probe_proj.launches == n0 + 1
+    assert got.shape == u.shape and got.dtype == dtype
+    _close(got, cuda_probes.probe_proj_ref(u, wxp, wdt), dtype)
+
+
+PROJ_F32_BAR = 1e-5  # of the plain version's largest entry
+
+
+def _tf32_rn(t):
+    """fp32 rounded to TF32's 10 mantissa bits (ties away from zero)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("shape,RN,R", [((8, 16384, 96), 38, 6),
+                                        ((2, 300, 96), 38, 6),
+                                        ((1, 77, 256), 40, 7),
+                                        ((3, 50, 16), 9, 0)])
+def test_probe_proj_fp32_within_the_fp32_bar(cuda, shape, RN, R):
+    """kprobe's projections in fp32 (split TF32 on the tensor cores):
+    within 1e-5 of the plain version's (cuBLAS, TF32 off) largest entry,
+    at the probe's shape, ragged rows, the largest RN and R the route
+    takes and the smallest D; a single-pass TF32 control (u and W_xp cut
+    to TF32) misses that bar; two calls the same bits."""
+    from vmambair_torch.ops import cuda_probes
+
+    g = torch.Generator().manual_seed(RN + shape[1])
+    D = shape[-1]
+    u = torch.randn(*shape, generator=g).to(cuda)
+    wxp = torch.randn(RN, D, generator=g).to(cuda)
+    wdt = torch.randn(D, R, generator=g).to(cuda)
+    got = cuda_probes.probe_proj(u, wxp, wdt)
+    ref = cuda_probes.probe_proj_ref(u, wxp, wdt)
+    top = ref.abs().max()
+    assert (got - ref).abs().max() <= PROJ_F32_BAR * top
+    ctl = cuda_probes.probe_proj_ref(_tf32_rn(u), _tf32_rn(wxp), wdt)
+    assert (ctl - ref).abs().max() > PROJ_F32_BAR * top
+    assert torch.equal(got, cuda_probes.probe_proj(u, wxp, wdt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D,RN,R,offset", [
+    (131072, 96, 38, 6, 0), (20001, 96, 38, 6, 0), (100, 32, 40, 7, 0),
+    (700, 64, 41, 6, 0), (700, 64, 38, 8, 0), (700, 96, 38, 6, 4),
+    (700, 96, 38, 6, 8)])
+def test_probe_proj_takes_both_paths(cuda, rows, D, RN, R, offset, dtype):
+    """The projections' tensor-core route (D a multiple of 16, RN <= 40,
+    R < 8, u 16-byte aligned: the probe's 131072 rows, a ragged last warp
+    tile, D = 32, a u 8 elements into its buffer, 4 in fp32) and its edge
+    path (RN = 41, R = 8, a u 4 bf16 elements into its buffer): within
+    the envelope of the plain version."""
+    from vmambair_torch.ops import cuda_probes
+
+    g = torch.Generator().manual_seed(rows + D + RN + offset)
+    buf = torch.randn(rows * D + offset, generator=g).to(cuda, dtype)
+    u = buf[offset:].view(rows, D)
+    wxp = (torch.randn(RN, D, generator=g) / D ** 0.5).to(cuda)
+    wdt = (torch.randn(D, R, generator=g) / max(R, 1) ** 0.5).to(cuda)
+    got = cuda_probes.probe_proj(u, wxp, wdt)
     assert got.shape == u.shape and got.dtype == dtype
     _close(got, cuda_probes.probe_proj_ref(u, wxp, wdt), dtype)
 

@@ -15,7 +15,12 @@ Tolerances: keffn in fp32 within 2e-5 of the reference's largest
 magnitude (the hidden map and the gate differ from JAX's only by the order
 of fp32 sums and tanh's last bit), in bf16 the bf16 envelope (rtol 3e-2,
 atol 5e-2); kprobe's transpose pair bit-equal; its projections the bf16
-envelope (its output is bf16).
+envelope (its output is bf16). The projections' tensor-core route is
+emulated too (three bf16 parts of W_xp for a bf16 u, split TF32 for fp32,
+the output product from xdbl's accumulators as they lie): against the TPU
+probe and the plain version in the bf16 envelope, and before rounding
+within 1e-5 of the largest entry of the exact y (fp64), which a single
+bf16 or TF32 part of W_xp misses.
 """
 
 import importlib.util
@@ -244,6 +249,157 @@ def test_kprobe_proj_plain_matches_jax(tpu_kprobe):
     np.testing.assert_allclose(got.float().numpy(), _f32(ref), **BF16_TOL)
 
 
+# kprobe's projections as the tensor-core route (csrc/probe_io.cu,
+# proj_mma_kernel) computes them: xdbl^T = u W_xp^T with W_xp in three
+# bf16 parts (bf16 u) or in split TF32 (fp32 u, u cut to TF32 and its
+# rest), RN padded to 40; then y = xdbl[:, :8] B' from xdbl's accumulators
+# as they lie, a split-TF32 product. Each product's sum is taken in fp64
+# and rounded to fp32 (the tensor core's products are exact; its fp32
+# accumulation differs only by the order of the sums).
+
+PJ_RN = 40            # xdbl's rows on the tensor cores: 5 n-tiles of 8
+PROJ_F32_BAR = 1e-5   # of the largest entry of y
+
+
+def _lanes():
+    """g = lane / 4 and t = lane % 4 of a warp's 32 lanes."""
+    lane = np.arange(32)
+    return lane // 4, lane % 4
+
+
+def _bf16_parts(w):
+    """w = p0 + p1 + p2, each the rest so far rounded to bf16."""
+    parts = []
+    for _ in range(3):
+        parts.append(w.astype(BF16).astype(np.float32))
+        w = (w - parts[-1]).astype(np.float32)
+    return parts
+
+
+def _tf32_cut(a):
+    """fp32 cut to TF32: the low 13 mantissa bits zeroed."""
+    return (np.asarray(a, np.float32).view(np.int32) & ~0x1FFF).view(
+        np.float32)
+
+
+def _tf32_split(a):
+    """Veltkamp's split in fp32 adds (mma.cuh's split_tf32): hi = a rounded
+    to 11 significant bits, lo = a - hi cut to TF32."""
+    a = np.asarray(a, np.float32)
+    t = a * np.float32(8193)
+    hi = (t - (t - a)).astype(np.float32)
+    return hi, _tf32_cut(a - hi)
+
+
+def _dot(a, b):
+    return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+
+def _out_operands(wdt, d):
+    """The output product's operands as the kernel lays them out: the A
+    fragment of lane (g, t) is its accumulators (c0, c2, c1, c3) of xdbl's
+    first n-tile, so A'[:, k] = xdbl[:, col[k]]; B'' holds B'[col[k]] at
+    row k, packed from W_dt, 0.5 at R and zeros (`wd` in the kernel)."""
+    g, t = _lanes()
+    col = np.empty(8, int)
+    col[t] = 2 * t          # a0 = c0: A'[g][t] = C[g][2t]
+    col[t + 4] = 2 * t + 1  # a2 = c1: A'[g][t + 4] = C[g][2t + 1]
+    R = wdt.shape[1]
+    bp = np.zeros((8, d), np.float32)
+    bp[:R] = wdt.T
+    bp[R] = 0.5
+    return col, bp[col]
+
+
+def _proj_emulate(u, wxp, wdt, single=False):
+    """(y in fp32, y in u's dtype) of the tensor-core route on u (rows, D)
+    bf16 or fp32; `single`: W_xp (and an fp32 u) in one part, the control
+    that shows the split is what holds the fp32 bar."""
+    d = u.shape[-1]
+    uf = u.astype(np.float32)
+    w = np.zeros((PJ_RN, d), np.float32)
+    w[:wxp.shape[0]] = wxp
+    if u.dtype == BF16:  # three bf16 parts, the smallest first
+        parts = _bf16_parts(w)[:1 if single else 3]
+        xdbl = np.zeros((u.shape[0], PJ_RN), np.float32)
+        for p in parts[::-1]:
+            xdbl = xdbl + _dot(uf, p.T)
+    else:  # lo.hi + hi.lo + hi.hi
+        uh = _tf32_cut(uf)
+        wh, wl = _tf32_split(w)
+        if single:
+            xdbl = _dot(uh, wh.T)
+        else:
+            xdbl = (_dot(_tf32_cut(uf - uh), wh.T) + _dot(uh, wl.T)
+                    + _dot(uh, wh.T))
+    col, bpp = _out_operands(wdt, d)
+    ah, al = _tf32_split(xdbl[:, col])
+    bh, bl = _tf32_split(bpp)
+    y = _dot(al, bh) + _dot(ah, bl) + _dot(ah, bh)
+    return y, y.astype(u.dtype)
+
+
+def _proj_exact(u, wxp, wdt):
+    R = wdt.shape[1]
+    x = u.astype(np.float64) @ wxp.astype(np.float64).T
+    return x[:, :R] @ wdt.astype(np.float64).T + 0.5 * x[:, R:R + 1]
+
+
+def test_kprobe_proj_output_operands_take_xdbl_as_it_lies():
+    """The output product from the accumulators as they lie: A' B'' equals
+    xdbl[:, :R] W_dt^T + 0.5 xdbl[:, R] exactly (in fp64) for every R the
+    route takes."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(64, 8)
+    for R in range(8):
+        wdt = rng.randn(16, R).astype(np.float32)
+        col, bpp = _out_operands(wdt, 16)
+        want = x[:, :R] @ wdt.astype(np.float64).T + 0.5 * x[:, R:R + 1]
+        np.testing.assert_allclose(x[:, col] @ bpp.astype(np.float64), want,
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_kprobe_proj_split_products_match_jax_and_plain(tpu_kprobe):
+    """bf16 u at the probe's (2, 2048, 96): the emulated route against the
+    TPU probe (interpreted) and the plain version within the bf16
+    envelope; before its rounding, y within 1e-5 of its largest entry of
+    the exact y, which one bf16 part of W_xp misses."""
+    u, wxp, wdt = _kprobe_inputs(1)
+    ref = _f32(tpu_kprobe["proj_in_kernel"](jnp.asarray(u), jnp.asarray(wxp),
+                                             jnp.asarray(wdt)))
+    y32, y = _proj_emulate(u.reshape(-1, 96), wxp, wdt)
+    y = y.astype(np.float32).reshape(u.shape)
+    np.testing.assert_allclose(y, ref, **BF16_TOL)
+    plain = cuda_probes.probe_proj_ref(_t(u), _t(wxp), _t(wdt))
+    np.testing.assert_allclose(y, plain.float().numpy(), **BF16_TOL)
+    exact = _proj_exact(u.reshape(-1, 96), wxp, wdt)
+    top = np.abs(exact).max()
+    assert np.abs(y32 - exact).max() <= PROJ_F32_BAR * top
+    ctl, _ = _proj_emulate(u.reshape(-1, 96), wxp, wdt, single=True)
+    assert np.abs(ctl - exact).max() > PROJ_F32_BAR * top
+
+
+@pytest.mark.parametrize("rows,d,rn,r", [(4096, 96, 38, 6), (300, 16, 40, 7),
+                                         (77, 256, 9, 0)])
+def test_kprobe_proj_fp32_split_tf32_holds_the_fp32_bar(rows, d, rn, r):
+    """fp32 u: the emulated route within 1e-5 of the largest entry of the
+    plain version and of the exact y, at the probe's rows, RN = 40 with
+    the largest R, D = 16 and 256 with R = 0; a single TF32 pass (u and
+    W_xp cut to TF32) misses that bar."""
+    rng = np.random.RandomState(rows + d)
+    u = rng.randn(rows, d).astype(np.float32)
+    wxp = rng.randn(rn, d).astype(np.float32)
+    wdt = rng.randn(d, r).astype(np.float32)
+    y, _ = _proj_emulate(u, wxp, wdt)
+    exact = _proj_exact(u, wxp, wdt)
+    top = np.abs(exact).max()
+    assert np.abs(y - exact).max() <= PROJ_F32_BAR * top
+    plain = cuda_probes.probe_proj_ref(_t(u), _t(wxp), _t(wdt)).numpy()
+    assert np.abs(y - plain).max() <= PROJ_F32_BAR * np.abs(plain).max()
+    ctl, _ = _proj_emulate(u, wxp, wdt, single=True)
+    assert np.abs(ctl - exact).max() > PROJ_F32_BAR * top
+
+
 def test_kprobe_tool_recipe_matches_jax(tpu_kprobe):
     """The slice as a whole on the CPU: the tool's own inputs at (2, 2048,
     96) through both probes of the TPU and of the port."""
@@ -292,6 +448,14 @@ def test_kprobe_bounds():
     assert ops / 67e12 * 1e3 < ms
     assert port_kprobe.proj_rows_ops_ms(shape) == pytest.approx(
         8 * 16384 * (2 * 38 * 96 + 2 * 96 * 6 + 96) / 67e12 * 1e3)
+    # the tensor-core route's own products, three a product, under the
+    # bound in either dtype
+    rows = 8 * 16384
+    for dt, rate in ((torch.bfloat16, 989e12), (torch.float32, 495e12)):
+        tc = port_kprobe.proj_tc_ms(shape, dt)
+        assert tc == pytest.approx((3 * 2 * rows * 40 * 96 / rate
+                                    + 3 * 2 * rows * 8 * 96 / 495e12) * 1e3)
+        assert tc < ms
 
 
 def test_kprobe_refuses_unknown_probes():

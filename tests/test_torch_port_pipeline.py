@@ -137,8 +137,8 @@ def test_train_torch_cli_reads_yaml(tmp_path):
     subprocess.run([sys.executable, os.path.join(ROOT, "train_torch.py"),
                     "-opt", str(path), "--device", "cpu", "--force_yml",
                     "train:total_iter=2", "val:val_freq=0"], check=True,
-                   cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=ROOT),
-                   capture_output=True)
+                   cwd=str(tmp_path), capture_output=True,
+                   env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"))
     assert os.listdir(os.path.join(exp, "models")) == ["net_g_2.pth"]
     assert os.path.isfile(os.path.join(exp, "tiny.yml"))
 

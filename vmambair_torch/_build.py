@@ -195,7 +195,7 @@ SIGNATURES = {
     ],
     "vmt_oss_tail_fwd": [
         _P, _I, _P, _I, _P, _P, _P,              # y dty z dtz out lnw lnb
-        _I, _I, _I, _I, _F, _P,                  # B D H W eps stream
+        _I, _I, _I, _I, _I, _F, _P,              # B D H W split eps stream
     ],
 }
 

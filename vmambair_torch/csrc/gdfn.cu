@@ -482,27 +482,8 @@ using mfront::Nchw;  // the layout policies
 using mfront::Nhwc;
 using mfront::ln_front_f32;  // the fp32 front, K5's fp32 route's too
 
-// Every thread of every block of the cluster arrives, then waits (release
-// and acquire: shared-memory writes before it are seen after it).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// The float at p's offset in the shared memory of the cluster's block
-// `rank` (distributed shared memory).
-__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
-  uint32_t a;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(mma::smem_u32(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(a)
-               : "memory");
-  return v;
-}
+using mma::cluster_sync;  // the cluster barrier, its shared reads
+using mma::ld_cluster;
 
 // A width class of the fp32 route, as k2::Cls: TH x TW the output tile, HT
 // hidden channels per tile, the in-projection's warps WM along the halo

@@ -214,5 +214,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], float (&dl)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
+// Thread block clusters (K2's fp32 route, K6). Every thread of every
+// block of the cluster arrives, then waits (release and acquire:
+// shared-memory writes before it are seen after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The float at p's offset in the shared memory of the cluster's block
+// `rank` (distributed shared memory).
+__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
 }  // namespace mma
 }  // namespace vmt

@@ -26,8 +26,10 @@ images of its ring slots, `pack_gdfn_f32_weights`; a cluster of
 `k2f_split` blocks per tile where the grid is small); so does K5 (its
 fp32 width class `k5f_class`, the weights packed in fp32 as its ring's
 images, `pack_front_f32_weights`, W_in's rows in k-slices at the widest).
-The wrappers have no backward. `*_fused` are the differentiable entry
-points: without a gradient to record, one forward
+K6 takes a pixel tile by dtype pair (`k6_tile`) and its channels split
+over a cluster of `k6_split` blocks (at least its width class's,
+`k6_class`). The wrappers have no backward. `*_fused` are the
+differentiable entry points: without a gradient to record, one forward
 launch; otherwise an autograd Function whose forward is the same launch
 and whose backward recomputes through the plain version, as JAX recomputes
 through `_gdfn_xla`, `_oss_front_xla` and `_oss_tail_xla` (JAX has no
@@ -54,7 +56,7 @@ from .._build import dtype_code, f32, grad_needed, no_grad_needed, on_cpu
 
 MAX_C = 384
 FRONT_MAX_C = 704  # K5: LN(x) over the halo in shared memory
-TAIL_MAX_C = 768   # K6: the pixel tile of every channel in shared memory
+TAIL_MAX_C = 768   # K6: a tile's channels over a cluster of up to 16
 # K2's width classes on the tensor cores (csrc/gdfn.cu, k2::Cls0-3): the
 # largest C each takes (its padded output width CP), its output tile TH x
 # TW and its hidden tile HT
@@ -76,6 +78,13 @@ K5_CLASSES = ((48, 8, 16, 16), (96, 8, 16, 32), (192, 8, 8, 16),
 K5F_CLASSES = ((48, 8, 16, 16, 48), (96, 8, 16, 16, 96), (192, 8, 8, 16, 192),
                (FRONT_MAX_C, 4, 8, 16, 128))
 K5_AUX = 12  # per channel: 9 depthwise taps, b_dw, b_x, b_z
+# K6's width classes (csrc/oss_tail.cu, tail::CLASS_D / CLASS_SPLIT): the
+# largest D each takes and the least number of blocks its channels are
+# split over (a block holds at most 96 channels of its pixel tile)
+K6_CLASSES = ((96, 1), (192, 2), (384, 4), (TAIL_MAX_C, 8))
+K6_MAX_SPLIT = 16  # a non-portable cluster on the H100
+K6_MIN_SLICE = 8   # a split stops doubling at slices of fewer channels
+K6_WIDE_BYTES = 49152  # a tile twice as wide where its D channels fit this
 
 
 def effn_fused_supported(c: int) -> bool:
@@ -494,6 +503,41 @@ def oss_front_fused(x, ln_w, ln_b, w_in, b_in, w_dw, b_dw, *, eps=1e-5):
     return oss_front_fwd(*args, eps=eps)
 
 
+def k6_class(d: int) -> int:
+    """The width class K6 takes for D channels."""
+    return next(i for i, k in enumerate(K6_CLASSES) if d <= k[0])
+
+
+def k6_tile(ydtype, zdtype, d: int) -> tuple[int, int]:
+    """K6's pixel tile (TH, TW) for a dtype pair and D channels: two
+    16-byte vectors of y down the columns, two of the narrower of y and z
+    along the rows (so every run is a whole 32-byte sector), or four where
+    all D channels of such a tile fit K6_WIDE_BYTES of y."""
+    ys = torch.finfo(ydtype).bits // 8
+    zs = torch.finfo(zdtype).bits // 8
+    th, tw = 32 // ys, 32 // min(ys, zs)
+    return (th, 2 * tw) if d * th * 2 * tw * ys <= K6_WIDE_BYTES else (th, tw)
+
+
+def k6_split(b: int, d: int, h: int, w: int, tile: tuple[int, int],
+             sms: int) -> int:
+    """The blocks of a cluster that share one pixel tile of K6, each taking
+    a slice of the channels: the width class's least, doubled while the
+    grid has fewer blocks than the card's `sms` SMs, up to K6_MAX_SPLIT,
+    and while the slices keep at least K6_MIN_SLICE channels."""
+    split = K6_CLASSES[k6_class(d)][1]
+    tiles = b * -(-h // tile[0]) * -(-w // tile[1])
+    while (2 * split <= K6_MAX_SPLIT and tiles * split < sms
+           and d // (2 * split) >= K6_MIN_SLICE):
+        split *= 2
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def oss_tail_ref(y, z, ln_w, ln_b, *, eps=1e-5):
     """Plain version: the two direction pairs merged (the column-major one
     transposed back), LayerNorm2d in fp32, rounded to z's dtype, times z,
@@ -523,10 +567,12 @@ def oss_tail_fwd(y, z, ln_w, ln_b, *, eps=1e-5):
     y, z = y.contiguous(), z.contiguous()
     out = torch.empty_like(z)
     lnw, lnb = f32(ln_w), f32(ln_b)
+    split = k6_split(b, d, h, w, k6_tile(y.dtype, z.dtype, d),
+                     _sms(z.device))
     _build.launch(
         "vmt_oss_tail_fwd", z.device,
         y.data_ptr(), dtype_code(y, "y"), z.data_ptr(), dtype_code(z, "z"),
-        out.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), b, d, h, w,
+        out.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), b, d, h, w, split,
         float(eps),
     )
     oss_tail_fwd.launches += 1

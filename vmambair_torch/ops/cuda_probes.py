@@ -878,8 +878,12 @@ def probe_transpose(u):
 
 def probe_proj(u, wxp, wdt):
     """kprobe's in-kernel projections (csrc/probe_io.cu): u (..., D), D <=
-    256; wxp (RN, D), RN <= 64; wdt (D, R), R < RN; every row of xdbl in
-    fp32 on the CUDA cores. Returns y of u's shape and dtype."""
+    256; wxp (RN, D), RN <= 64; wdt (D, R), R < RN; every row of xdbl on
+    the tensor cores (bf16 u against three bf16 parts of W_xp, fp32 u in
+    split TF32; the output from xdbl's accumulators by a split-TF32
+    product) where D is a multiple of 16, RN <= 40, R < 8 and u is 16-byte
+    aligned, else in fp32 on the CUDA cores. Returns y of u's shape and
+    dtype."""
     if on_cpu(u, wxp, wdt):
         return probe_proj_ref(u, wxp, wdt)
     no_grad_needed("probe_proj", u, wxp, wdt)

@@ -18,8 +18,12 @@ of a served forward (bf16: `k2_96_ms` (8, 96, 128, 128), `k2_96_64_ms`,
 (`k5_48_ms` (8, 48, 128, 128), `k5_96_64_ms`, `k5_192_ms`, `k5_384_ms`)
 and at the S1 step's five in fp32 (`k5f_96_ms` (8, 96, 64, 64),
 `k5f_48_ms`, `k5f_96_32_ms`, `k5f_192_ms`, `k5f_384_ms`), kprobe's
-transpose pair at (8, 16384, 96) bf16 and fp32 (`kprobe_t_ms`,
-`kprobe_t_f32_ms`), K3 at
+transpose pair and projections at (8, 16384, 96) bf16 and fp32
+(`kprobe_t_ms`, `kprobe_t_f32_ms`, `kprobe_p_ms`, `kprobe_p_f32_ms`; RN =
+38, R = 6), K6 at the served forward's (8, 96, 128, 128) bf16 (`k6_ms`)
+and the S1 step's (8, 96, 64, 64) fp32 (`k6_f32_ms`) and at their other
+four (`k6_48_ms`, `k6_96_64_ms`, `k6_192_ms`, `k6_384_ms`; `k6f_48_ms`,
+`k6f_96_32_ms`, `k6f_192_ms`, `k6f_384_ms`), K3 at
 every shape of the S1 step (on K1c's fp32
 inputs and carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48,
 4096), (8, 2, 96, 1024) and (8, 2, 192, 256); on K4c's at the latent
@@ -153,15 +157,42 @@ def _cases(torch):
     from vmambair_torch.ops import cuda_probes
     u = torch.randn(8, 16384, 96, generator=cg, device=dev)
     ub = u.to(torch.bfloat16)
-    return [("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
-            ("kprobe_t_ms", lambda: cuda_probes.probe_transpose(ub)),
-            ("kprobe_t_f32_ms", lambda: cuda_probes.probe_transpose(u)),
-            ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
-            ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
-            ("k2_ms", lambda: cuda_effn.gdfn_residual_fwd(*k2)),
-            ("k5_ms", lambda: cuda_effn.oss_front_fwd(*k5)),
-            ("k3_ms", lambda: cuda_scan.selective_scan_bwd(
-                *s, dy, car, delta_softplus=True))] + [
+    # kprobe's projections at the same shape (RN = 38, R = 6)
+    wxp = torch.randn(38, 96, generator=cg, device=dev)
+    wdt = torch.randn(96, 6, generator=cg, device=dev)
+    # K6 at the five MamberBlock shapes of a served forward (bf16) and of
+    # the S1 step (fp32), the main ones first
+    k6 = {}
+    for name, c, hw, dt in (
+            ("k6_ms", 96, 128, torch.bfloat16),
+            ("k6_f32_ms", 96, 64, torch.float32),
+            ("k6_48_ms", 48, 128, torch.bfloat16),
+            ("k6_96_64_ms", 96, 64, torch.bfloat16),
+            ("k6_192_ms", 192, 32, torch.bfloat16),
+            ("k6_384_ms", 384, 16, torch.bfloat16),
+            ("k6f_48_ms", 48, 64, torch.float32),
+            ("k6f_96_32_ms", 96, 32, torch.float32),
+            ("k6f_192_ms", 192, 16, torch.float32),
+            ("k6f_384_ms", 384, 8, torch.float32)):
+        k6[name] = (
+            torch.randn(8, 2, c, hw * hw, generator=cg, device=dev).to(dt),
+            torch.randn(8, c, hw, hw, generator=cg, device=dev).to(dt),
+            1 + 0.1 * torch.randn(c, generator=cg, device=dev),
+            0.1 * torch.randn(c, generator=cg, device=dev))
+    return [
+        ("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
+        ("kprobe_t_ms", lambda: cuda_probes.probe_transpose(ub)),
+        ("kprobe_t_f32_ms", lambda: cuda_probes.probe_transpose(u)),
+        ("kprobe_p_ms", lambda: cuda_probes.probe_proj(ub, wxp, wdt)),
+        ("kprobe_p_f32_ms", lambda: cuda_probes.probe_proj(u, wxp, wdt)),
+        ("k1_96_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1w)),
+        ("k1c_ms", lambda: cuda_scan.oss_scan_fused_fwd_carries(*fused)),
+        ("k2_ms", lambda: cuda_effn.gdfn_residual_fwd(*k2)),
+        ("k5_ms", lambda: cuda_effn.oss_front_fwd(*k5)),
+        ("k3_ms", lambda: cuda_scan.selective_scan_bwd(
+            *s, dy, car, delta_softplus=True))] + [
+        (name, lambda a=a: cuda_effn.oss_tail_fwd(*a))
+        for name, a in k6.items()] + [
         (name, lambda a=a: cuda_scan.selective_scan_bwd(
             *a, delta_softplus=True)) for name, a in k3] + [
         (name, lambda a=a: cuda_effn.gdfn_residual_fwd(*a))

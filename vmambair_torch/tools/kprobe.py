@@ -19,8 +19,10 @@ probe under the TPU probe's names, {"probe": "transpose_pair_in_kernel"
 for the transpose, `library_ms`; for the projections also
 `rows38_ops_ms`, the fp32 operations of all 38 rows of xdbl that the
 probe computes over the card's fp32 rate (7 of them reach y, and the
-bound counts those). On `cpu` the shape shrinks to B = 2, L = 2048 (the
-plain versions; parity only).
+bound counts those), and `rows40_tc_ms`, the kernel's own products on the
+tensor cores (all 40 rows of its padded xdbl in three parts, then the
+output) at their peak rate. On `cpu` the shape shrinks to B = 2, L = 2048
+(the plain versions; parity only).
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ import torch
 
 from ..ops.cuda_probes import (PROBE_SCALE, probe_proj, probe_proj_ref,
                                probe_transpose, probe_transpose_ref)
-from . import FP32_FLOPS, HBM_BPS, check_envelope, device_of, max_err, race
+from . import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BPS, TF32_TC_FLOPS,
+               check_envelope, device_of, max_err, race)
 
 SHAPE = dict(B=8, L=16384, D=96)   # the TPU probe's (tools/kprobe.py:14)
 CPU_SHAPE = dict(B=2, L=2048, D=96)
 RN, R = 38, 6                      # R + 2N at the hot shape; dt rank
+TC_RN = 40                         # RN padded to n-tiles of 8 on the card
 REPEATS = 9
 POOL = 3
 PROBES = ("transpose_pair_in_kernel", "proj_in_kernel")
@@ -96,6 +100,19 @@ def proj_rows_ops_ms(shape: dict) -> float:
     return rows * (2 * RN * D + 2 * D * R + D) / FP32_FLOPS * 1e3
 
 
+def proj_tc_ms(shape: dict, dtype=torch.bfloat16) -> float:
+    """The tensor-core route's products at the card's peak (ms): all
+    TC_RN rows of xdbl as three products (three bf16 parts of W_xp against
+    a bf16 u at the bf16 rate; split TF32 for an fp32 u at the TF32 rate),
+    then the output's 8 rows as three TF32 products: a figure beside the
+    bound, not the bound."""
+    rows, D = shape["B"] * shape["L"], shape["D"]
+    first = 3 * 2 * rows * TC_RN * D
+    out = 3 * 2 * rows * 8 * D
+    rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else TF32_TC_FLOPS
+    return (first / rate + out / TF32_TC_FLOPS) * 1e3
+
+
 def bound_ms(name: str, shape: dict) -> tuple[float, str]:
     by, ops = work(name, shape)
     t_b, t_o = by / HBM_BPS * 1e3, ops / FP32_FLOPS * 1e3
@@ -151,6 +168,7 @@ def run(names: list, device, shape: dict = None) -> list:
                    launches=2 + REPEATS)
         if name == "proj_in_kernel":
             row["rows38_ops_ms"] = proj_rows_ops_ms(shape)
+            row["rows40_tc_ms"] = proj_tc_ms(shape)
         if name == "transpose_pair_in_kernel":
             row["library_ms"] = (statistics.median(times["library"])
                                  if "library" in times else None)
