@@ -241,7 +241,11 @@ non-zero, and without a CUDA device the script stops before any result:
    groups x 96 channels, N=16; kvariants' model-realistic recipe): K7
    (`selective_scan_ld_fwd`), `scan_seq` and `scan_lpar` against the plain
    scan, bf16 (3e-2 / 5e-2) and fp32 (6e-4 / 2e-3), forward and reverse,
-   on DL, channels-last and kseq views; kvariants' v16 (`scan_combined`,
+   on DL, channels-last and kseq views (`scan_seq` also at a segment of
+   1000, no divisor of L; K7 also at N = 32, two register passes of 16
+   states; both profiled once in phase 3 for their device ms per grid,
+   where the walks' resident warps by the occupancy API are printed);
+   kvariants' v16 (`scan_combined`,
    y and the chunk-local reverse y2), v3 and v10 (`scan_stack_ab`,
    `scan_stack_b`) in bf16 against their plain versions (the bf16
    envelope; the stacks' error against the exact scan printed beside),
@@ -253,7 +257,11 @@ non-zero, and without a CUDA device the script stops before any result:
    through the tools' entry points: kvariants' race against K4 and
    lpar_1024 (v16 against twice lpar_1024's time, the stacks against
    once), kseq with and without its relayout, kpeak's rates, each kernel's
-   launches against what the tools scheduled. Every scan's bound gains
+   launches against what the tools scheduled; the register walk's rows
+   (kvariants' seq variants and K7, kseq's) beside lpar_1024's time, the
+   scan's bound (and, as a note, the design's own at two exp2s per
+   element). Every
+   scan's bound gains
    its exp2 term (one SFU exp2 per (b, l, d, n)), phase 3's rows included,
    at the larger of the SFU's nominal rate and the measured exp rate, both
    printed. 8c: kvariants' 15 separated-exponent names (the matmul dual
@@ -303,7 +311,8 @@ the distributed phase,
 for the probe kernels those of the probe paths of phases 8 to 10, which
 must be at least one each; a launch is one call of the kernel's wrapper, which for K1, K1c and
 `ld_fused` is four grids and for `scan_lpar`, `scan_combined` and the
-stacks three, `grids_per_launch` in its entry;
+stacks three, as for `scan_seq` and K7 over more than one segment (every
+call here), `grids_per_launch` in its entry;
 max error, times and bound from phases 3 and 8-10) and the card's name and
 power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -387,11 +396,13 @@ KERNELS = {
     "selective_scan_ld": dict(
         fn=cuda_scan.selective_scan_ld_fwd,
         source="vmambair_torch/csrc/scan_seq.cu",
-        replaces=f"{PALLAS}:493", path="probe"),
+        replaces=f"{PALLAS}:493", path="probe",
+        grids_per_launch=cuda_scan.SEQ_GRIDS),
     "scan_seq": dict(
         fn=cuda_probes.scan_seq,
         source="vmambair_torch/csrc/scan_seq.cu",
-        replaces="tools/kseq.py:75", path="probe"),
+        replaces="tools/kseq.py:75", path="probe",
+        grids_per_launch=cuda_scan.SEQ_GRIDS),
     "scan_lpar": dict(
         fn=cuda_probes.scan_lpar,
         source="vmambair_torch/csrc/scan_lpar.cu",
@@ -1466,6 +1477,7 @@ def kernels_vs_plain() -> tuple[dict, dict]:
             line += f"; {ms / empty_ms:.2f} empty launches"
         print(line)
     k3_grids(k3_calls)
+    seq_grids()
     del cases, k3_calls
     k1_deterministic(gen)
     k2_deterministic(gen)
@@ -4306,6 +4318,13 @@ def distributed() -> dict:
 
 PROBE_SHAPE = kvariants.Shape(**kvariants.SHAPE)
 KSEQ_RACE = ("seq", "seq_win8", "seq_win16")
+# scan_seq's explicit segment in phase 8a: no divisor of L = 16384
+SEQ_ODD_SEG = 1000
+# K7 above the 16 states of a register pass, in phase 8a
+K7_WIDE_N = 32
+# scan_seq.cu's instances whose residency phase 3 prints: (N, window)
+SEQ_RESIDENT = ((8, 8), (16, 1), (16, 8), (16, 16), (32, 8), (64, 8),
+                (256, 8))
 PEAK_KERNELS = {k["probe"]: name for name, k in KERNELS.items()
                 if "probe" in k}
 
@@ -4343,6 +4362,8 @@ def _scan_probe_cases(inp, kin, rev):
         ("scan_seq", "DL win 16", lambda: kv.run_seq(inp, rev, 16)),
         ("scan_seq", "DL win 1", lambda: kv.run_seq(inp, rev, 1)),
         ("scan_seq", "kseq (G,L,8,Dg) win 8", seq_kseq),
+        ("scan_seq", f"DL win 8 seg {SEQ_ODD_SEG}",
+         lambda: kv.run_seq(inp, rev, 8, SEQ_ODD_SEG)),
         ("selective_scan_ld", f"LD (K7, win {cuda_scan.K7_WIN})",
          lambda: kv.run_seq_ld(inp, rev)),
         ("scan_lpar", "DL seg 1024", lambda: kv.run_lpar(inp, rev, 1024)),
@@ -4482,6 +4503,75 @@ def stacks_last_bf16(inp, stats):
               f"(interleaved, 9 rounds); card {nvidia_smi_line()}")
 
 
+def seq_grids():
+    """The resident warps of scan_seq.cu's walks at SEQ_RESIDENT's (N,
+    window), which size the segments; then scan_seq (DL, window 8) and K7
+    at the probe shape in bf16, one call of each under torch.profiler:
+    device ms per grid (pass 1, the segments from zero; the combine; pass
+    3, the segments again writing y). Run in
+    phase 3, beside K3's grids: a trace taken in phase 8, after phase 7's
+    profiles and runs, recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {(n, w): cuda_scan.seq_resident(dev, n, w) for n, w in SEQ_RESIDENT}
+    print("[probes] scan_seq.cu's resident warps (N, window), the occupancy "
+          "API's: " + ", ".join(f"({n}, {w}) {r}" for (n, w), r in
+                                res.items()) + f"; card {nvidia_smi_line()}")
+    seg = cuda_scan.seq_segment(8, 2, 96, 16384, res[(16, 8)])
+    inp, _ = _probe_inputs(torch.bfloat16)
+    for label, call in (("scan_seq DL win 8",
+                         lambda: kvariants.run_seq(inp, False, 8)),
+                        ("K7 LD", lambda: kvariants.run_seq_ld(inp))):
+        call()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rows = {}
+        for r in prof.key_averages():
+            if r.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            k = ("combine" if "scan_seq_combine" in r.key else
+                 "pass 3" if ", true>" in r.key else
+                 "pass 1" if "scan_seq_kernel" in r.key else "other")
+            rows[k] = rows.get(k, 0.0) + r.self_device_time_total / 1e3
+        grids = (", ".join(f"{k} {v:.4f}" for k, v in rows.items()) if rows
+                 else "the profiler recorded no device time")
+        print(f"[probes] {label} (8,16384,192,N=16) bf16, segments of "
+              f"{seg}, per grid (ms): "
+              f"{grids}; card {nvidia_smi_line()}")
+    del inp
+    torch.cuda.empty_cache()
+
+
+def k7_wide_vs_plain():
+    """K7 at the probe shape with N = K7_WIDE_N (two register passes of
+    16), bf16 and fp32, forward and reverse, against the plain scan."""
+    shape = kvariants.Shape(**dict(kvariants.SHAPE, N=K7_WIDE_N))
+    for dtype in (torch.bfloat16, torch.float32):
+        inp = kvariants.make_inputs(shape, 11, "cuda", "real")
+        for k in ("u", "delta", "Bm", "Cm", "u_ld", "delta_ld"):
+            inp[k] = inp[k].to(dtype)
+        rtol, atol = TOL[dtype]
+        for rev in (False, True):
+            got = kvariants.run_seq_ld(inp, rev)
+            torch.cuda.synchronize()
+            tag = (f"selective_scan_ld LD (K7) N={K7_WIDE_N} rev={rev} "
+                   f"{str(dtype)[6:]}")
+            err = check_close(tag, got, kvariants.run_reference(inp, rev),
+                              rtol, atol)
+            line = f"[probes] {tag}: max abs err {err:.3e}"
+            if not rev:
+                line += (f"; kernel "
+                         f"{time_ms(lambda: kvariants.run_seq_ld(inp)):.3f} "
+                         "ms")
+            print(line)
+            del got
+        del inp
+        torch.cuda.empty_cache()
+
+
 def probe_kernels_vs_plain(stats):
     """Phase 8a: K7, scan_seq and scan_lpar at the probe shape (B=8,
     L=16384, G=2, D=96, N=16) against the plain scan, bf16 and fp32,
@@ -4516,6 +4606,7 @@ def probe_kernels_vs_plain(stats):
             del ref
         del inp, kin
         torch.cuda.empty_cache()
+    k7_wide_vs_plain()
     kvariants_vs_plain(stats)
     for name, (fn, probe, dtype, _) in cuda_probes.PEAK_PROBES.items():
         x = kpeak.make_x((kpeak.GRID, kpeak.ROWS, kpeak.LANES), dtype, 0,
@@ -4678,6 +4769,22 @@ def probe_race() -> tuple[dict, float]:
               f"relayout {r['ms_with_relayout']:.3f} ms, "
               f"{r['gelem_per_s']:.1f} Gelem/s; parity max abs err "
               f"{r['max_abs_err']:.3e}")
+    # the register walk (csrc/scan_seq.cu) against the lane-parallel scan
+    lpar = next(r["ms"] for r in kv if r["variant"] == "lpar_1024")
+    terms = _probe_scan_bound(torch.bfloat16)
+    two = finish_bound(dict(terms, exp2=2 * terms["exp2"]),
+                       ex2_rate)["bound_ms"]
+    walks = [(f"kvariants {r['variant']}", r["ms"]) for r in kv
+             if r["kernel"] in ("scan_seq", "selective_scan_ld")]
+    walks += [(f"kseq {r['variant']}", r["ms"]) for r in ks]
+    walks += [(f"kseq {r['variant']} with the relayout",
+               r["ms_with_relayout"]) for r in ks]
+    for name, ms in walks:
+        print(f"[race] the register walk, {name}: {ms:.3f} ms, "
+              f"{ms / lpar:.3f} of lpar_1024's {lpar:.3f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms, {bnd['bound_ms'] / ms:.3f} of the "
+              f"time (note: the design's two walks, two exp2s per element, "
+              f"could take no less than {two:.4f} ms); card {card}")
     for r in pk:
         sheet = r["datasheet_t_ops_per_s"]
         print(f"[race] kpeak {r['probe']}: {r['t_ops_per_s']:.2f} T-ops/s "

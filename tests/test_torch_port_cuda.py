@@ -1018,16 +1018,24 @@ def _view_args(cuda, layout, b, G, dg, L, N, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("layout", ["dl", "ld", "kseq"])
-@pytest.mark.parametrize("win,N", [(1, 16), (16, 5), (7, 16)])
-def test_scan_seq_kernel_matches_plain(cuda, win, N, layout, reverse,
+@pytest.mark.parametrize("win,N,seg", [
+    pytest.param(1, 16, None, id="1-16"), pytest.param(16, 5, None, id="16-5"),
+    pytest.param(7, 16, None, id="7-16"),
+    pytest.param(8, 16, 4096, id="8-16-seg4096"),
+    pytest.param(8, 16, 16, id="8-16-seg16"),
+    pytest.param(16, 5, 30, id="16-5-seg30")])
+def test_scan_seq_kernel_matches_plain(cuda, win, N, seg, layout, reverse,
                                        dtype):
     """L = 101 is no multiple of the window; Dg = 37 is a tile of 32
-    channels and a ragged one; N = 5 is no power of two."""
+    channels and a ragged one; N = 5 is no power of two. seg None is the
+    rule's (`seq_segment`: two segments of 64 here); 4096 one segment (one
+    grid, no scratch); 16 seven, the last ragged; 30 four, 30 no multiple
+    of the window of 16 nor a divisor of L."""
     from vmambair_torch.ops import cuda_probes
 
     args = _view_args(cuda, layout, 3, 2, 37, 101, N, dtype, win + N)
     n0 = cuda_probes.scan_seq.launches
-    got = cuda_probes.scan_seq(*args, reverse=reverse, win=win)
+    got = cuda_probes.scan_seq(*args, reverse=reverse, win=win, seg=seg)
     assert cuda_probes.scan_seq.launches == n0 + 1 and got is args[7]
     _close(got, cuda_scan.scan_views_ref(*args[:7], True, reverse), dtype)
 
@@ -1051,12 +1059,16 @@ def test_scan_lpar_kernel_matches_plain(cuda, seg, L, layout, reverse,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("reverse", [False, True])
-def test_selective_scan_ld_kernel_matches_plain(cuda, reverse, dtype):
+@pytest.mark.parametrize("reverse,N", [
+    pytest.param(False, 16, id="False"), pytest.param(True, 16, id="True"),
+    pytest.param(False, 32, id="False-N32"),
+    pytest.param(True, 64, id="True-N64")])
+def test_selective_scan_ld_kernel_matches_plain(cuda, reverse, N, dtype):
     """K7 on a contiguous (B, L, D) u, a strided delta and B/C viewed from
-    (B, G, N, L) memory; L = 101, D = 74."""
+    (B, G, N, L) memory; L = 101, D = 74. N = 32 and 64 walk the states in
+    register passes of 16 (the card refused N > 16 before)."""
     g = torch.Generator().manual_seed(11)
-    b, L, G, dg, N = 2, 101, 2, 37, 16
+    b, L, G, dg = 2, 101, 2, 37
     dim = G * dg
     args = [torch.randn(b, L, dim, generator=g).to(cuda, dtype),
             (torch.rand(b, dim, L, generator=g) * 2 - 3).to(cuda, dtype)

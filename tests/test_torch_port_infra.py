@@ -235,12 +235,20 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
     stubbed: it names an exported function and passes exactly its
     signature's arguments (a pointer as an int or None, an int or long
     long as an int, a float as a float), the stream added by `launch`."""
-    from vmambair_torch.ops import cuda_effn, cuda_probes
+    from vmambair_torch.ops import cuda_effn, cuda_probes, cuda_scan
 
     calls = []
+    # the stubbed launches count; each count is put back after the test, so
+    # that a later test on this worker that reads a count sees none of them
+    for mod in (cuda_probes, cuda_effn):
+        for fn in vars(mod).values():
+            if callable(fn) and hasattr(fn, "launches"):
+                monkeypatch.setattr(fn, "launches", fn.launches)
     monkeypatch.setattr(cuda_probes, "on_cpu", lambda *ts: False)
     # keffn's fp32 split asks the card's cluster residency: none here
     monkeypatch.setattr(cuda_effn, "_resident", lambda *a: 0)
+    # scan_seq's segment rule asks the walk's residency: the H100's here
+    monkeypatch.setattr(cuda_scan, "seq_resident", lambda *a: 16 * 132)
     monkeypatch.setattr(_build, "launch",
                         lambda name, dev, *a: calls.append((name, a)))
     u = torch.zeros(1, 2, 40, 4)
@@ -288,6 +296,19 @@ def test_probe_wrappers_pass_their_signatures(monkeypatch):
             assert (isinstance(v, int) and k is not _build._F) or (
                 k is _build._P and v is None) or (
                 k is _build._F and isinstance(v, float)), name
+
+
+def test_kwalk_variants_apply_to_the_shipped_source():
+    """Every variant of `tools.kwalk`, the register walk's design race, is
+    the shipped csrc/scan_seq.cu with edits that each match it exactly
+    once: a change to the kernel that moves an edit's anchor shows here,
+    not first on the card."""
+    from vmambair_torch.tools import kwalk
+
+    rows = kwalk.run(list(kwalk.VARIANTS), torch.device("cpu"))
+    assert [r["variant"] for r in rows] == list(kwalk.VARIANTS)
+    assert all(r["edits_apply"] for r in rows)
+    assert all(kwalk.VARIANTS[n][1] for n in kwalk.VARIANTS if n != "shipped")
 
 
 @pytest.mark.parametrize("path", ["vmambair_torch/ops/cuda_scan.py",

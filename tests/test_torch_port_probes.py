@@ -83,9 +83,14 @@ def _f32(a):
 
 # -- K7 ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("reverse", [False, True])
-def test_k7_plain_matches_jax_scan_kernel_ld(reverse):
-    BT, L, dim, G, N, chunk, d_tile = 2, 64, 16, 2, 4, 16, 8
+@pytest.mark.parametrize("reverse,N", [
+    pytest.param(False, 4, id="False"), pytest.param(True, 4, id="True"),
+    pytest.param(False, 32, id="False-N32"),
+    pytest.param(True, 32, id="True-N32")])
+def test_k7_plain_matches_jax_scan_kernel_ld(reverse, N):
+    """N = 32: above the 16 states the card once took (it raised there
+    while this path and JAX computed)."""
+    BT, L, dim, G, chunk, d_tile = 2, 64, 16, 2, 16, 8
     rng = np.random.RandomState(5 + reverse)
     u = rng.randn(BT, L, dim).astype(np.float32)
     delta = rng.uniform(-3.0, 0.5, (BT, L, dim)).astype(np.float32)

@@ -100,7 +100,12 @@ SIGNATURES = {
         _P, _I, _LL, _LL, _LL, _LL,              # C (b, g, l, n)
         _P, _P,                                  # Dskip, bias
         _P, _I, _LL, _LL, _LL, _LL,              # y (b, g, l, d)
-        _I, _I, _I, _I, _I, _I, _I, _I, _P,      # B G L Dg N win rev sp stream
+        _P,                                      # work (scratch) or None
+        _I, _I, _I, _I, _I,                      # B G L Dg N
+        _I, _I, _I, _I, _P,                      # win seg rev sp stream
+    ],
+    "vmt_scan_seq_resident": [
+        _I, _I, _P, _P,                          # N win out stream
     ],
     "vmt_scan_lpar_fwd": [
         _P, _I, _LL, _LL, _LL, _LL,              # u (b, g, l, d)

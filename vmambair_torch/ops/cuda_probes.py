@@ -4,10 +4,12 @@ versions, and their launch counts.
 Counterparts of the TPU probes `tools/kseq.py`, `tools/kvariants.py` and
 `tools/kpeak.py`:
 
-- `scan_seq` (csrc/scan_seq.cu): the sequential-over-L register scan, one
-  thread per (b, channel), inputs staged in windows of `win` positions
-  (kseq's `kernel_seq` at win 1, `kernel_seq_win` at 8 and 16, kvariants'
-  `kernel_v12_ld` on channels-last views).
+- `scan_seq` (csrc/scan_seq.cu): the sequential register scan, one thread
+  per (b, channel, segment of L) walking its positions in order, inputs
+  staged in windows of `win` positions (kseq's `kernel_seq` at win 1,
+  `kernel_seq_win` at 8 and 16, kvariants' `kernel_v12_ld` on
+  channels-last views); over more than one segment one call is three grid
+  launches (segments, combine, segments again) and counts one.
 - `scan_lpar` (csrc/scan_lpar.cu): the L-parallel segmented scan, segments
   of `seg` positions (kvariants' exact Hillis-Steele and log-domain
   families); one call is `SCAN_LPAR_GRIDS` grid launches (segments,
@@ -52,9 +54,9 @@ import torch.nn.functional as F
 from .. import _build
 from .._build import dtype_code, f32, no_grad_needed, on_cpu
 from .cuda_effn import MAX_C, launch_gdfn
-from .cuda_scan import (MAX_SEQ_WIN, _gld, bl_flat, k1_sizes, launch_k1,
-                        launch_views, oss_scan_fused_ref, scan_views_ref,
-                        view_shapes)
+from .cuda_scan import (MAX_SEQ_N, _gld, bl_flat, k1_sizes, launch_k1,
+                        launch_seq, launch_views, oss_scan_fused_ref,
+                        scan_views_ref, view_shapes)
 from .selective_scan import _hillis_scan, _prep, selective_scan_chunked
 
 PROBE_MAX_D = 256                # kprobe: the tile in shared memory
@@ -72,17 +74,17 @@ STACK_MIN_SUB = 8
 # -- the scans -----------------------------------------------------------------
 
 def scan_seq(u, delta, A, B, C, D, delta_bias, y, *, delta_softplus=True,
-             reverse=False, win=1):
+             reverse=False, win=1, seg=None):
     """The sequential register scan into the view y (see the module's
-    docstring for the views); N <= 16, 1 <= win <= 16. Returns y."""
+    docstring for the views); N <= 16, 1 <= win <= 16, L in segments of
+    `seg` positions (None: `cuda_scan.seq_segment`). Returns y."""
     args = (u, delta, A, B, C, D, delta_bias, y)
     if on_cpu(*args):
         view_shapes("scan_seq", u, delta, A, B, C, y)
         return y.copy_(scan_views_ref(*args[:7], delta_softplus, reverse))
     no_grad_needed("scan_seq", *args)
-    if not 1 <= win <= MAX_SEQ_WIN:
-        raise ValueError(f"scan_seq: win={win} outside 1..{MAX_SEQ_WIN}")
-    launch_views("vmt_scan_seq_fwd", *args, delta_softplus, reverse, (win,))
+    launch_seq("scan_seq", *args, delta_softplus, reverse, win, seg,
+               MAX_SEQ_N)
     scan_seq.launches += 1
     return y
 

@@ -35,6 +35,9 @@ grid overhead and tiling, and eager PyTorch fuses nothing.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .. import _build
@@ -42,11 +45,23 @@ from .._build import dtype_code, f32, grad_needed, no_grad_needed, on_cpu
 from .selective_scan import selective_scan_bwd_ref, selective_scan_chunked
 
 MAX_SCAN_N = 256
-MAX_SEQ_N = 16    # states in registers in csrc/scan_seq.cu and scan_lpar.cu
+# states the probes' view-addressed scans take (scan_lpar.cu and its kin
+# hold them in registers at once; scan_seq.cu's probes keep the same
+# range, K7 takes up to MAX_SCAN_N in register passes of 16)
+MAX_SEQ_N = 16
 MAX_SEQ_WIN = 16  # positions to a shared-memory window of scan_seq.cu
-# K7's window: scan_seq.cu at 16 positions spills its prefetch registers
-# (440 bytes in the ptxas report for sm_90a), at 8 it does not
+# K7's window: the window of scan_seq.cu's register passes too (N > 16)
 K7_WIN = 8
+# scan_seq.cu's segments: a warp walks one segment of one channel tile of
+# 32; seq_segment halves SEQ_MAX_SEG down to SEQ_MIN_SEG while the grid has
+# fewer than SEQ_WAVES times the warps of the call's instance that the card
+# holds at once (segments of 128 at the probe shape on the H100, which
+# raced 64 to 512 there)
+SEQ_TC = 32
+SEQ_MAX_SEG = 4096
+SEQ_MIN_SEG = 64
+SEQ_WAVES = 2
+SEQ_GRIDS = 3  # grids of a scan_seq.cu call over more than one segment
 MAX_FUSED_D = 256
 MAX_FUSED_N = 32  # states in registers of K1's passes 1 and 3
 # grids one K1 / K1c call launches: the projection, the segments, their
@@ -255,9 +270,9 @@ def scan_views_ref(u, delta, A, B, C, D, delta_bias, softplus, reverse):
     return _gld(y, u.shape[1])
 
 
-def view_shapes(name, u, delta, A, B, C, y):
+def view_shapes(name, u, delta, A, B, C, y, max_n=MAX_SEQ_N):
     """Checks the (b, g, l, d) / (b, g, l, n) views a view-addressed kernel
-    takes; returns (B, G, L, Dg, N)."""
+    takes, N up to `max_n`; returns (B, G, L, Dg, N)."""
     bsz, G, L, dg = u.shape
     N = A.shape[1]
     if delta.shape != u.shape or y.shape != u.shape or A.shape != (
@@ -266,21 +281,20 @@ def view_shapes(name, u, delta, A, B, C, y):
                          f"delta {tuple(delta.shape)} y {tuple(y.shape)} A "
                          f"{tuple(A.shape)} B {tuple(B.shape)} C "
                          f"{tuple(C.shape)}")
-    if N > MAX_SEQ_N:
-        raise ValueError(f"{name}: N={N} over the kernel's {MAX_SEQ_N} "
-                         "register states")
+    if N > max_n:
+        raise ValueError(f"{name}: N={N} over the kernel's {max_n} states")
     return bsz, G, L, dg, N
 
 
 def launch_views(name, u, delta, A, B, C, D, delta_bias, y, softplus,
-                 reverse, extra, buffers=()):
+                 reverse, extra, buffers=(), max_n=MAX_SEQ_N):
     """Launches the exported C function `name` of a view-addressed scan
     (`vmt_scan_seq_fwd`, `vmt_scan_lpar_fwd`, `vmt_scan_combined_fwd`,
     `vmt_scan_stack_fwd`) on CUDA tensors; y is written in place. `extra`
-    is the tuple of the kernel's own sizes ((win,), (seg,), ...);
+    is the tuple of the kernel's own sizes ((win, seg), (seg,), ...);
     `buffers` the further tensors it writes (a second output, scratch),
-    passed as pointers after y's."""
-    bsz, G, L, dg, N = view_shapes(name, u, delta, A, B, C, y)
+    passed as pointers after y's (None as a null pointer)."""
+    bsz, G, L, dg, N = view_shapes(name, u, delta, A, B, C, y, max_n)
     A32 = f32(A)
     D32 = None if D is None else f32(D)
     b32 = None if delta_bias is None else f32(delta_bias)
@@ -294,7 +308,7 @@ def launch_views(name, u, delta, A, B, C, D, delta_bias, y, softplus,
         None if D32 is None else D32.data_ptr(),
         None if b32 is None else b32.data_ptr(),
         y.data_ptr(), dtype_code(y, "out"), *y.stride(),
-        *(t.data_ptr() for t in buffers),
+        *(None if t is None else t.data_ptr() for t in buffers),
         bsz, G, L, dg, N, *extra, int(bool(reverse)), int(bool(softplus)),
     )
 
@@ -313,14 +327,67 @@ def selective_scan_ld_ref(u, delta, A, B, C, D=None, delta_bias=None,
                               delta_softplus, reverse, out_dtype).contiguous()
 
 
+def seq_segment(b: int, G: int, Dg: int, L: int, resident: int) -> int:
+    """Positions to a segment of csrc/scan_seq.cu: SEQ_MAX_SEG, halved down
+    to SEQ_MIN_SEG while the grid, b * G * ceil(Dg / 32) * ceil(L / seg)
+    warps, has fewer than SEQ_WAVES * `resident`, the warps of the call's
+    instance that the card holds at once (`seq_resident` on the card). One
+    segment (one grid, no scratch) where L fits it."""
+    tiles = b * G * -(-Dg // SEQ_TC)
+    seg = SEQ_MAX_SEG
+    while seg > SEQ_MIN_SEG and tiles * -(-L // seg) < SEQ_WAVES * resident:
+        seg //= 2
+    return seg
+
+
+@functools.lru_cache(maxsize=None)
+def seq_resident(device: torch.device, N: int, win: int) -> int:
+    """The warps of scan_seq.cu's walks for N states in windows of `win`
+    that the CUDA `device` holds at once: its SMs times the blocks (one
+    warp each) an SM holds, by the CUDA occupancy API."""
+    out = ctypes.c_int(0)
+    _build.launch("vmt_scan_seq_resident", device, N, win,
+                  ctypes.addressof(out))
+    return out.value
+
+
+def seq_workspace(b: int, G: int, Dg: int, L: int, N: int, seg: int) -> int:
+    """fp32 scratch of a scan_seq.cu call over more than one segment, in
+    floats: each segment's end state (then entering state), (b, nseg, N,
+    G * Dg), and its sum of delta, (b, nseg, G * Dg). None is needed within
+    one segment."""
+    nseg = -(-L // seg)
+    return 0 if nseg == 1 else b * nseg * G * Dg * (N + 1)
+
+
+def launch_seq(name, u, delta, A, B, C, D, delta_bias, y, softplus, reverse,
+               win, seg, max_n):
+    """Launches `vmt_scan_seq_fwd` on the (b, g, l, d) / (b, g, l, n) views
+    (see `launch_views`), in windows of `win` positions and segments of
+    `seg` (None: `seq_segment`), with its scratch."""
+    bsz, G, L, dg, N = view_shapes(name, u, delta, A, B, C, y, max_n)
+    if not 1 <= win <= MAX_SEQ_WIN or (N > MAX_SEQ_N and win > K7_WIN):
+        raise ValueError(f"{name}: win={win} outside 1..{MAX_SEQ_WIN} (1.."
+                         f"{K7_WIN} above {MAX_SEQ_N} states)")
+    if seg is None:
+        seg = seq_segment(bsz, G, dg, L, seq_resident(u.device, N, win))
+    if seg < 1:
+        raise ValueError(f"{name}: seg={seg}")
+    size = seq_workspace(bsz, G, dg, L, N, seg)
+    work = torch.empty(size, device=u.device) if size else None
+    launch_views("vmt_scan_seq_fwd", u, delta, A, B, C, D, delta_bias, y,
+                 softplus, reverse, (win, seg), buffers=(work,), max_n=max_n)
+
+
 def selective_scan_ld_fwd(u, delta, A, B, C, D=None, delta_bias=None,
                           delta_softplus=False, reverse=False, out_dtype=None):
     """K7: the grouped selective scan, channels last (JAX
     `_build_pallas_fwd_ld`, pallas_scan.py:557). u, delta (B, L, D); A
-    (D, N) fp32, N <= 16; B, C any strided view of (B, L, G, N); D,
+    (D, N) fp32, N <= MAX_SCAN_N; B, C any strided view of (B, L, G, N); D,
     delta_bias (D,). Returns a contiguous y (B, L, D) in `out_dtype`
     (default: u's dtype). On CUDA: the sequential register scan of
-    csrc/scan_seq.cu in windows of K7_WIN positions."""
+    csrc/scan_seq.cu in windows of K7_WIN positions and segments of
+    `seq_segment`, N above 16 in register passes of 16."""
     args = (u, delta, A, B, C, D, delta_bias)
     if on_cpu(*args):
         return selective_scan_ld_ref(*args, delta_softplus, reverse,
@@ -328,9 +395,9 @@ def selective_scan_ld_fwd(u, delta, A, B, C, D=None, delta_bias=None,
     no_grad_needed("selective_scan_ld_fwd", *args)
     bsz, L, dim, G, N = _scan_shapes(u, delta, A, B, C, "selective_scan_ld")
     y = torch.empty(bsz, L, dim, dtype=out_dtype or u.dtype, device=u.device)
-    launch_views("vmt_scan_seq_fwd", _gld(u, G), _gld(delta, G), A,
-                 B.permute(0, 2, 1, 3), C.permute(0, 2, 1, 3), D, delta_bias,
-                 _gld(y, G), delta_softplus, reverse, (K7_WIN,))
+    launch_seq("selective_scan_ld", _gld(u, G), _gld(delta, G), A,
+               B.permute(0, 2, 1, 3), C.permute(0, 2, 1, 3), D, delta_bias,
+               _gld(y, G), delta_softplus, reverse, K7_WIN, None, MAX_SCAN_N)
     selective_scan_ld_fwd.launches += 1
     return y
 

@@ -6,6 +6,7 @@ probes in the repository's `tools/` (`kseq.py`, `kvariants.py`, `kpeak.py`,
 
     python -m vmambair_torch.tools.kvariants [names] [--device cuda|cpu]
     python -m vmambair_torch.tools.kseq [names] [--device cuda|cpu]
+    python -m vmambair_torch.tools.kwalk [variants] [--device cuda|cpu]
     python -m vmambair_torch.tools.kpeak [--device cuda|cpu]
     python -m vmambair_torch.tools.keffn [--device cuda|cpu]
     python -m vmambair_torch.tools.kprobe [probes] [--device cuda|cpu]
@@ -14,7 +15,8 @@ probes in the repository's `tools/` (`kseq.py`, `kvariants.py`, `kpeak.py`,
 
 Each probe checks every variant against its plain version before timing
 it and prints one JSON row per variant (keffn: per shape; kldio: per
-race piece). kdualnum prints the TPU tool's rows of the dual scan's
+race piece). kwalk races design variants of csrc/scan_seq.cu, each the
+shipped source with a few edits, against it. kdualnum prints the TPU tool's rows of the dual scan's
 exponent range over one forward of the model. On `cuda` (the default) the times are
 CUDA-event medians, every timed call on another input set than the call
 before it, all variants interleaved in one process. On `cpu` the shapes

@@ -23,7 +23,11 @@ transpose pair and projections at (8, 16384, 96) bf16 and fp32
 38, R = 6), K6 at the served forward's (8, 96, 128, 128) bf16 (`k6_ms`)
 and the S1 step's (8, 96, 64, 64) fp32 (`k6_f32_ms`) and at their other
 four (`k6_48_ms`, `k6_96_64_ms`, `k6_192_ms`, `k6_384_ms`; `k6f_48_ms`,
-`k6f_96_32_ms`, `k6f_192_ms`, `k6f_384_ms`), K3 at
+`k6f_96_32_ms`, `k6f_192_ms`, `k6f_384_ms`), the register walk
+(csrc/scan_seq.cu) at the probe shape (8, 16384, 2 x 96, N = 16):
+`scan_seq` on DL views in windows of 8 (`seq_ms`, bf16; `seq_f32_ms`;
+reverse `seq_rev_ms`, `seq_f32_rev_ms`) and K7 channels-last (`k7_ms`,
+`k7_f32_ms`, `k7_rev_ms`, `k7_f32_rev_ms`), K3 at
 every shape of the S1 step (on K1c's fp32
 inputs and carries at the fused scans' (8, 2, 96, 4096), (8, 2, 48,
 4096), (8, 2, 96, 1024) and (8, 2, 192, 256); on K4c's at the latent
@@ -179,8 +183,27 @@ def _cases(torch):
             torch.randn(8, c, hw, hw, generator=cg, device=dev).to(dt),
             1 + 0.1 * torch.randn(c, generator=cg, device=dev),
             0.1 * torch.randn(c, generator=cg, device=dev))
+    # the register walk (csrc/scan_seq.cu) at the probe shape (8, 16384,
+    # 2 x 96, N = 16), kvariants' model-realistic inputs: scan_seq on DL
+    # views in windows of 8 and K7 channels-last, bf16 and fp32
+    from vmambair_torch.tools import kvariants
+    walk = {}
+    for dt in (torch.bfloat16, torch.float32):
+        inp = kvariants.make_inputs(kvariants.Shape(**kvariants.SHAPE), 7,
+                                    dev, "real")
+        for k in ("u", "delta", "Bm", "Cm", "u_ld", "delta_ld"):
+            inp[k] = inp[k].to(dt)
+        walk[dt] = inp
     return [
         ("k1_ms", lambda: cuda_scan.oss_scan_fused_fwd(*k1)),
+        *((f"seq{sfx}{rsfx}_ms",
+           lambda dt=dt, rev=rev: kvariants.run_seq(walk[dt], rev, 8))
+          for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32"))
+          for rev, rsfx in ((False, ""), (True, "_rev"))),
+        *((f"k7{sfx}{rsfx}_ms",
+           lambda dt=dt, rev=rev: kvariants.run_seq_ld(walk[dt], rev))
+          for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32"))
+          for rev, rsfx in ((False, ""), (True, "_rev"))),
         ("kprobe_t_ms", lambda: cuda_probes.probe_transpose(ub)),
         ("kprobe_t_f32_ms", lambda: cuda_probes.probe_transpose(u)),
         ("kprobe_p_ms", lambda: cuda_probes.probe_proj(ub, wxp, wdt)),

@@ -5,8 +5,9 @@ The TPU probe put channels on lanes, the batch (B = 8 exactly) on
 sublanes and the 16 states in a register array walked along L; Mosaic
 spilled that state to VMEM every step and the design was rejected
 (tools/kseq.py:28-41). On the H100 one thread holds its 16 fp32 states in
-registers: csrc/scan_seq.cu, one thread per (b, channel), inputs staged
-through shared memory in windows of `win` positions.
+registers: csrc/scan_seq.cu, one thread per (b, channel, segment of L),
+inputs staged through shared memory in windows of `win` positions, the
+segments joined by a combine over their end states.
 
 It runs kseq's own layout: u, delta, y (G, L, 8, Dg) bf16, B and C
 (G, L, N, 8, 1) bf16, at the hot level-1 decoder shape (B = 8, L = 16384,

@@ -226,9 +226,10 @@ def views(inp, y, ld):
             inp["Cm"].permute(0, 1, 3, 2), inp["Dv"], inp["bias"], to(y, G))
 
 
-def run_seq(inp, reverse=False, win=1):
+def run_seq(inp, reverse=False, win=1, seg=None):
     y = torch.empty_like(inp["u"])
-    cuda_probes.scan_seq(*views(inp, y, False), reverse=reverse, win=win)
+    cuda_probes.scan_seq(*views(inp, y, False), reverse=reverse, win=win,
+                         seg=seg)
     return y
 
 
